@@ -1,0 +1,154 @@
+"""Checkpoint loading for the port: component configs from ``config.json``
+and HF-layout state dicts (``.safetensors`` shards or torch ``.bin``/``.pt``).
+
+Counterpart of the loaders in ``safe_denoiser_tpu/models/weights.py``. The
+port's modules carry diffusers/HF parameter names, so a loaded state dict
+goes into ``load_state_dict(strict=True)`` without conversion. The
+safetensors reader is self-contained (numpy + torch): no safetensors
+package is needed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import torch
+
+from .clip_text import CLIP_VIT_L_14
+from .unet import SD14_UNET
+from .vae import SD14_VAE
+
+
+def load_component_config(model_dir: str, kind: str):
+    """Config dataclass of 'unet' | 'vae' | 'clip_text' from a diffusers/HF
+    ``config.json``; the SD-v1.4 preset when there is none."""
+    defaults = {"unet": SD14_UNET, "vae": SD14_VAE,
+                "clip_text": CLIP_VIT_L_14}[kind]
+    path = os.path.join(model_dir, "config.json")
+    if not os.path.exists(path):
+        return defaults
+    with open(path) as f:
+        cfg = json.load(f)
+    if kind == "unet":
+        heads = cfg.get("attention_head_dim", 8)
+        if isinstance(heads, list):
+            heads = heads[0]
+        return dataclasses.replace(
+            defaults,
+            sample_size=cfg.get("sample_size", 64),
+            in_channels=cfg.get("in_channels", 4),
+            out_channels=cfg.get("out_channels", 4),
+            block_out_channels=tuple(cfg.get("block_out_channels",
+                                             (320, 640, 1280, 1280))),
+            layers_per_block=cfg.get("layers_per_block", 2),
+            cross_attention_dim=cfg.get("cross_attention_dim", 768),
+            num_attention_heads=heads,
+            norm_num_groups=cfg.get("norm_num_groups", 32),
+            norm_eps=cfg.get("norm_eps", 1e-5),
+            freq_shift=cfg.get("freq_shift", 0),
+            flip_sin_to_cos=cfg.get("flip_sin_to_cos", True))
+    if kind == "vae":
+        return dataclasses.replace(
+            defaults,
+            in_channels=cfg.get("in_channels", 3),
+            out_channels=cfg.get("out_channels", 3),
+            latent_channels=cfg.get("latent_channels", 4),
+            block_out_channels=tuple(cfg.get("block_out_channels",
+                                             (128, 256, 512, 512))),
+            layers_per_block=cfg.get("layers_per_block", 2),
+            norm_num_groups=cfg.get("norm_num_groups", 32),
+            scaling_factor=cfg.get("scaling_factor", 0.18215),
+            shift_factor=cfg.get("shift_factor") or 0.0,
+            sample_size=cfg.get("sample_size", 512),
+            use_quant_conv=cfg.get("use_quant_conv", True),
+            use_post_quant_conv=cfg.get("use_post_quant_conv", True))
+    return dataclasses.replace(
+        defaults,
+        vocab_size=cfg.get("vocab_size", 49408),
+        hidden_size=cfg.get("hidden_size", 768),
+        num_layers=cfg.get("num_hidden_layers", 12),
+        num_heads=cfg.get("num_attention_heads", 12),
+        max_position_embeddings=cfg.get("max_position_embeddings", 77),
+        intermediate_size=cfg.get("intermediate_size", 3072),
+        hidden_act=cfg.get("hidden_act", "quick_gelu"),
+        projection_dim=cfg.get("projection_dim", 768),
+        eos_token_id=cfg.get("eos_token_id", 49407))
+
+
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+
+
+def _read_safetensors_header(path: str) -> tuple[dict, int]:
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+    return header, 8 + n
+
+
+def load_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """Read a .safetensors file into CPU tensors (the file is memory-mapped
+    and each tensor copied out)."""
+    header, base = _read_safetensors_header(path)
+    buf = np.memmap(path, dtype=np.uint8, mode="r")
+    out: dict[str, torch.Tensor] = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        tag = meta["dtype"]
+        if tag not in _ST_DTYPES:
+            raise NotImplementedError(f"safetensors dtype {tag} in {path}")
+        o0, o1 = meta["data_offsets"]
+        raw = torch.from_numpy(np.array(buf[base + o0:base + o1]))
+        out[name] = raw.view(_ST_DTYPES[tag]).reshape(meta["shape"])
+    return out
+
+
+def load_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A flat {key: tensor} state dict from .safetensors/.pt/.bin."""
+    if path.endswith(".safetensors"):
+        return load_safetensors(path)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return dict(obj)
+
+
+def load_sharded_state_dict(model_dir: str) -> dict[str, torch.Tensor]:
+    """The .safetensors shard set of an HF model directory: an
+    ``*.safetensors.index.json`` names the shards; precision variants
+    (``*.fp16.*``, ``*.non_ema.*``) are skipped when base files exist; torch
+    ``.bin``/``.pt`` files are read when there is no safetensors file."""
+    names = sorted(os.listdir(model_dir))
+
+    def is_variant(n):
+        return any(f".{v}." in n for v in ("fp16", "non_ema"))
+
+    index = [n for n in names if n.endswith(".safetensors.index.json")]
+    if any(not is_variant(n) for n in index):
+        index = [n for n in index if not is_variant(n)]
+    if index:
+        with open(os.path.join(model_dir, index[0])) as f:
+            shards = sorted(set(json.load(f)["weight_map"].values()))
+        out: dict[str, torch.Tensor] = {}
+        for fname in shards:
+            out.update(load_state_dict(os.path.join(model_dir, fname)))
+        return out
+    st = [n for n in names if n.endswith(".safetensors")]
+    if any(not is_variant(n) for n in st):
+        st = [n for n in st if not is_variant(n)]
+    out = {}
+    for fname in st:
+        out.update(load_state_dict(os.path.join(model_dir, fname)))
+    if not out:
+        for fname in names:
+            if fname.endswith((".bin", ".pt")):
+                out.update(load_state_dict(os.path.join(model_dir, fname)))
+    return out

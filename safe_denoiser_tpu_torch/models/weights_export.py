@@ -1,0 +1,186 @@
+"""The weight bridge: JAX-package parameter trees (as numpy) -> the port's
+diffusers/HF state dicts.
+
+``from_jax_params(params, cfg)`` inverts the JAX package's converters for
+the UNet (``invert_unet``), the VAE (``invert_vae``) and the CLIP text
+encoder (the inverse of ``convert_clip_text``), so both packages can
+compute with the same weights. Pure numpy; the JAX tree is a nested dict of
+arrays, optionally under a top-level ``"params"`` key.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .clip_text import CLIPTextConfig
+from .unet import UNetConfig
+from .vae import VAEConfig
+
+
+def _inv_lin(node, key, sd):
+    sd[f"{key}.weight"] = np.ascontiguousarray(np.asarray(node["kernel"]).T)
+    if "bias" in node:
+        sd[f"{key}.bias"] = np.asarray(node["bias"])
+
+
+def _inv_conv(node, key, sd):
+    sd[f"{key}.weight"] = np.ascontiguousarray(
+        np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+    if "bias" in node:
+        sd[f"{key}.bias"] = np.asarray(node["bias"])
+
+
+def _inv_norm(node, key, sd, inner):
+    sd[f"{key}.weight"] = np.asarray(node[inner]["scale"])
+    sd[f"{key}.bias"] = np.asarray(node[inner]["bias"])
+
+
+def _inv_gn(node, key, sd):
+    _inv_norm(node, key, sd, "GroupNorm_0")
+
+
+def _inv_ln(node, key, sd):
+    _inv_norm(node, key, sd, "LayerNorm_0")
+
+
+def _inv_attn(node, key, sd, names=("to_q", "to_k", "to_v", "to_out.0")):
+    for src, dst in zip(("to_q", "to_k", "to_v", "to_out"), names):
+        _inv_lin(node[src], f"{key}.{dst}", sd)
+
+
+def _inv_resnet(node, key, sd):
+    _inv_gn(node["norm1"], f"{key}.norm1", sd)
+    _inv_conv(node["conv1"], f"{key}.conv1", sd)
+    _inv_gn(node["norm2"], f"{key}.norm2", sd)
+    _inv_conv(node["conv2"], f"{key}.conv2", sd)
+    if "conv_shortcut" in node:
+        _inv_conv(node["conv_shortcut"], f"{key}.conv_shortcut", sd)
+    if "time_emb_proj" in node:
+        _inv_lin(node["time_emb_proj"], f"{key}.time_emb_proj", sd)
+
+
+def _inv_transformer2d(node, key, sd, n_layers):
+    _inv_gn(node["norm"], f"{key}.norm", sd)
+    _inv_conv(node["proj_in"], f"{key}.proj_in", sd)
+    _inv_conv(node["proj_out"], f"{key}.proj_out", sd)
+    for k in range(n_layers):
+        bk = f"{key}.transformer_blocks.{k}"
+        blk = node[f"blocks_{k}"]
+        for ln in ("norm1", "norm2", "norm3"):
+            _inv_ln(blk[ln], f"{bk}.{ln}", sd)
+        _inv_attn(blk["attn1"], f"{bk}.attn1", sd)
+        _inv_attn(blk["attn2"], f"{bk}.attn2", sd)
+        _inv_lin(blk["ff"]["net_0"]["proj"], f"{bk}.ff.net.0.proj", sd)
+        _inv_lin(blk["ff"]["net_2"], f"{bk}.ff.net.2", sd)
+
+
+def _unet(params, cfg: UNetConfig) -> dict:
+    sd: dict = {}
+    n = len(cfg.block_out_channels)
+    _inv_conv(params["conv_in"], "conv_in", sd)
+    _inv_lin(params["time_emb_1"], "time_embedding.linear_1", sd)
+    _inv_lin(params["time_emb_2"], "time_embedding.linear_2", sd)
+    _inv_gn(params["conv_norm_out"], "conv_norm_out", sd)
+    _inv_conv(params["conv_out"], "conv_out", sd)
+    _inv_resnet(params["mid_resnets_0"], "mid_block.resnets.0", sd)
+    _inv_resnet(params["mid_resnets_1"], "mid_block.resnets.1", sd)
+    _inv_transformer2d(params["mid_attentions_0"], "mid_block.attentions.0",
+                       sd, cfg.transformer_layers)
+    for i in range(n):
+        for j in range(cfg.layers_per_block):
+            _inv_resnet(params[f"down_{i}_resnets_{j}"],
+                        f"down_blocks.{i}.resnets.{j}", sd)
+            if i < n - 1:
+                _inv_transformer2d(params[f"down_{i}_attentions_{j}"],
+                                   f"down_blocks.{i}.attentions.{j}", sd,
+                                   cfg.transformer_layers)
+        if i < n - 1:
+            _inv_conv(params[f"down_{i}_downsample"]["conv"],
+                      f"down_blocks.{i}.downsamplers.0.conv", sd)
+    for i in range(n):
+        for j in range(cfg.layers_per_block + 1):
+            _inv_resnet(params[f"up_{i}_resnets_{j}"],
+                        f"up_blocks.{i}.resnets.{j}", sd)
+            if i > 0:
+                _inv_transformer2d(params[f"up_{i}_attentions_{j}"],
+                                   f"up_blocks.{i}.attentions.{j}", sd,
+                                   cfg.transformer_layers)
+        if i < n - 1:
+            _inv_conv(params[f"up_{i}_upsample"]["conv"],
+                      f"up_blocks.{i}.upsamplers.0.conv", sd)
+    return sd
+
+
+def _inv_vae_mid(node, key, sd):
+    _inv_resnet(node["resnets_0"], f"{key}.resnets.0", sd)
+    _inv_resnet(node["resnets_1"], f"{key}.resnets.1", sd)
+    _inv_gn(node["attentions_0"]["group_norm"],
+            f"{key}.attentions.0.group_norm", sd)
+    _inv_attn(node["attentions_0"]["attention"], f"{key}.attentions.0", sd)
+
+
+def _vae(params, cfg: VAEConfig) -> dict:
+    sd: dict = {}
+    n = len(cfg.block_out_channels)
+    for part, layers, blocks, sampler, sname in (
+            ("encoder", cfg.layers_per_block, "down", "downsample",
+             "downsamplers"),
+            ("decoder", cfg.layers_per_block + 1, "up", "upsample",
+             "upsamplers")):
+        node = params[part]
+        _inv_conv(node["conv_in"], f"{part}.conv_in", sd)
+        _inv_vae_mid(node["mid_block"], f"{part}.mid_block", sd)
+        _inv_gn(node["conv_norm_out"], f"{part}.conv_norm_out", sd)
+        _inv_conv(node["conv_out"], f"{part}.conv_out", sd)
+        for i in range(n):
+            for j in range(layers):
+                _inv_resnet(node[f"{blocks}_{i}_resnets_{j}"],
+                            f"{part}.{blocks}_blocks.{i}.resnets.{j}", sd)
+            if i < n - 1:
+                _inv_conv(node[f"{blocks}_{i}_{sampler}"]["conv"],
+                          f"{part}.{blocks}_blocks.{i}.{sname}.0.conv", sd)
+    for conv in ("quant_conv", "post_quant_conv"):
+        if conv in params:
+            _inv_conv(params[conv], conv, sd)
+    return sd
+
+
+def _clip_text(params, cfg: CLIPTextConfig,
+               with_projection: bool = False) -> dict:
+    p = "text_model."
+    sd = {
+        f"{p}embeddings.token_embedding.weight":
+            np.asarray(params["token_embedding"]["embedding"]),
+        f"{p}embeddings.position_embedding.weight":
+            np.asarray(params["position_embedding"]),
+    }
+    _inv_ln(params["final_layer_norm"], f"{p}final_layer_norm", sd)
+    for i in range(cfg.num_layers):
+        lk = f"{p}encoder.layers.{i}"
+        node = params[f"layers_{i}"]
+        _inv_ln(node["layer_norm1"], f"{lk}.layer_norm1", sd)
+        _inv_ln(node["layer_norm2"], f"{lk}.layer_norm2", sd)
+        _inv_attn(node["self_attn"], f"{lk}.self_attn", sd,
+                  names=("q_proj", "k_proj", "v_proj", "out_proj"))
+        _inv_lin(node["mlp_fc1"], f"{lk}.mlp.fc1", sd)
+        _inv_lin(node["mlp_fc2"], f"{lk}.mlp.fc2", sd)
+    if with_projection:
+        sd["text_projection.weight"] = np.ascontiguousarray(
+            np.asarray(params["text_projection"]["kernel"]).T)
+    return sd
+
+
+def from_jax_params(params, cfg, with_projection: bool = False
+                    ) -> dict[str, np.ndarray]:
+    """JAX-package parameter tree -> the port's state dict (numpy values)
+    for a UNetConfig, VAEConfig or CLIPTextConfig of this package.
+    ``with_projection`` keeps the CLIP text projection head."""
+    if "params" in params:
+        params = params["params"]
+    if isinstance(cfg, UNetConfig):
+        return _unet(params, cfg)
+    if isinstance(cfg, VAEConfig):
+        return _vae(params, cfg)
+    if isinstance(cfg, CLIPTextConfig):
+        return _clip_text(params, cfg, with_projection)
+    raise TypeError(f"no bridge for {type(cfg).__name__}")

@@ -1,0 +1,12 @@
+from .diffusion import (
+    ERASE_SPECS,
+    EraseSpec,
+    PendingGeneration,
+    SafeDiffusionPipeline,
+    postprocess_image_host,
+)
+from .sampler import GuidanceConfig, RepellencyWindow, sample_sd
+
+__all__ = ["ERASE_SPECS", "EraseSpec", "PendingGeneration",
+           "SafeDiffusionPipeline", "postprocess_image_host",
+           "GuidanceConfig", "RepellencyWindow", "sample_sd"]
