@@ -14,7 +14,10 @@ Phases, each of which ends the run with a non-zero exit code on failure:
   4. main path: SafeDiffusionPipeline on cuda at full SD-v1.4 width with
      seeded random weights -- 4 prompts, 512x512, 50 DDPM steps, CFG 7.5,
      kernel_fast repellency against a [515,4,64,64] bank in the window
-     [1000, 780], VAE decode -- and the launch count of every kernel.
+     [1000, 780], VAE decode -- and the launch count of every kernel;
+  5. gate check: the same pipeline for 5 steps with a bank built from the
+     run's own x0, so the beta gate opens at full width and B2's score
+     must reach the latents.
 The last line of standard output is the result, {"ok": true, "device": ...};
 the line before it lists the kernels as JSON.
 """
@@ -126,7 +129,8 @@ def phase_kernels() -> dict:
     results = {}
 
     # B1 self-attention, bf16 [B,S,H,D]: compared with the plain version on
-    # the same inputs upcast to f32; tolerance covers bf16 P and output
+    # the same inputs upcast to f32, within attention.BF16_ATOL (bf16 P and
+    # output; tight enough that a lost tail mask at S=600 fails)
     for b, s, h, d in ((8, 4096, 8, 40), (8, 1024, 8, 80), (2, 600, 8, 40)):
         q, k, v = (torch.randn(b, s, h, d, device=dev, generator=g)
                    .to(torch.bfloat16) for _ in range(3))
@@ -142,8 +146,8 @@ def phase_kernels() -> dict:
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bnd = bound_ms(4 * b * s * h * d * 2, attention.flops(b, s, h, d),
                        PEAK_BF16)
-        _report("attention", [b, s, h, d], err, 2e-2, ms, plain, lib, bnd,
-                "F.scaled_dot_product_attention")
+        _report("attention", [b, s, h, d], err, attention.BF16_ATOL, ms,
+                plain, lib, bnd, "F.scaled_dot_product_attention")
         del want
         if "attention" not in results:
             results["attention"] = dict(err=err, ms=ms, plain=plain, lib=lib,
@@ -424,6 +428,68 @@ def phase_main_path() -> dict:
     return counts, pipe, kw
 
 
+def phase_gate_open(pipe) -> None:
+    """Full width with the beta gate open, which random weights and a
+    random bank never open: the bank (a torch.save cache, as users load
+    one) holds 128 copies of each prompt's own x0 at the first in-window
+    step, so beta ~ 128 > 7 there. Two 5-step batches (t = 801, 601, ...;
+    801 lies in [1000, 780]) differ only in the repellency scale, 0.33
+    and 0: the gap between their latents is B2's score reaching them
+    through the renoise-and-replace branch."""
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.pipeline import EraseSpec, RepellencyWindow
+    from safe_denoiser_tpu_torch.repellency import KernelFastRepellency
+
+    dev, sch = pipe.device, pipe.scheduler
+    steps, seeds, copies, n = 5, [0, 1, 2, 3], 128, len(PROMPTS)
+    t = int(sch.timesteps(steps)[0])
+    with torch.no_grad():
+        # x0 of the first step, computed as the pipeline does: same seeds,
+        # so the same initial latents
+        text = torch.cat([pipe.encode_prompt(p) for p in PROMPTS], dim=1)
+        lat = torch.stack([
+            torch.randn((4, 64, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(s))
+            for s in seeds]) * sch.init_noise_sigma
+        eps = pipe.unet(torch.cat([lat, lat]), t,
+                        text.reshape(2 * n, *text.shape[2:]))
+        uncond, cond = eps.reshape(2, n, *eps.shape[1:])
+        gs = torch.full((n, 1, 1, 1), 7.5, device=dev)
+        x0 = sch.pred_original_sample(uncond + gs * (cond - uncond), t, lat)
+    g = torch.Generator(device=dev).manual_seed(2)
+    bank = torch.cat([x0.float().repeat_interleave(copies, 0),
+                      torch.randn(515 - n * copies, 4, 64, 64, device=dev,
+                                  generator=g)])
+    spec = EraseSpec(repellency=True, window=RepellencyWindow(1000.0, 780.0))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bank.pt")
+        torch.save(bank.cpu(), path)
+        for scale in (0.33, 0.0):
+            proc = KernelFastRepellency(
+                ref_data=None, embed_fn=None, cache_proj_ref=True,
+                proj_ref_path=path, sigma=3.15, scale=scale,
+                beta_threshold=7.0)
+            ops.reset_launch_counts()
+            pending = pipe.dispatch_batch(
+                PROMPTS, seeds=seeds, guidance_scales=[7.5] * n,
+                num_inference_steps=steps, height=512, width=512,
+                repellency_processor=proc, erase_spec=spec)
+            lat_out = pending.fetch(return_latents=True)
+            out[scale] = (lat_out.float(), pending.applied.cpu(),
+                          ops.launch_counts()["rbf"])
+    (lat_a, applied, rbf_n), (lat_b, _, _) = out[0.33], out[0.0]
+    gap = (lat_a - lat_b).abs().max().item()
+    print(f"gate check: 4 x 512^2, {steps} steps, bank of own x0 at t={t}: "
+          f"applied per step {applied.any(1).tolist()} rbf launches {rbf_n} "
+          f"max|latents(scale 0.33) - latents(scale 0)|={gap:.4e}")
+    if not (bool(applied[0].all()) and not bool(applied[1:].any())
+            and rbf_n == 1 and gap > 0
+            and bool(torch.isfinite(lat_a).all())):
+        fail("at full width the open beta gate did not carry B2's score "
+             "into the latents")
+
+
 def phase_profile(pipe, kw, steps: int = 10) -> None:
     """torch.profiler over one batch of the main path at ``steps`` DDPM
     steps: device time by kernel, this port's kernels against the rest,
@@ -475,6 +541,7 @@ def main() -> None:
     phase_build()
     results = phase_kernels()
     counts, pipe, kw = phase_main_path()
+    phase_gate_open(pipe)
     if args.profile:
         phase_profile(pipe, kw)
     print(card)

@@ -114,16 +114,33 @@ class Downsample2D(nn.Module):
         return self.conv(x)
 
 
+def _packed_up_weights(conv: nn.Conv2d):
+    """``c3.pack_weights`` of ``conv``, rebuilt only when its weight or bias
+    is replaced or changed in place (``load_state_dict``, ``.to``, an
+    optimizer step; not a write through ``.data``, which bumps no version
+    counter). The cache keeps the tensors it was built from alive, so no
+    other tensor can take their memory address while the key names it."""
+    params = [t for t in (conv.weight, conv.bias) if t is not None]
+    key = [(t.data_ptr(), t._version) for t in params]
+    cache = getattr(conv, "_up_packed", None)
+    if cache is None or cache[0] != key:
+        cache = (key, [t.detach() for t in params],
+                 c3.pack_weights(conv.weight, conv.bias))
+        conv._up_packed = cache
+    return cache[2]
+
+
 def upsample_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """conv(nearest_2x(x)) for NCHW x. bf16 inputs of the shapes
     ``supports_up`` takes go through ``conv3x3_up`` on the NHWC view (the
-    kernel on the GPU, its plain version on the CPU); the rest upsample and
-    convolve."""
+    kernel on the GPU, with weights packed once per module; its plain
+    version on the CPU); the rest upsample and convolve."""
     b, c, h, w = x.shape
     if (x.dtype == torch.bfloat16
             and c3.supports_up((b, h, w, c), c, conv.out_channels)):
+        packed = _packed_up_weights(conv) if x.is_cuda else None
         y = c3.conv3x3_up(x.permute(0, 2, 3, 1).contiguous(), conv.weight,
-                          conv.bias)
+                          conv.bias, packed=packed)
         return y.permute(0, 3, 1, 2)
     return conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 

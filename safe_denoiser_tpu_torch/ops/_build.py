@@ -28,6 +28,18 @@ SOURCES = ("attention", "rbf", "conv3x3_up")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_ATTN = [_P] * 4 + [_I] * 4 + [_L] * 3 + [_F, _P]
+# argument types of each C entry point (all return a cudaError_t as int),
+# bound once when its library is loaded
+SIGNATURES = {
+    "attention": {"sdt_self_attention_bf16": _ATTN,
+                  "sdt_self_attention_f32": _ATTN},
+    "rbf": {"sdt_rbf_score_f32": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P]},
+    "conv3x3_up": {"sdt_conv3x3_up_bf16": [_P] * 4 + [_I] * 5 + [_P]},
+}
+
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 ptxas_log: dict[str, str] = {}       # nvcc's stderr (-Xptxas -v) per source
@@ -81,13 +93,18 @@ def build_all() -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    its entry points' signatures bound."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             if not _lib_path(name).exists():
                 build_all()
             lib = ctypes.CDLL(str(_lib_path(name)))
+            for entry, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, entry)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _libs[name] = lib
         return lib
 

@@ -9,13 +9,20 @@ bshd, the repack kernels) and the int8 QK^T option are not ported yet.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
 
 launches = 0   # kernel launches of self_attention on CUDA tensors
+
+# max |d| a bf16 kernel call is held to against the plain version on the
+# same values in f32 (chip_smoke.py, tests/test_torch_port_cuda.py), no
+# relative term. The kernel's bf16 probabilities and output leave 1.9e-3
+# at the main path's shapes on an H100. With q, k, v ~ N(0, 1) outputs
+# have an rms of sqrt(e/S), 0.026..0.067 for S = 4096..600, so a kernel
+# that loses ~4% of each output, as one without the tail mask does at
+# S=600, exceeds it.
+BF16_ATOL = 5e-3
 
 
 def supports(s_q: int, s_kv: int, head_dim: int, block_q: int = 512) -> bool:
@@ -75,11 +82,7 @@ def _self_attention_cuda(q, k, v, sm_scale: float) -> torch.Tensor:
     b, s, h, d = q.shape
     if d > 256:
         raise ValueError(f"head dim {d} > 256 is not taken by the kernel")
-    lib = _build.library("attention")
-    fn = getattr(lib, _ENTRY[q.dtype])
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn = getattr(_build.library("attention"), _ENTRY[q.dtype])
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, s, h, d, q.stride(0), q.stride(1), q.stride(2),

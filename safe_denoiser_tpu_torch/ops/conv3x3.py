@@ -12,8 +12,6 @@ conv of the half-resolution input with pre-summed weights (``w_eff_up``).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
@@ -81,7 +79,17 @@ def kernel_weights(w_oihw: torch.Tensor) -> torch.Tensor:
             .reshape(4, co, 4 * ci).to(torch.bfloat16).contiguous())
 
 
-def _conv3x3_up_cuda(h, w_oihw, b):
+def pack_weights(w_oihw: torch.Tensor, b: torch.Tensor | None = None):
+    """(kernel_weights(w_oihw), bias as f32 [Co]): what the kernel reads.
+    A caller that reuses its weights packs them once (``packed=`` of
+    ``conv3x3_up``)."""
+    co = w_oihw.shape[0]
+    bias = (torch.zeros(co, device=w_oihw.device) if b is None
+            else b.detach().float().contiguous())
+    return kernel_weights(w_oihw.detach()), bias
+
+
+def _conv3x3_up_cuda(h, w_oihw, b, packed):
     global launches
     if not h.is_cuda or w_oihw.device != h.device or (
             b is not None and b.device != h.device):
@@ -98,15 +106,16 @@ def _conv3x3_up_cuda(h, w_oihw, b):
     if ci % 32 or co % 64:
         raise ValueError(f"up-conv kernel needs Ci % 32 == 0 and "
                          f"Co % 64 == 0, got Ci={ci}, Co={co}")
-    wt = kernel_weights(w_oihw)
-    bias = (torch.zeros(co, device=h.device) if b is None
-            else b.float().contiguous())
+    wt, bias = pack_weights(w_oihw, b) if packed is None else packed
+    if not (wt.shape == (4, co, 4 * ci) and wt.dtype == torch.bfloat16
+            and wt.is_contiguous() and wt.device == h.device
+            and bias.shape == (co,) and bias.dtype == torch.float32
+            and bias.device == h.device):
+        raise ValueError("packed weights are not pack_weights(w, b) of this "
+                         "weight on this GPU")
     out = torch.empty((bsz, 2 * h2, 2 * w2, co), dtype=h.dtype,
                       device=h.device)
-    lib = _build.library("conv3x3_up")
-    fn = lib.sdt_conv3x3_up_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = _build.library("conv3x3_up").sdt_conv3x3_up_bf16
     err = fn(h.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(),
              bsz, h2, w2, ci, co, _build.stream_ptr(h.device))
     _build.check(err, "sdt_conv3x3_up_bf16")
@@ -115,14 +124,15 @@ def _conv3x3_up_cuda(h, w_oihw, b):
 
 
 def conv3x3_up(h: torch.Tensor, w_oihw: torch.Tensor,
-               b: torch.Tensor | None = None) -> torch.Tensor:
+               b: torch.Tensor | None = None, packed=None) -> torch.Tensor:
     """conv3x3_SAME(nearest_2x(h), w) + b for NHWC half-res h
     [B, H2, W2, Ci]; weights in diffusers' [Co, Ci, 3, 3]. A CUDA tensor
     launches the kernel (bf16) or raises; a CPU tensor takes the plain
-    version."""
+    version. ``packed``: ``pack_weights(w_oihw, b)``, computed once by a
+    caller that reuses the weights; built per call when None."""
     if h.device.type == "cpu":
         return conv3x3_up_ref(h, w_oihw, b)
-    return _conv3x3_up_cuda(h, w_oihw, b)
+    return _conv3x3_up_cuda(h, w_oihw, b, packed)
 
 
 def flops(b: int, h2: int, w2: int, ci: int, co: int) -> int:

@@ -16,8 +16,6 @@ the counterpart of the reference's Precision.HIGHEST.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
@@ -64,13 +62,8 @@ def _rbf_cuda(x, refs, sigma: float, epsilon: float, normalize: bool):
     if not 1 <= n <= N_MAX or m < 1:
         raise ValueError(f"rbf kernel takes 1..{N_MAX} rows of x and a "
                          f"non-empty bank, got N={n}, M={m}")
-    lib = _build.library("rbf")
-    fn = lib.sdt_rbf_score_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
-    w = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    fn = _build.library("rbf").sdt_rbf_score_f32
+    w =torch.empty((n, m), dtype=torch.float32, device=x.device)
     num = torch.empty((n, d), dtype=torch.float32, device=x.device)
     beta = torch.empty((n,), dtype=torch.float32, device=x.device)
     err = fn(x.data_ptr(), refs.data_ptr(), w.data_ptr(), num.data_ptr(),

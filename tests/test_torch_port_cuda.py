@@ -19,6 +19,8 @@ from safe_denoiser_tpu_torch.ops import (
 
 pytestmark = pytest.mark.cuda
 
+ATTN_BF16_TOL = attention.BF16_ATOL
+
 
 @pytest.fixture
 def dev():
@@ -46,10 +48,9 @@ def _gen(seed):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernel_matches_plain(dev, b, s, h, d, layout, dtype):
     """bf16: against the plain version on the same values upcast to f32,
-    tolerance of bf16 probabilities and output. f32: f32 round-off.
-    packed_qkv reads q/k/v as views of one [B,S,3,H,D] projection;
-    padded_rows as views of [B,S,H,D+4] rows, whose strides defeat the
-    16-byte loads."""
+    within ATTN_BF16_TOL. f32: f32 round-off. packed_qkv reads q/k/v as
+    views of one [B,S,3,H,D] projection; padded_rows as views of
+    [B,S,H,D+4] rows, whose strides defeat the 16-byte loads."""
     g = _gen(0)
     if layout == "packed_qkv":
         qkv = torch.randn(b, s, 3, h, d, device=dev, generator=g).to(dtype)
@@ -66,8 +67,29 @@ def test_attention_kernel_matches_plain(dev, b, s, h, d, layout, dtype):
     want = attention.attention_ref(q.float(), k.float(), v.float(), scale)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, s, h, d)
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL,
+                                   rtol=0)
+    else:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("s,d", [(600, 40), (1000, 80), (520, 160)])
+def test_attention_kernel_masks_the_key_tail(dev, s, d):
+    """Keys past S get no weight. Every real logit is made negative (q >= 0,
+    k <= 0, logits ~ N(-4..-6, 0.8)), so a zero-filled key past S, whose
+    logit would be 0, would outweigh dozens of real keys and shrink the
+    output by half or more."""
+    g = _gen(4)
+    shape = (1, s, 2, d)
+    q = torch.randn(shape, device=dev, generator=g).abs().bfloat16()
+    k = -torch.randn(shape, device=dev, generator=g).abs().bfloat16()
+    v = torch.randn(shape, device=dev, generator=g).bfloat16()
+    got = attention.self_attention(q, k, v, d ** -0.5)
+    want = attention.attention_ref(q.float(), k.float(), v.float(),
+                                   d ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
 
 
 def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -150,7 +172,28 @@ def test_conv3x3_up_wrapper_rejects_what_the_kernel_does_not_take(dev):
                    (h, w.cpu())):
         with pytest.raises(ValueError):
             conv3x3.conv3x3_up(hh, ww)
+    wrong = conv3x3.pack_weights(torch.randn(128, 64, 3, 3, device=dev))
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_up(h, w, packed=wrong)
     assert ops.launch_counts()["conv3x3_up"] == 0
+
+
+def test_upsample_module_with_packed_weights_matches_the_wrapper(dev):
+    """The UNet/VAE upsample packs its weights once and reuses them; the
+    result equals a call that packs per call, before and after the weights
+    are reloaded."""
+    from safe_denoiser_tpu_torch.models.unet import Upsample2D
+    g = _gen(5)
+    up = Upsample2D(128).to(dev, torch.bfloat16)
+    x = torch.randn(2, 128, 16, 16, device=dev, generator=g).bfloat16()
+    for _ in range(2):
+        got = up(x)
+        want = conv3x3.conv3x3_up(x.permute(0, 2, 3, 1).contiguous(),
+                                  up.conv.weight, up.conv.bias)
+        torch.testing.assert_close(got.permute(0, 2, 3, 1), want, atol=0,
+                                   rtol=0)
+        up.load_state_dict({k: torch.randn(v.shape, device=dev, generator=g)
+                            for k, v in up.state_dict().items()})
 
 
 # ---------------------------------------------------------------- gn_stats

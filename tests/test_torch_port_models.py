@@ -165,6 +165,28 @@ def test_clip_text_matches_jax(with_projection):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
+def test_packed_up_weights_follow_the_module():
+    """The up-conv's packed weights are built once per module and rebuilt
+    when load_state_dict or an in-place update changes the weights, or .to
+    replaces them."""
+    from safe_denoiser_tpu_torch.ops import conv3x3 as t_conv
+    up = t_unet.Upsample2D(32)
+    first = t_unet._packed_up_weights(up.conv)
+    assert t_unet._packed_up_weights(up.conv) is first
+    for change in (
+            lambda: up.load_state_dict({k: v + 1.0 for k, v in
+                                        up.state_dict().items()}),
+            lambda: up.conv.bias.requires_grad_(False).mul_(2.0),
+            lambda: up.to(torch.float64)):
+        before = t_unet._packed_up_weights(up.conv)
+        change()
+        got = t_unet._packed_up_weights(up.conv)
+        assert got is not before
+        want = t_conv.pack_weights(up.conv.weight, up.conv.bias)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
 def test_bridge_matches_jax_converters():
     """from_jax_params and the JAX package's converters are inverses: the
     state dict converts back to the same tree."""

@@ -151,7 +151,8 @@ def test_kernel_weight_layout_reproduces_conv():
     is checked here on the CPU."""
     h, w, b = _conv_case((2, 6, 5, 32), 64, seed=7)
     bsz, h2, w2, ci = h.shape
-    wt = t_conv.kernel_weights(_oihw(w)).float().numpy()     # [4, Co, 4Ci]
+    wt, bias = t_conv.pack_weights(_oihw(w), _t(b))          # [4, Co, 4Ci]
+    wt, bias = wt.float().numpy(), bias.numpy()
     hp = np.pad(h, ((0, 0), (1, 1), (1, 1), (0, 0)))
     out = np.zeros((bsz, 2 * h2, 2 * w2, 64), np.float32)
     for py in range(2):
@@ -162,7 +163,7 @@ def test_kernel_weight_layout_reproduces_conv():
                     dy, dx = j - 1 + py, k - 1 + px
                     cols.append(hp[:, 1 + dy:1 + dy + h2, 1 + dx:1 + dx + w2])
             a = np.concatenate(cols, axis=-1)                # [B,H2,W2,4Ci]
-            out[:, py::2, px::2] = a @ wt[2 * py + px].T + b
+            out[:, py::2, px::2] = a @ wt[2 * py + px].T + bias
     want = t_conv.conv3x3_up_ref(_t(h), _oihw(w), _t(b)).numpy()
     # the kernel's weights are bf16: tolerance of bf16 weight rounding
     np.testing.assert_allclose(out, want, atol=2e-2)
