@@ -8,16 +8,23 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      TF32 switches (turned off for the f32 checks);
   2. build: nvcc builds the CUDA kernels from csrc/ (Triton compiles its
      kernel at first launch);
-  3. kernel checks: each kernel at the main path's shapes against its plain
-     PyTorch version, with its time, the plain version's, a library call's
-     where one exists, and the bound the card could reach;
+  3. kernel checks: each kernel at the main path's shapes (and B4/B5 also
+     at the runner's bank-encode shapes) against its plain PyTorch version,
+     with its time, the plain version's, a library call's where one exists,
+     and the bound the card could reach;
   4. main path: SafeDiffusionPipeline on cuda at full SD-v1.4 width with
      seeded random weights -- 4 prompts, 512x512, 50 DDPM steps, CFG 7.5,
      kernel_fast repellency against a [515,4,64,64] bank in the window
      [1000, 780], VAE decode -- and the launch count of every kernel;
   5. gate check: the same pipeline for 5 steps with a bank built from the
      run's own x0, so the beta gate opens at full width and B2's score
-     must reach the latents.
+     must reach the latents;
+  6. runner: ``safe_denoiser_tpu_torch.runners.nudity.main`` on cuda at
+     full SD-v1.4 width -- phase 4's random weights written as an HF-layout
+     safetensors checkpoint, 32 random 512^2 PNG bank images VAE-encoded
+     through the fused conv and beta-calibrated, 4 CSV prompts x 50 steps
+     with std_rep, a small NudeNet-shaped ONNX classifier as the gate --
+     its output tree and the launch count of every kernel.
 The last line of standard output is the result, {"ok": true, "device": ...};
 the line before it lists the kernels as JSON.
 """
@@ -46,10 +53,22 @@ PEAK_BYTES = 3.35e12
 # launches per batch on the main path, derived from the JAX package's gates:
 # attention: 10 self-attentions with S >= 512 per UNet step x 50 steps;
 # rbf: 11 in-window steps (t = 981 ... 781); conv3x3_up: 1 UNet upsample
-# (32->64, 640 ch) x 50 + 3 VAE upsamples; gn_stats: 3 up_blocks[3] norm1
-# per step x 50 + 30 VAE-decoder norms
+# (32->64, 640 ch) x 50 + 3 VAE upsamples; conv3x3: 14 VAE-decoder resnets
+# (2 mid + 4 x 3 up) x 2 convs; gn_stats: 3 up_blocks[3] norm1 per step x
+# 50 + 30 VAE-decoder norms
 EXPECTED_LAUNCHES = {"attention": 500, "rbf": 11, "conv3x3_up": 53,
-                     "gn_stats": 180}
+                     "conv3x3": 28, "gn_stats": 180}
+# the decode measured with cuDNN resnet convs before the fused conv (PERF.md)
+DECODE_MS_CUDNN = "51.07-51.99"
+
+# the runner phase: 4 cases of batch 1 x 50 steps (std_rep: window
+# [1000, 800], 10 in-window steps t = 981 ... 801), a 32-image bank encoded
+# in 2 chunks of n_embed 16. attention 10 x 50 x 4; rbf 10 x 4; conv3x3_up
+# 53 x 4; conv3x3 20 per chunk (10 encoder resnets x 2) x 2 + 28 x 4;
+# gn_stats 3 x 50 x 4 + 30 x 4 + 22 encoder norms per chunk x 2
+RUNNER_CASES, RUNNER_BANK, RUNNER_N_EMBED = 4, 32, 16
+RUNNER_LAUNCHES = {"attention": 2000, "rbf": 40, "conv3x3_up": 212,
+                   "conv3x3": 2 * 20 + 4 * 28, "gn_stats": 600 + 120 + 44}
 
 
 def fail(msg: str) -> None:
@@ -107,13 +126,14 @@ def phase_build() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
 
-def _report(name, shape, err, tol, ms, plain_ms, lib_ms, bnd, lib_label):
+def _report(name, shape, err, tol, ms, plain_ms, lib_ms, bnd, lib_label,
+            metric="max|d|"):
     lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
-    print(f"kernel {name} {shape}: max|d|={err:.3e} tol={tol:.1e} "
+    print(f"kernel {name} {shape}: {metric}={err:.3e} tol={tol:.1e} "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
           f"({lib_label}) bound_ms={bnd[0]:.4f} ({bnd[1]})")
     if not err <= tol:
-        fail(f"{name} {shape}: max|d| {err:.3e} above tolerance {tol:.1e}")
+        fail(f"{name} {shape}: {metric} {err:.3e} above tolerance {tol:.1e}")
 
 
 def phase_kernels() -> dict:
@@ -216,13 +236,85 @@ def phase_kernels() -> dict:
                                          lib=lib, bound=bnd)
         results["conv3x3_up"]["err"] = max(results["conv3x3_up"]["err"], err)
 
+    # B4 fused conv, bf16 NHWC, at each VAE resnet shape with the main
+    # path's argument mix: conv1 (GN affine + SiLU), and where Ci == Co
+    # conv2 (+ the residual); against the plain version on the same values,
+    # elementwise within conv3x3.BF16_ATOL + BF16_RTOL * |plain| (reported
+    # as the largest |d| - BF16_RTOL * |plain|). The library yardstick is
+    # the composition: affine + SiLU, F.conv2d (cuDNN), residual add.
+    # Decoder shapes at batch 4 (sd14-main), then the encoder's at the
+    # runner's bank chunk of 16 (Ci < Co in the first conv of down_blocks
+    # 1 and 2); the plain version is timed once at batch 16.
+    for b, h, w, ci, co in ((4, 64, 64, 512, 512), (4, 128, 128, 512, 512),
+                            (4, 256, 256, 512, 256), (4, 256, 256, 256, 256),
+                            (4, 512, 512, 256, 128), (4, 512, 512, 128, 128),
+                            (16, 512, 512, 128, 128),
+                            (16, 256, 256, 128, 256),
+                            (16, 256, 256, 256, 256),
+                            (16, 128, 128, 256, 512),
+                            (16, 128, 128, 512, 512), (16, 64, 64, 512, 512)):
+        if not conv3x3.supports((b, h, w, ci), ci, co):
+            fail(f"conv3x3 shape {[b, h, w, ci, co]} not supported")
+        x = torch.randn(b, h, w, ci, device=dev, generator=g).bfloat16()
+        wt = (torch.randn(co, ci, 3, 3, device=dev, generator=g)
+              / (9 * ci) ** 0.5).bfloat16()
+        bias = 0.1 * torch.randn(co, device=dev, generator=g)
+        a = 1.0 + 0.2 * torch.randn(b, ci, device=dev, generator=g)
+        s = 0.5 * torch.randn(b, ci, device=dev, generator=g)
+        packed = conv3x3.pack_weights_3x3(wt, bias)
+        xn = x.permute(0, 3, 1, 2)                       # channels_last
+        ab, sb = (t.bfloat16()[:, :, None, None] for t in (a, s))
+        mixes = [None]
+        if ci == co:
+            mixes.append(torch.randn(b, h, w, co, device=dev,
+                                     generator=g).bfloat16())
+        for r in mixes:
+            def kernel():
+                return conv3x3.conv3x3(x, wt, bias, a, s, "silu", r,
+                                       packed=packed)
+
+            def library():
+                y = F.conv2d(F.silu(xn * ab + sb), wt, bias.bfloat16(),
+                             padding=1)
+                return y if r is None else y + r.permute(0, 3, 1, 2)
+
+            out = kernel()
+            want = conv3x3.conv3x3_ref(x, wt, bias, a, s, "silu", r)
+            torch.cuda.synchronize()
+            d = (out.float() - want.float()).abs()
+            excess = (d - conv3x3.BF16_RTOL * want.float().abs()).max().item()
+            err = d.max().item()
+            del out, want, d
+            ms = cuda_ms(kernel)
+            plain = cuda_ms(lambda: conv3x3.conv3x3_ref(x, wt, bias, a, s,
+                                                        "silu", r),
+                            reps=3 if b == 4 else 1, warmup=1)
+            lib = cuda_ms(library)
+            n_io = b * h * w * (ci + co * (1 if r is None else 2))
+            bnd = bound_ms((n_io + 9 * ci * co) * 2 + (co + 2 * b * ci) * 4,
+                           conv3x3.flops_3x3(b, h, w, ci, co), PEAK_BF16)
+            mix = "conv1" if r is None else "conv2+residual"
+            print(f"  conv3x3 {mix} max|d|={err:.3e}")
+            _report("conv3x3", [b, h, w, ci, co, mix], excess,
+                    conv3x3.BF16_ATOL, ms, plain, lib, bnd,
+                    "affine+SiLU, F.conv2d, +residual",
+                    metric=f"max(|d|-{conv3x3.BF16_RTOL}*|plain|)")
+            if "conv3x3" not in results:
+                results["conv3x3"] = dict(err=err, ms=ms, plain=plain,
+                                          lib=lib, bound=bnd)
+            results["conv3x3"]["err"] = max(results["conv3x3"]["err"], err)
+        del x, mixes
+
     # B5 GN statistics, bf16 [B,S,C] -> f32 sums, at every shape the main
     # path gives it (UNet up_blocks[3] norm1, then the VAE decoder's norms
-    # from 64^2 x 512 to 512^2 x 128); tolerance relative to the sum of |x|
-    # (order of summation differs)
+    # from 64^2 x 512 to 512^2 x 128), then the encoder's at the runner's
+    # bank chunk of 16; tolerance relative to the sum of |x| (order of
+    # summation differs)
     for b, s, c in ((8, 4096, 640), (8, 4096, 960), (4, 4096, 512),
                     (4, 16384, 512), (4, 65536, 512), (4, 65536, 256),
-                    (4, 262144, 256), (4, 262144, 128)):
+                    (4, 262144, 256), (4, 262144, 128),
+                    (16, 262144, 128), (16, 65536, 128), (16, 65536, 256),
+                    (16, 16384, 256), (16, 16384, 512), (16, 4096, 512)):
         xx = torch.randn(b, s, c, device=dev,
                          generator=g).to(torch.bfloat16) + 0.5
         s1, s2 = group_norm.gn_stats(xx)
@@ -251,6 +343,8 @@ KERNEL_META = {
             "safe_denoiser_tpu/ops/repellency_kernels.py:79"),
     "conv3x3_up": ("cuda", "safe_denoiser_tpu_torch/csrc/conv3x3_up.cu",
                    "safe_denoiser_tpu/ops/conv3x3.py:282"),
+    "conv3x3": ("cuda", "safe_denoiser_tpu_torch/csrc/conv3x3.cu",
+                "safe_denoiser_tpu/ops/conv3x3.py:52"),
     "gn_stats": ("triton", "safe_denoiser_tpu_torch/ops/group_norm.py",
                  "safe_denoiser_tpu/ops/group_norm.py:138"),
 }
@@ -419,6 +513,9 @@ def phase_main_path() -> dict:
           f"loop_ms={st['loop']:.2f} decode_ms={st['decode']:.2f} "
           f"wall_s={wall:.3f} images_per_s={4 / wall:.4f} "
           f"rep_applied_steps={int(pending.applied.any(1).sum())}")
+    print(f"main path decode: {st['decode']:.2f} ms with the fused conv "
+          f"(B4) in the resnets; with cuDNN resnet convs it took "
+          f"{DECODE_MS_CUDNN} ms")
     print(f"main path launches: {json.dumps(counts)} "
           f"expected {json.dumps(EXPECTED_LAUNCHES)}")
     for name, n in EXPECTED_LAUNCHES.items():
@@ -490,6 +587,254 @@ def phase_gate_open(pipe) -> None:
              "into the latents")
 
 
+_ST_DTYPE = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32", torch.int64: "I64"}
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A .safetensors file: an 8-byte header length, the JSON header with
+    each tensor's dtype, shape and byte range, then the raw data."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu().reshape(-1)
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPE[t.dtype],
+                        "shape": list(tensors[name].shape),
+                        "data_offsets": [offset, offset + n]}
+        blobs.append(t)
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in blobs:
+            f.write(t.view(torch.uint8).numpy().tobytes())
+
+
+def write_checkpoint(pipe, root: str, vocab_src: str) -> None:
+    """``pipe``'s modules as an HF-layout SD checkpoint: unet/, vae/ and
+    text_encoder/ (safetensors in the modules' dtypes, diffusers/HF
+    config.json), tokenizer/ from ``vocab_src``; no scheduler/, so the
+    DDPM defaults hold."""
+    import dataclasses
+
+    u, v, t = (pipe.unet.config, pipe.vae.config,
+               pipe.text_encoder.config)
+    configs = {
+        "unet": dict(dataclasses.asdict(u),
+                     attention_head_dim=u.num_attention_heads),
+        "vae": dataclasses.asdict(v),
+        "text_encoder": dict(
+            vocab_size=t.vocab_size, hidden_size=t.hidden_size,
+            num_hidden_layers=t.num_layers, num_attention_heads=t.num_heads,
+            max_position_embeddings=t.max_position_embeddings,
+            intermediate_size=t.intermediate_size, hidden_act=t.hidden_act,
+            projection_dim=t.projection_dim, eos_token_id=t.eos_token_id),
+    }
+    weights = {"unet": "diffusion_pytorch_model.safetensors",
+               "vae": "diffusion_pytorch_model.safetensors",
+               "text_encoder": "model.safetensors"}
+    for sub, module in (("unet", pipe.unet), ("vae", pipe.vae),
+                        ("text_encoder", pipe.text_encoder)):
+        os.makedirs(os.path.join(root, sub))
+        write_safetensors(os.path.join(root, sub, weights[sub]),
+                          module.state_dict())
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(configs[sub], f)
+    os.makedirs(os.path.join(root, "tokenizer"))
+    for name in ("vocab.json", "merges.txt"):
+        with open(os.path.join(vocab_src, name)) as f, \
+                open(os.path.join(root, "tokenizer", name), "w") as g:
+            g.write(f.read())
+
+
+def _pb_varint(v: int) -> bytes:
+    out = b""
+    while True:
+        b, v = v & 0x7F, v >> 7
+        if not v:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _pb(num: int, payload, wire: int = 2) -> bytes:
+    """One protobuf field: a varint (wire 0) or a length-delimited bytes
+    or str payload (wire 2)."""
+    key = _pb_varint((num << 3) | wire)
+    if wire == 0:
+        return key + _pb_varint(payload)
+    if isinstance(payload, str):
+        payload = payload.encode()
+    return key + _pb_varint(len(payload)) + payload
+
+
+def nudenet_like_onnx(seed: int = 0) -> bytes:
+    """A small classifier with NudeNet's interface as an ONNX ModelProto:
+    NHWC [N, 256, 256, 3] in [0, 1] -> Transpose -> 3x3 stride-4 Conv(8) ->
+    Relu -> GlobalAveragePool -> Reshape -> MatMul + Add -> Softmax over
+    [unsafe, safe]; weights from ``seed``."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    inits = {
+        "w_conv": (rs.randn(8, 3, 3, 3) * 0.5).astype(np.float32),
+        "b_conv": (rs.randn(8) * 0.1).astype(np.float32),
+        "shape": np.array([0, -1], dtype=np.int64),
+        "fc_w": (rs.randn(8, 2) * 0.5).astype(np.float32),
+        "fc_b": np.zeros(2, dtype=np.float32),
+    }
+
+    def node(op, ins, outs, attrs=b""):
+        return _pb(1, b"".join(_pb(1, i) for i in ins)
+                   + b"".join(_pb(2, o) for o in outs) + _pb(4, op) + attrs)
+
+    def ints(name, vals):
+        return _pb(5, _pb(1, name) + b"".join(_pb(8, v, 0) for v in vals)
+                   + _pb(20, 7, 0))
+
+    def one_int(name, val):
+        return _pb(5, _pb(1, name) + _pb(3, val, 0) + _pb(20, 2, 0))
+
+    def tensor(name, arr):
+        dtype = {np.dtype("float32"): 1, np.dtype("int64"): 7}[arr.dtype]
+        return _pb(5, b"".join(_pb(1, d, 0) for d in arr.shape)
+                   + _pb(2, dtype, 0) + _pb(8, name) + _pb(9, arr.tobytes()))
+
+    nodes = [
+        node("Transpose", ["input_1"], ["x"], ints("perm", [0, 3, 1, 2])),
+        node("Conv", ["x", "w_conv", "b_conv"], ["c"],
+             ints("kernel_shape", [3, 3]) + ints("strides", [4, 4])
+             + ints("pads", [1, 1, 1, 1])),
+        node("Relu", ["c"], ["r"]),
+        node("GlobalAveragePool", ["r"], ["gap"]),
+        node("Reshape", ["gap", "shape"], ["flat"]),
+        node("MatMul", ["flat", "fc_w"], ["l0"]),
+        node("Add", ["l0", "fc_b"], ["logits"]),
+        node("Softmax", ["logits"], ["dense_out"], one_int("axis", 1)),
+    ]
+    graph = (b"".join(nodes) + _pb(2, "nudenet_like")
+             + b"".join(tensor(k, v) for k, v in inits.items())
+             + _pb(11, _pb(1, "input_1")) + _pb(12, _pb(1, "dense_out")))
+    return (_pb(1, 7, 0) + _pb(8, _pb(1, "") + _pb(2, 13, 0))
+            + _pb(7, graph))
+
+
+def phase_runner(pipe) -> float:
+    """The nudity runner on cuda at full SD-v1.4 width (phase 4's weights
+    loaded back from an HF-layout checkpoint): the bank encoded through B4
+    and beta-calibrated, 4 cases of 50 steps, the NudeNet-shaped gate.
+    Checks the output tree and every kernel's launch count; returns the
+    wall seconds per case."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.data.images import read_png, write_png
+    from safe_denoiser_tpu_torch.runners.nudity import main as run_nudity
+    from safe_denoiser_tpu_torch.utils.config import load_yaml
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        voc = os.path.join(tmp, "vocab")
+        os.makedirs(voc)
+        write_tiny_vocab(voc)
+        ckpt = os.path.join(tmp, "ckpt")
+        write_checkpoint(pipe, ckpt, voc)
+        bank = os.path.join(tmp, "bank", "i2p_sexual")
+        os.makedirs(bank)
+        rs = np.random.RandomState(3)
+        for i in range(RUNNER_BANK):
+            write_png(rs.randint(0, 256, (512, 512, 3), dtype=np.uint8),
+                      os.path.join(bank, f"{i:03d}.png"))
+        task = os.path.join(tmp, "task.yaml")
+        with open(task, "w") as f:
+            f.write(f"""# kernel_fast with beta calibrated from the bank
+repellency:
+  method: kernel_fast
+  n_embed: {RUNNER_N_EMBED}
+  params:
+    sigma: 3.15
+    scale: 0.33
+    beta_threshold_margin: 1.6
+    cache_proj_ref: False
+    cache_noisy_ref_path_for_beta: False
+data:
+  name: nudity
+  root: {os.path.join(tmp, "bank")}
+  class_info: i2p_sexual
+  size: 512
+""")
+        csv_path = os.path.join(tmp, "prompts.csv")
+        with open(csv_path, "w") as f:
+            f.write("case_number,prompt,evaluation_seed,categories\n")
+            for i, p in enumerate(PROMPTS[:RUNNER_CASES]):
+                f.write(f"{i},{p},{100 + i},sexual\n")
+        onnx = os.path.join(tmp, "nudenet.onnx")
+        with open(onnx, "wb") as f:
+            f.write(nudenet_like_onnx())
+        print(f"runner: assets written in {time.perf_counter() - t0:.1f} s "
+              f"(checkpoint, {RUNNER_BANK} bank PNGs, task YAML, CSV, ONNX)")
+
+        out = os.path.join(tmp, "out")
+        log = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            run_nudity(["--data", csv_path, "--save-dir", out,
+                        "--erase_id", "std_rep", "--model_dir", ckpt,
+                        "--task_config", task, "--nudenet-path", onnx,
+                        "--num_inference_steps", "50",
+                        "--image_length", "512", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+
+        logs = open(os.path.join(out, "logs.txt")).read()
+        per_case = [float(v) for v in re.findall(
+            r"Wall-Clock Time for image generation \(Case#: \d+\): "
+            r"([0-9.]+) seconds", logs)]
+        beta = re.findall(r"t=1: ([0-9.e+-]+)", log.getvalue())
+        names = {f"{i}_sexual.png" for i in range(RUNNER_CASES)}
+        listing = {d: set(os.listdir(os.path.join(out, d)))
+                   for d in ("all", "safe", "unsafe")}
+        detect = json.load(open(os.path.join(out, "detect_dict.json")))
+        cfg = load_yaml(os.path.join(out, "config.yaml"))
+        img = read_png(os.path.join(out, "all", "0_sexual.png"))
+        print(f"runner: {RUNNER_CASES} cases x 50 steps at 512^2, bank "
+              f"{RUNNER_BANK} images: wall_s={wall:.3f} "
+              f"per_case_s={[round(v, 2) for v in per_case]} "
+              f"(dispatch to fetch, overlapped) calibrated beta at t=1: "
+              f"{beta} unsafe={detect['unsafe']}")
+        print(f"runner launches: {json.dumps(counts)} "
+              f"expected {json.dumps(RUNNER_LAUNCHES)}")
+        problems = []
+        if listing["all"] != names:
+            problems.append(f"all/ holds {sorted(listing['all'])}")
+        if (listing["safe"] | listing["unsafe"] != names
+                or listing["safe"] & listing["unsafe"]):
+            problems.append(f"safe/ {sorted(listing['safe'])} and unsafe/ "
+                            f"{sorted(listing['unsafe'])} do not split "
+                            "the cases")
+        if len(detect["unsafe"]) != RUNNER_CASES or len(per_case) != \
+                RUNNER_CASES:
+            problems.append("detect_dict.json or logs.txt miss cases")
+        if img.shape != (512, 512, 3) or cfg["repellency"]["n_embed"] != \
+                RUNNER_N_EMBED or "Repellency method : kernel_fast" not in logs:
+            problems.append("image, config.yaml or logs.txt content")
+        for name, n in RUNNER_LAUNCHES.items():
+            if counts[name] != n:
+                problems.append(f"kernel {name} launched {counts[name]} "
+                                f"times, expected {n}")
+        if problems:
+            print(log.getvalue()[-4000:])
+            fail("runner phase: " + "; ".join(problems))
+    return wall / RUNNER_CASES
+
+
 def phase_profile(pipe, kw, steps: int = 10) -> None:
     """torch.profiler over one batch of the main path at ``steps`` DDPM
     steps: device time by kernel, this port's kernels against the rest,
@@ -514,7 +859,7 @@ def phase_profile(pipe, kw, steps: int = 10) -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     ours = {"attn_kernel": 0.0, "rbf_": 0.0, "up_conv_kernel": 0.0,
-            "_partial_sums": 0.0, "_finish": 0.0}
+            "conv3x3_kernel": 0.0, "_partial_sums": 0.0, "_finish": 0.0}
     for ms, _, key in rows:
         for k in ours:
             if k in key:
@@ -542,6 +887,7 @@ def main() -> None:
     results = phase_kernels()
     counts, pipe, kw = phase_main_path()
     phase_gate_open(pipe)
+    phase_runner(pipe)
     if args.profile:
         phase_profile(pipe, kw)
     print(card)

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
-from ..ops.group_norm import group_norm_ref
+from ..ops.group_norm import gn_affine_coefs, group_norm_ref
 
 _FLASH_MIN_SEQ = 512
 
@@ -54,9 +54,15 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, coefs_only: bool = False):
+        """GroupNorm(x) (+ SiLU); with ``coefs_only`` the f32 per-(batch,
+        channel) affine (a_c, b_c) [B, C] with GN(x) == x*a_c + b_c, which
+        the fused conv (ops.conv3x3) applies in its prologue instead."""
         b, c, h, w = x.shape
         xs = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        if coefs_only:
+            return gn_affine_coefs(xs.contiguous(), self.weight, self.bias,
+                                   self.num_groups, self.eps)
         y = group_norm_ref(xs.contiguous(), self.weight, self.bias,
                            self.num_groups, self.eps, self.act)
         return y.reshape(b, h, w, c).permute(0, 3, 1, 2)

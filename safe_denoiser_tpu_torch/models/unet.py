@@ -114,20 +114,26 @@ class Downsample2D(nn.Module):
         return self.conv(x)
 
 
-def _packed_up_weights(conv: nn.Conv2d):
-    """``c3.pack_weights`` of ``conv``, rebuilt only when its weight or bias
-    is replaced or changed in place (``load_state_dict``, ``.to``, an
-    optimizer step; not a write through ``.data``, which bumps no version
-    counter). The cache keeps the tensors it was built from alive, so no
-    other tensor can take their memory address while the key names it."""
+def cached_pack(conv: nn.Conv2d, attr: str, pack):
+    """``pack(conv.weight, conv.bias)``, kept on ``conv`` under ``attr`` and
+    rebuilt only when the weight or bias is replaced or changed in place
+    (``load_state_dict``, ``.to``, an optimizer step; not a write through
+    ``.data``, which bumps no version counter). The cache keeps the tensors
+    it was built from alive, so no other tensor can take their memory
+    address while the key names it."""
     params = [t for t in (conv.weight, conv.bias) if t is not None]
     key = [(t.data_ptr(), t._version) for t in params]
-    cache = getattr(conv, "_up_packed", None)
+    cache = getattr(conv, attr, None)
     if cache is None or cache[0] != key:
         cache = (key, [t.detach() for t in params],
-                 c3.pack_weights(conv.weight, conv.bias))
-        conv._up_packed = cache
+                 pack(conv.weight, conv.bias))
+        setattr(conv, attr, cache)
     return cache[2]
+
+
+def _packed_up_weights(conv: nn.Conv2d):
+    """``c3.pack_weights`` of ``conv``, packed once per weight version."""
+    return cached_pack(conv, "_up_packed", c3.pack_weights)
 
 
 def upsample_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

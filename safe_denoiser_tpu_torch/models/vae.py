@@ -1,11 +1,13 @@
 """AutoencoderKL (SD-v1.x) with diffusers parameter names.
 
-Counterpart of ``safe_denoiser_tpu/models/vae.py`` in the form the JAX
-package runs with SDT_PALLAS_CONV=0: the resnet convs are plain
-convolutions, GroupNorm statistics of the large decoder activations take
-the one-read kernel (ops/group_norm.py), and the decoder's upsamples go
-through ``conv3x3_up``. ``Conv3x3`` keeps the pre/act/residual seam the
-fused conv kernel (``_kernel``) will plug into; here it is plain PyTorch.
+Counterpart of ``safe_denoiser_tpu/models/vae.py`` in the JAX package's
+default form (SDT_PALLAS_CONV=1): a bf16 resnet of the shapes the fused
+conv takes (``ops.conv3x3.supports``) computes GroupNorm statistics only
+(``GroupNorm32(coefs_only=True)``, the one-read kernel for the large
+activations) and leaves the affine, the SiLU and the residual add to the
+fused conv (``ops.conv3x3``: the kernel for CUDA tensors, its plain
+version on the CPU). The decoder's upsamples go through ``conv3x3_up``.
+f32 and other shapes run the plain composition.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv3x3 as c3
 from .layers import Attention, GroupNorm32
-from .unet import upsample_conv
+from .unet import cached_pack, upsample_conv
 
 
 @dataclass(frozen=True)
@@ -41,16 +44,28 @@ SD14_VAE = VAEConfig()
 class Conv3x3(nn.Conv2d):
     """``nn.Conv2d(ci, co, 3, padding=1)`` that also takes the fused conv's
     seam: ``residual + conv(act(x * pre_scale + pre_shift)) + bias``, with
-    the per-(batch, channel) affine applied at x's dtype."""
+    the per-(batch, channel) affine applied at x's dtype. bf16 inputs of
+    the shapes ``c3.supports`` takes go through ``c3.conv3x3`` on the NHWC
+    view (free for a channels_last tensor), with the weights packed once
+    per module on the GPU; the rest run the plain composition."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 3, padding=1)
 
     def forward(self, x, pre=None, act=None, residual=None):
+        b, c, h, w = x.shape
+        a, s = pre if pre is not None else (None, None)
+        if (x.dtype == torch.bfloat16
+                and c3.supports((b, h, w, c), c, self.out_channels)):
+            packed = (cached_pack(self, "_fused_packed", c3.pack_weights_3x3)
+                      if x.is_cuda else None)
+            res = None if residual is None else residual.permute(0, 2, 3, 1)
+            y = c3.conv3x3(x.permute(0, 2, 3, 1), self.weight, self.bias,
+                           a, s, act, res, packed=packed)
+            return y.permute(0, 3, 1, 2)
         if pre is not None:
-            a, b = pre
             x = (x * a.to(x.dtype)[:, :, None, None]
-                 + b.to(x.dtype)[:, :, None, None])
+                 + s.to(x.dtype)[:, :, None, None])
         if act == "silu":
             x = x * torch.sigmoid(x)
         out = super().forward(x)
@@ -67,7 +82,17 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, ci, hh, ww = x.shape
+        co = self.conv1.out_channels
         shortcut = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        # the JAX package's fused form (models/vae.py:142-148): GroupNorm
+        # statistics here, the affine+SiLU and the residual in the convs
+        if (x.dtype == torch.bfloat16
+                and c3.supports((b, hh, ww, ci), ci, co)
+                and c3.supports((b, hh, ww, co), co, co)):
+            h = self.conv1(x, pre=self.norm1(x, coefs_only=True), act="silu")
+            return self.conv2(h, pre=self.norm2(h, coefs_only=True),
+                              act="silu", residual=shortcut)
         h = self.conv1(self.norm1(x))
         h = self.conv2(self.norm2(h))
         return shortcut + h
@@ -213,6 +238,16 @@ class AutoencoderKL(nn.Module):
             moments = self.quant_conv(moments)
         mean, logvar = moments.chunk(2, dim=1)
         return mean, logvar.clamp(-30.0, 20.0)
+
+    def sample_latent(self, x: torch.Tensor,
+                      generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
+        """A draw of the latent Gaussian of image x (diffusers'
+        ``latent_dist.sample()``), its noise from ``generator``."""
+        mean, logvar = self.encode(x)
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+        return mean + torch.exp(0.5 * logvar) * noise
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         z = self._prep(z)

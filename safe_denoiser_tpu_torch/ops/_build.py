@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("attention", "rbf", "conv3x3_up")
+SOURCES = ("attention", "rbf", "conv3x3_up", "conv3x3")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,6 +38,7 @@ SIGNATURES = {
                   "sdt_self_attention_f32": _ATTN},
     "rbf": {"sdt_rbf_score_f32": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P]},
     "conv3x3_up": {"sdt_conv3x3_up_bf16": [_P] * 4 + [_I] * 5 + [_P]},
+    "conv3x3": {"sdt_conv3x3_bf16": [_P] * 7 + [_I] * 6 + [_P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

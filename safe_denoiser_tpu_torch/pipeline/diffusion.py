@@ -2,8 +2,10 @@
 scheduler on one device, with the safe-denoiser repellency hook.
 
 Counterpart of ``safe_denoiser_tpu/pipeline/diffusion.py`` for the plain
-text path (``std``) and the repellency erase ids. SAFREE, the SLD text
-branch, FreeU, LoRA, int8 and the device mesh are not ported yet.
+text path (``std``, ``esd``) and their repellency erase ids, with the
+bank's VAE embedding and the ESD UNet swap. SAFREE, the SLD text branch,
+FreeU, LoRA, int8 and the device mesh are not ported yet: the keywords
+that ask for them raise ``NotImplementedError``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that request they raise. Each prompt row draws
@@ -126,6 +128,25 @@ class SafeDiffusionPipeline:
         return cls(unet.to(dtype), vae.to(dtype), text, tokenizer, scheduler,
                    device=device, logger=logger)
 
+    def load_unet_state_dict(self, path: str) -> None:
+        """Swap in a fine-tuned UNet (ESD: a diffusers-named state dict in a
+        .safetensors/.pt/.bin file, possibly under a ``unet`` key)."""
+        from ..models.weights import load_state_dict
+        sd = load_state_dict(path)
+        if isinstance(sd.get("unet"), dict):
+            sd = sd["unet"]
+        self.unet.load_state_dict(sd, strict=True)
+
+    @torch.no_grad()
+    def embed_images(self, images, generator: torch.Generator
+                     ) -> torch.Tensor:
+        """The repellency bank's embedding: NCHW images in [-1, 1] (numpy
+        or tensor) -> VAE latent draws x scaling_factor, in the VAE's
+        dtype, the draw's noise from ``generator``."""
+        x = torch.as_tensor(images, device=self.device)
+        z = self.vae.sample_latent(x, generator)
+        return z * self.vae.config.scaling_factor
+
     # -- text ---------------------------------------------------------------
     @torch.no_grad()
     def _encode(self, texts: Sequence[str], max_length: int) -> torch.Tensor:
@@ -154,13 +175,30 @@ class SafeDiffusionPipeline:
                        height: int = 512, width: int = 512,
                        repellency_processor=None,
                        erase_spec: EraseSpec = EraseSpec(),
-                       use_beta_gate: bool = True) -> "PendingGeneration":
+                       use_beta_gate: bool = True,
+                       negative_prompt_space: Optional[Sequence[str]] = None,
+                       safree_dict: Optional[dict] = None,
+                       safe_config: Optional[dict] = None,
+                       freeu=None) -> "PendingGeneration":
         """Enqueue text encoding, the sampling loop and the VAE decode for a
         batch of prompts (CUDA runs them asynchronously); ``fetch()`` on the
-        returned handle waits and returns the images."""
+        returned handle waits and returns the images. The JAX package's
+        keywords are taken: ``negative_prompt_space`` serves SAFREE only;
+        ``safree_dict`` asking for SAFREE or latent re-attention, an SLD
+        ``safe_config`` and ``freeu`` raise (not ported yet)."""
+        sf = safree_dict or {}
         if erase_spec.text_method != "none":
             raise NotImplementedError(
                 f"text method {erase_spec.text_method!r} is not ported yet")
+        for key, what in (("safree", "SAFREE"), ("svf", "SAFREE's "
+                          "self-validation filter"),
+                          ("lra", "latent re-attention")):
+            if sf.get(key):
+                raise NotImplementedError(f"{what} is not ported yet")
+        if safe_config is not None:
+            raise NotImplementedError("SLD (safe_config) is not ported yet")
+        if freeu is not None:
+            raise NotImplementedError("FreeU is not ported yet")
         b = len(prompts)
         if len(seeds) != b or len(guidance_scales) != b:
             raise ValueError("one seed and one guidance scale per prompt")

@@ -3,10 +3,11 @@
 Counterpart of ``safe_denoiser_tpu/repellency/methods.py``:
 ``RepellencyConfig``, ``apply_repellency`` (kernel_fast / kernel /
 euclidean / sparse / random_noise) and the host-side processor that holds
-the projected negative bank, with the ``kernel_fast`` processor. The bank
-cache is a ``torch.save`` file. The beta calibration from noisy banks
-(``empirical_beta``) is not ported yet: a processor that would need it
-raises.
+the projected negative bank, with the ``kernel_fast`` processor and its
+beta calibration from a forward-noised bank (``empirical_beta``). The bank
+caches are ``torch.save`` files, which the JAX package's ``io.load_pt``
+reads and whose writes ``torch.load`` reads. The other processors (sparse,
+euclidean, kernel, random_noise, lsh) are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Callable
 import torch
 
 from ..ops.repellency_kernels import (
+    _pairwise_dist,
     rbf_negative_score,
     sparse_repellency_force,
 )
@@ -34,12 +36,18 @@ def register_conditioning_method(name: str):
     return wrapper
 
 
-def get_repellency_method(name: str, ref_data, embed_fn, **kwargs
+def get_repellency_method(name: str, ref_data, embed_fn, forward_fn=None,
+                          num_timesteps: int = 50, max_idx=None,
+                          beta_min=None, beta_max=None, **kwargs
                           ) -> "RepellencyProcessor":
+    """Factory with the JAX package's (and the reference's) signature."""
     if __CONDITIONING_METHOD__.get(name) is None:
-        raise NameError(f"Name {name} is not defined!")
-    return __CONDITIONING_METHOD__[name](ref_data=ref_data,
-                                         embed_fn=embed_fn, **kwargs)
+        raise NameError(f"Name {name} is not defined! (the port has "
+                        f"{sorted(__CONDITIONING_METHOD__)} so far)")
+    return __CONDITIONING_METHOD__[name](
+        ref_data=ref_data, embed_fn=embed_fn, forward_fn=forward_fn,
+        num_timesteps=num_timesteps, max_idx=max_idx, beta_min=beta_min,
+        beta_max=beta_max, **kwargs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,20 +111,26 @@ class RepellencyProcessor:
 
     method_name = "base"
 
-    def __init__(self, ref_data, embed_fn: Callable, n_embed: int = 16,
-                 **kwargs):
+    def __init__(self, ref_data, embed_fn: Callable, forward_fn=None,
+                 num_timesteps: int = 50, max_idx=None, beta_min=None,
+                 beta_max=None, n_embed: int = 16, **kwargs):
         self.ref_data = ref_data
         self.embed_fn = embed_fn
+        self.forward_fn = forward_fn
+        self.num_timesteps = num_timesteps
         self.n_embed = n_embed
 
         self.sigma = kwargs.get("sigma", 1.0)
         self.scale = kwargs.get("scale", 1.0)
         self.epsilon = kwargs.get("epsilon", 1e-8)
+        self.quantile = kwargs.get("quantile", 0.0)
         self.beta_threshold = kwargs.get("beta_threshold", False)
         self.beta_threshold_margin = kwargs.get("beta_threshold_margin", 0.0)
         self.normalize_x = kwargs.get("normalize_x", False)
 
         self.proj_ref_path = kwargs.get("proj_ref_path", None)
+        self.proj_beta_ref_path = kwargs.get("proj_noisy_ref_path_for_beta",
+                                             None)
         self.cache_proj_ref = kwargs.get("cache_proj_ref", False)
         self.cache_proj_beta_ref = kwargs.get("cache_noisy_ref_path_for_beta",
                                               False)
@@ -150,6 +164,69 @@ class RepellencyProcessor:
     def get_proj_ref(self) -> torch.Tensor:
         return self.proj_refs
 
+    # -- beta / radius calibration -----------------------------------------
+    def set_noisy_proj_ref(self, scheduler, num_timesteps=None,
+                           seed: int = 42) -> dict:
+        """Forward-noise the bank at every inference timestep ({t: refs at
+        level t}); the noise is drawn from one ``torch.Generator`` seeded
+        with ``seed`` on the bank's device, in timestep order."""
+        n_steps = num_timesteps or self.num_timesteps or 50
+        refs = self.proj_refs
+        gen = torch.Generator(device=refs.device).manual_seed(seed)
+        results = {}
+        for t in scheduler.timesteps(n_steps):
+            noise = torch.randn(refs.shape, generator=gen, device=refs.device,
+                                dtype=torch.float32)
+            results[int(t)] = scheduler.add_noise(refs.float(), noise, int(t))
+        if self.proj_beta_ref_path:
+            print("[Proj_Ref] Save the cached proj_beta_ref")
+            os.makedirs(os.path.dirname(self.proj_beta_ref_path) or ".",
+                        exist_ok=True)
+            torch.save({k: v.detach().float().cpu()
+                        for k, v in results.items()}, self.proj_beta_ref_path)
+        return results
+
+    def empirical_beta(self, noisy_proj_refs: dict, sigma: float,
+                       quantile: float) -> dict:
+        """Per-timestep quantile of the kernel density beta of the noisy
+        bank against the bank."""
+        refs_flat = self.proj_refs.reshape(self.proj_refs.shape[0], -1)
+        results = {}
+        for t, latents in noisy_proj_refs.items():
+            x_flat = latents.reshape(latents.shape[0], -1).to(
+                refs_flat.device)
+            dist = _pairwise_dist(x_flat, refs_flat)
+            beta = torch.exp(-dist / (2.0 * sigma ** 2)).sum(-1) \
+                + self.epsilon
+            q = float(torch.quantile(beta, quantile))
+            print(f"Top {100 * (1 - quantile):.1f} % of radius at t={t}: "
+                  f"{q:.3f}")
+            results[t] = q
+        return results
+
+    def empirical_radius(self, noisy_proj_refs: dict, quantile: float
+                         ) -> dict:
+        """Per-timestep quantile of noisy-bank to bank distances."""
+        refs_flat = self.proj_refs.reshape(self.proj_refs.shape[0], -1)
+        results = {}
+        for t, latents in noisy_proj_refs.items():
+            x_flat = latents.reshape(latents.shape[0], -1).to(
+                refs_flat.device)
+            dist = _pairwise_dist(x_flat, refs_flat).reshape(-1)
+            q = float(torch.quantile(dist, quantile))
+            print(f"Top {100 * (1 - quantile):.1f} % of beta at t={t}: "
+                  f"{q:.3f}")
+            results[t] = q
+        return results
+
+    def _resolve_noisy_refs(self, scheduler) -> dict:
+        if self.cache_proj_beta_ref:
+            return self.import_proj_ref(self.proj_beta_ref_path)
+        if scheduler is None:
+            raise ValueError("a scheduler is needed to compute the beta "
+                             "reference")
+        return self.set_noisy_proj_ref(scheduler, self.num_timesteps)
+
     def config(self) -> RepellencyConfig:
         return RepellencyConfig(
             method=self.method_name,
@@ -168,9 +245,10 @@ class RepellencyProcessor:
 @register_conditioning_method(name="kernel_fast")
 class KernelFastRepellency(RepellencyProcessor):
     """The paper's main method. A non-positive or boolean beta_threshold
-    asks for calibration from a noisy bank, which is not ported yet: with
-    a scheduler or a noisy-bank cache given that raises; without one the
-    gate is disabled (threshold -1), as in the JAX package."""
+    asks for calibration: with a scheduler or a noisy-bank cache the
+    threshold becomes ``empirical_beta`` at the last (t -> 0) timestep;
+    without either the gate is disabled (threshold -1), as in the JAX
+    package."""
 
     method_name = "kernel_fast"
 
@@ -184,8 +262,8 @@ class KernelFastRepellency(RepellencyProcessor):
         has_noisy_source = (self.cache_proj_beta_ref
                             or kwargs.get("scheduler") is not None)
         if needs_calibration and has_noisy_source:
-            raise NotImplementedError(
-                "beta calibration from a noisy bank (empirical_beta) is not "
-                "ported yet; pass a positive beta_threshold")
-        if needs_calibration:
+            noisy = self._resolve_noisy_refs(kwargs.get("scheduler"))
+            betas = self.empirical_beta(noisy, self.sigma, self.quantile)
+            self.beta_threshold = betas[list(betas.keys())[-1]]
+        elif needs_calibration:
             self.beta_threshold = -1.0

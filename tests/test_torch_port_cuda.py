@@ -196,6 +196,117 @@ def test_upsample_module_with_packed_weights_matches_the_wrapper(dev):
                             for k, v in up.state_dict().items()})
 
 
+# ----------------------------------------------------------------- conv3x3
+def _conv3x3_case(b, h, w, ci, co, seed):
+    """NHWC bf16 x and residual, bf16 weights, f32 bias and GN affine."""
+    g = _gen(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    x = randn(b, h, w, ci).bfloat16()
+    wt = (randn(co, ci, 3, 3) / (9 * ci) ** 0.5).bfloat16()
+    res = randn(b, h, w, co).bfloat16()
+    return (x, wt, 0.1 * randn(co), 1.0 + 0.2 * randn(b, ci),
+            0.5 * randn(b, ci), res)
+
+
+def _assert_b4_close(got, want):
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=conv3x3.BF16_ATOL, rtol=conv3x3.BF16_RTOL)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", [
+    (2, 18, 16, 128, 128), (1, 5, 16, 32, 128), (3, 10, 24, 256, 128),
+    (1, 16, 48, 128, 256)])
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_conv3x3_kernel_matches_plain(dev, b, h, w, ci, co, pre, act,
+                                      with_res):
+    """Against the plain version on the same bf16 values: H = 16 + 2, W =
+    16, a partial pixel tile (1x5x16 = 80 pixels), Ci != Co with B > 1, two
+    output-channel tiles; each of the prologue's affine, the SiLU and the
+    residual on and off. Bound: conv3x3.BF16_ATOL/RTOL (the bf16 output
+    and the prologue's bf16 roundings, which differ by an ulp between the
+    kernel's x/(1+exp(-x)) and the plain x*sigmoid(x))."""
+    x, wt, bias, a, s, res = _conv3x3_case(b, h, w, ci, co, seed=6)
+    kw = dict(pre_scale=a if pre else None, pre_shift=s if pre else None,
+              act=act, residual=res if with_res else None)
+    got = conv3x3.conv3x3(x, wt, bias, **kw)
+    want = conv3x3.conv3x3_ref(x, wt, bias, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, co)
+    _assert_b4_close(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", [(2, 18, 16, 128, 128),
+                                         (1, 8, 32, 256, 128)])
+def test_conv3x3_kernel_pads_after_the_prologue(dev, b, h, w, ci, co):
+    """SAME padding holds zeros of act(x*a + b), not act(0*a + b): with a
+    shift of 4, silu(b_c) ~ 3.9 everywhere, so a kernel that pads x before
+    its prologue is off by ~sum(w) * 3.9 on every border pixel. Only the
+    outer rows and columns are compared."""
+    x, wt, bias, a, s, res = _conv3x3_case(b, h, w, ci, co, seed=7)
+    s = torch.full_like(s, 4.0)
+    got = conv3x3.conv3x3(x, wt, bias, 0.1 * a, s, "silu")
+    want = conv3x3.conv3x3_ref(x, wt, bias, 0.1 * a, s, "silu")
+    torch.cuda.synchronize()
+    for sl in ((slice(None), 0), (slice(None), -1),
+               (slice(None), slice(None), 0), (slice(None), slice(None), -1)):
+        _assert_b4_close(got[sl], want[sl])
+
+
+def test_conv3x3_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    ops.reset_launch_counts()
+    x, wt, bias, a, s, res = _conv3x3_case(1, 8, 16, 128, 128, seed=8)
+    nchw_res = res.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    x48 = torch.randn(1, 8, 16, 48, device=dev).bfloat16()
+    bad = (
+        dict(x=x.float()),                                  # not bf16
+        dict(residual=nchw_res),                            # not NHWC-dense
+        dict(x=x48, w=torch.randn(128, 48, 3, 3, device=dev).bfloat16()),
+        dict(w=wt[:64]),                                    # Co % 128
+        dict(w=wt[:, :64]),                                 # weight vs Ci
+        dict(pre_scale=a[:, :64], pre_shift=s[:, :64]),
+        dict(pre_scale=a),                                  # shift missing
+        dict(act="gelu"),
+        dict(w=wt.cpu()),
+        dict(x=x.transpose(1, 2)),
+    )
+    for case in bad:
+        kw = dict(x=x, w=wt, b=bias, pre_scale=None, pre_shift=None,
+                  act=None, residual=None)
+        kw.update(case)
+        with pytest.raises(ValueError):
+            conv3x3.conv3x3(kw.pop("x"), kw.pop("w"), **kw)
+    wrong = conv3x3.pack_weights_3x3(torch.randn(256, 128, 3, 3, device=dev))
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3(x, wt, packed=wrong)
+    assert ops.launch_counts()["conv3x3"] == 0
+
+
+def test_vae_resnet_on_gpu_matches_the_cpu(dev):
+    """The VAE resnet block in its fused form (GN coefficients, two fused
+    convs, the residual in conv2's epilogue) on channels_last GPU tensors
+    against the same block on the CPU (plain versions), bf16, Ci != Co and
+    Ci == Co; rms of the difference relative to the output's rms."""
+    from safe_denoiser_tpu_torch.models.vae import ResnetBlock2D
+    g = torch.Generator().manual_seed(9)
+    for ci, co in ((128, 256), (256, 256)):
+        torch.manual_seed(ci)
+        blk = ResnetBlock2D(ci, co, 32).bfloat16()
+        x = torch.randn(2, ci, 32, 32, generator=g).bfloat16()
+        with torch.no_grad():
+            want = blk(x).float()
+            ops.reset_launch_counts()
+            got = blk.to(dev)(x.to(dev).contiguous(
+                memory_format=torch.channels_last)).float().cpu()
+        assert ops.launch_counts()["conv3x3"] == 2
+        rel = ((got - want).pow(2).mean() / want.pow(2).mean()).sqrt()
+        assert rel.item() <= 1e-2, (ci, co, rel.item())
+
+
 # ---------------------------------------------------------------- gn_stats
 @pytest.mark.parametrize("shape,dtype", [
     ((2, 1000, 96), torch.bfloat16), ((1, 4096, 320), torch.float32),
@@ -234,7 +345,10 @@ def test_each_wrapper_call_counts_one_launch(dev):
                                           3.0)
     conv3x3.conv3x3_up(torch.randn(1, 16, 16, 128, device=dev).bfloat16(),
                        torch.randn(128, 128, 3, 3, device=dev).bfloat16())
+    conv3x3.conv3x3(torch.randn(1, 8, 16, 128, device=dev).bfloat16(),
+                    torch.randn(128, 128, 3, 3, device=dev).bfloat16())
     group_norm.gn_stats(torch.randn(1, 16384, 128, device=dev))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"attention": 1, "rbf": 1,
-                                   "conv3x3_up": 1, "gn_stats": 1}
+                                   "conv3x3_up": 1, "conv3x3": 1,
+                                   "gn_stats": 1}

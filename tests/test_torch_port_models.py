@@ -23,6 +23,7 @@ from safe_denoiser_tpu_torch.models import clip_text as t_clip
 from safe_denoiser_tpu_torch.models import unet as t_unet
 from safe_denoiser_tpu_torch.models import vae as t_vae
 from safe_denoiser_tpu_torch.models.weights_export import from_jax_params
+from safe_denoiser_tpu_torch.ops.conv3x3 import conv3x3_ref as c3_ref
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -150,6 +151,39 @@ def test_vae_encode_matches_jax():
         gm, gl = torch_vae(params).encode(torch.from_numpy(_nchw(x).copy()))
     np.testing.assert_allclose(gm.numpy(), _nchw(mean), **TOL)
     np.testing.assert_allclose(gl.numpy(), _nchw(logvar), **TOL)
+
+
+def test_vae_decode_fused_matches_jax(monkeypatch):
+    """The VAE decoder in its default (fused) form, bf16: 128-channel
+    blocks at 16^2 and 32^2, so every resnet takes the fused conv -- in the
+    JAX package through the Pallas kernel in interpret mode
+    (SDT_PALLAS_CONV=interpret), in the port through conv3x3's plain
+    version. Tolerance: rms of the difference <= 2% of the image's rms
+    (bf16 roundings in another order through six resnets and the
+    mid-block attention)."""
+    monkeypatch.setenv("SDT_PALLAS_CONV", "interpret")
+    kw = dict(block_out_channels=(128, 128), layers_per_block=1,
+              norm_num_groups=32)
+    model = j_vae.AutoencoderKL(j_vae.VAEConfig(**kw), dtype=jnp.bfloat16)
+    rng = jax.random.PRNGKey(0)
+    params = random_params(model, 6, {"params": rng},
+                           jnp.zeros((1, 32, 32, 3)), rng)
+    z = np.random.RandomState(7).randn(1, 16, 16, 4).astype(np.float32)
+    want = np.asarray(model.apply(params, jnp.asarray(z),
+                                  method=j_vae.AutoencoderKL.decode),
+                      np.float32)
+    cfg = t_vae.VAEConfig(**kw)
+    vae = load(t_vae.AutoencoderKL(cfg), params, cfg).to(torch.bfloat16)
+    calls = []
+    monkeypatch.setattr(t_vae.c3, "conv3x3_ref",
+                        lambda *a, **k: calls.append(1) or
+                        c3_ref(*a, **k))
+    with torch.no_grad():
+        got = vae.decode(torch.from_numpy(_nchw(z).copy())).float().numpy()
+    assert len(calls) == 12           # 6 resnets x 2 fused convs
+    d = got - _nchw(want)
+    rel = np.sqrt((d ** 2).mean() / (want ** 2).mean())
+    assert rel <= 2e-2, rel
 
 
 @pytest.mark.parametrize("with_projection", [False, True])

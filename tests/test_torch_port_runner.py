@@ -1,0 +1,399 @@
+"""The port's nudity runner and the host modules under it, against the JAX
+package and PIL on the CPU: the YAML reader and config.yaml writer, the PNG
+codec, the BILINEAR/NEAREST resizes, the copied ONNX interpreter, the CSV
+case sniffing, and the runner end to end on a tiny checkpoint.
+
+The runner's images are not compared with the JAX runner's: the two draw
+their latents and noise from different generators (JAX threefry, torch
+Philox). The loop itself is held against the JAX package in
+tests/test_torch_port_pipeline.py on injected noise.
+"""
+
+import glob
+import json
+import os
+import zlib
+from types import SimpleNamespace
+
+import numpy as np
+import pandas as pd
+import pytest
+import yaml
+from PIL import Image
+
+from safe_denoiser_tpu.data import iter_prompt_cases as j_iter_cases
+from safe_denoiser_tpu.evals import onnx_rt as j_onnx
+from safe_denoiser_tpu.utils import config as j_config
+from safe_denoiser_tpu_torch.data import images as t_images
+from safe_denoiser_tpu_torch.data import prompts as t_prompts
+from safe_denoiser_tpu_torch.evals import onnx_rt as t_onnx
+from safe_denoiser_tpu_torch.evals.nudenet import load_images
+from safe_denoiser_tpu_torch.runners import nudity as t_nudity
+from safe_denoiser_tpu_torch.runners.common import base_parser
+from safe_denoiser_tpu_torch.utils import config as t_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+YAMLS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"),
+                         recursive=True))
+
+
+# ------------------------------------------------------------------ config
+@pytest.mark.parametrize("path", YAMLS,
+                         ids=[os.path.relpath(p, ROOT) for p in YAMLS])
+def test_load_yaml_matches_yaml_safe_load(path):
+    with open(path) as f:
+        assert t_config.load_yaml(path) == yaml.safe_load(f)
+
+
+def test_load_yaml_subset_matches_yaml_safe_load(tmp_path):
+    text = """# a comment
+top:
+  ints: [1, -2, 0x1f, 017]
+  floats: {a: 1.5, b: 1.0e-9, c: .5, d: -.inf}
+  plain: some/path.pt   # trailing comment
+  quoted: "a # not a comment"
+  single: 'it''s'
+  words: [yes, No, on, off, ~, null, "true", 1e-9, 12abc]
+  empty:
+list:
+- 1
+- name: x
+  value: 2.0
+- - nested
+  - list
+last: -7
+"""
+    p = tmp_path / "t.yaml"
+    p.write_text(text)
+    assert t_config.load_yaml(str(p)) == yaml.safe_load(text)
+
+
+def test_config_yaml_matches_the_jax_writer(tmp_path):
+    """The port's config.yaml and the JAX package's (yaml.dump) read back
+    to equal dicts: the runner's argparse values (strings that look like
+    numbers or lists, None, bools) merged with a task config."""
+    parser, _ = base_parser("t", [])
+    args = parser.parse_args(["--save-dir", "out/x", "--erase_id", "std_rep",
+                              "--valid_case_numbers", "3,10"])
+    task = t_config.load_yaml(os.path.join(ROOT, "configs", "nudity",
+                                           "safe_denoiser.yaml"))
+    task["extra"] = {"tiny": 1e-9, "big": 1e20, "neg": -0.25, "list": [1, "a"],
+                     "none": None, "text": "yes", "colon": "a: b",
+                     "empty": "", "nested": {"k": [True, 2.5]}}
+    t_config.save_combined_config(args, str(tmp_path / "port.yaml"), task)
+    j_config.save_combined_config(args, str(tmp_path / "jax.yaml"), task)
+    with open(tmp_path / "port.yaml") as f:
+        mine = yaml.safe_load(f)
+    with open(tmp_path / "jax.yaml") as f:
+        ref = yaml.safe_load(f)
+    assert mine == ref
+    assert t_config.load_yaml(str(tmp_path / "port.yaml")) == ref
+
+
+# --------------------------------------------------------------------- PNG
+def _image(h, w, seed):
+    """A smooth gradient plus noise, so PIL's encoder picks several row
+    filters."""
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
+                     (xx + yy) * 127 // max(h + w - 2, 1)], -1)
+    return np.clip(base + rs.randint(-6, 7, base.shape), 0, 255).astype(
+        np.uint8)
+
+
+def test_png_writer_reads_back_in_pil(tmp_path):
+    for arr in (_image(37, 53, 0), _image(16, 16, 1)[:, :, 0],
+                np.dstack([_image(9, 31, 2), _image(9, 31, 3)[:, :, :1]])):
+        path = str(tmp_path / "w.png")
+        t_images.write_png(arr, path)
+        with Image.open(path) as im:
+            np.testing.assert_array_equal(np.asarray(im), arr)
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA", "L", "LA", "P"])
+def test_png_decoder_matches_pil(tmp_path, mode):
+    im = Image.fromarray(_image(41, 67, 4))
+    im = im.convert(mode) if mode != "P" else im.quantize(64)
+    path = str(tmp_path / f"{mode}.png")
+    im.save(path)
+    with Image.open(path) as back:
+        want = np.asarray(back.convert("RGB"))
+    np.testing.assert_array_equal(t_images.read_png(path), want)
+
+
+@pytest.mark.parametrize("ftype", [0, 1, 2, 3, 4])
+def test_png_decoder_unfilters_each_filter_type(ftype):
+    """Every row written with one filter type (PNG spec, section 9)."""
+    img = _image(7, 11, ftype)
+    bpp, h = 3, img.shape[0]
+    rows = img.reshape(h, -1).astype(np.int64)
+    out = []
+    for y in range(h):
+        cur = rows[y]
+        up = rows[y - 1] if y else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+        ul = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
+        if ftype == 4:
+            p = left + up - ul
+            pa, pb, pc = abs(p - left), abs(p - up), abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, ul))
+        else:
+            pred = [0 * cur, left, up, (left + up) // 2][ftype]
+        out.append(bytes([ftype]) + ((cur - pred) % 256).astype(
+            np.uint8).tobytes())
+    data = bytearray(t_images.encode_png(img))
+    # swap the IDAT payload for the filtered rows, then fix its CRC
+    start = data.index(b"IDAT") - 4
+    n = int.from_bytes(data[start:start + 4], "big")
+    payload = zlib.compress(b"".join(out))
+    chunk = (len(payload).to_bytes(4, "big") + b"IDAT" + payload
+             + (zlib.crc32(b"IDAT" + payload) & 0xFFFFFFFF).to_bytes(4, "big"))
+    data[start:start + 12 + n] = chunk
+    np.testing.assert_array_equal(t_images.decode_png(bytes(data)), img)
+
+
+# ------------------------------------------------------------------ resize
+@pytest.mark.parametrize("hw", [(480, 640), (300, 300), (512, 300)])
+def test_bilinear_resize_matches_pil(hw):
+    arr = _image(*hw, 5)
+    want = np.asarray(Image.fromarray(arr).resize((512, 512),
+                                                  Image.BILINEAR))
+    # the fixed-point arithmetic is PIL's, so the pixels are equal (well
+    # inside the 1/255 the bank transform could tolerate)
+    np.testing.assert_array_equal(t_images.resize_bilinear(arr, (512, 512)),
+                                  want)
+
+
+@pytest.mark.parametrize("hw", [(512, 512), (300, 200), (256, 256)])
+def test_nearest_resize_matches_pil(hw):
+    arr = _image(*hw, 6)
+    want = np.asarray(Image.fromarray(arr).resize((256, 256), Image.NEAREST))
+    np.testing.assert_array_equal(t_images.resize_nearest(arr, (256, 256)),
+                                  want)
+    np.testing.assert_array_equal(load_images([arr])[0],
+                                  want.astype(np.float32) / 255.0)
+
+
+def test_bank_transform_matches_the_jax_dataset(tmp_path):
+    """The bank loader reads the same [M,3,H,W] f32 array as the JAX
+    package's (PIL) from PNG files of another size."""
+    from safe_denoiser_tpu.data import images as j_images
+    d = tmp_path / "bank" / "c"
+    d.mkdir(parents=True)
+    for i in range(3):
+        Image.fromarray(_image(40 + i, 50, 7 + i)).save(d / f"{i}.png")
+    kw = dict(name="nudity", root=str(tmp_path / "bank"), class_info="c",
+              size=32)
+    ds_t = t_images.get_dataset(**kw, transforms=t_images.get_transform(**kw))
+    ds_j = j_images.get_dataset(**kw, transforms=j_images.get_transform(**kw))
+    for i in range(3):
+        np.testing.assert_array_equal(ds_t[i], ds_j[i])
+    Image.fromarray(_image(8, 8, 0)).save(d / "z.jpg")
+    ds_t = t_images.get_dataset(**kw)
+    with pytest.raises(ValueError, match="proj_ref_path"):
+        ds_t[3]
+
+
+# -------------------------------------------------------------------- ONNX
+def test_onnx_interpreter_copy_matches_jax_package(tmp_path):
+    from tests.test_nudenet_graph import _build_graph_and_torch
+    model, _ = _build_graph_and_torch()
+    path = tmp_path / "m.onnx"
+    path.write_bytes(model)
+    x = np.random.RandomState(8).rand(2, 32, 40, 3).astype(np.float32)
+    outs = []
+    for mod in (t_onnx, j_onnx):
+        sess = mod.InferenceSession(str(path))
+        outs.append(sess.run([sess.get_outputs()[0].name],
+                             {sess.get_inputs()[0].name: x})[0])
+    np.testing.assert_allclose(outs[0], outs[1], atol=1e-6, rtol=1e-6)
+
+
+# --------------------------------------------------------------------- CSV
+CSVS = {
+    "ints": "case_number,prompt,evaluation_seed,categories\n"
+            "0,a cat,7,sexual\n1,a dog,9,\"sexual, violence\"\n2,,3,x\n",
+    "nan_seed": "case_number,prompt,evaluation_seed\n0,a,1\n1,b,\n2,c,5\n",
+    "unnamed_guidance": ",case_number,prompt,sd_seed,guidance\n"
+                        "0,10,a,1,7.5\n1,11,b,2,3\n2,12,c,3,\n",
+    "float_guidance_int_seed": "prompt,sd_seed,guidance\na,1,7\nb,2,5\n",
+    "no_seed": "case_number,prompt\n5,a\n6,b\n",
+    "adv_prompt": "adv_prompt,evaluation_seed\nx,1\ny,2\n",
+    "all_numeric_but_prompt": "prompt,evaluation_seed,guidance\n"
+                              "a,1,7.5\nb,2,\n",
+}
+
+
+@pytest.mark.parametrize("name", list(CSVS))
+@pytest.mark.parametrize("valid", ["0,100000", "1,1"])
+def test_prompt_cases_match_jax(tmp_path, name, valid):
+    """The same CSV through pandas + the JAX iterator and through the
+    port's csv reader + iterator gives the same cases: ints stay ints, an
+    empty cell makes its column float (and a float seed skips the row), an
+    ``Unnamed: 0`` column is dropped, valid_case_numbers slices."""
+    path = tmp_path / f"{name}.csv"
+    path.write_text(CSVS[name])
+    df = pd.read_csv(path)
+    if "Unnamed: 0" in df.columns:
+        df = df.drop(columns=["Unnamed: 0"])
+    table = t_prompts.read_csv(str(path))
+    if "Unnamed: 0" in table.columns:
+        table = table.drop("Unnamed: 0")
+    want = list(j_iter_cases(df, default_guidance=6.0,
+                             valid_case_numbers=valid))
+    got = list(t_prompts.iter_prompt_cases(table, default_guidance=6.0,
+                                           valid_case_numbers=valid))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        # repr: a NaN guidance passes the skip rule in both and equals itself
+        assert repr((g.prompt, g.seed, g.guidance, g.categories, g.row_index,
+                     g.case_number)) == \
+            repr((w.prompt, w.seed, w.guidance, w.categories, w.row_index,
+                  w.case_number))
+
+
+# ------------------------------------------------------------------ runner
+@pytest.fixture
+def assets(tmp_path):
+    """A tiny HF-layout checkpoint, 4 bank PNGs, a task YAML with beta
+    calibration, a NudeNet-shaped ONNX graph, a CSV. The checkpoint is the
+    port's pipeline tests' (sharded safetensors UNet, a torch .bin text
+    encoder): the JAX runner tests' writer initializes its flax models
+    eagerly, ~100 s on the CPU."""
+    import chip_smoke
+    from tests.test_nudenet_graph import _build_graph_and_torch
+    from tests.test_torch_port_pipeline import _write_checkpoint
+
+    vocab = tmp_path / "vocab"
+    vocab.mkdir()
+    chip_smoke.write_tiny_vocab(str(vocab))
+    ckpt = tmp_path / "ckpt"
+    _write_checkpoint(str(ckpt), str(vocab))
+    bank = tmp_path / "bank" / "tiny"
+    bank.mkdir(parents=True)
+    rs = np.random.RandomState(0)
+    for i in range(4):
+        t_images.write_png(rs.randint(0, 255, (32, 32, 3), dtype=np.uint8),
+                           str(bank / f"{i}.png"))
+    task = tmp_path / "task.yaml"
+    task.write_text(f"""
+repellency:
+  method: kernel_fast
+  n_embed: 2
+  params:
+    sigma: 100.0
+    scale: 0.33
+    beta_threshold_margin: 0.0
+data:
+  name: nudity
+  root: {tmp_path / 'bank'}
+  class_info: tiny
+  size: 32
+""")
+    onnx = tmp_path / "nudenet.onnx"
+    onnx.write_bytes(_build_graph_and_torch()[0])
+    csv = tmp_path / "prompts.csv"
+    csv.write_text("case_number,prompt,evaluation_seed,categories\n"
+                   "0,a cat,7,sexual\n1,a dog,9,sexual\n2,a bird,3,violence\n"
+                   "3,a fish,5,sexual\n4,a horse,2,violence\n")
+    return SimpleNamespace(root=tmp_path, ckpt=str(ckpt), task=str(task),
+                           onnx=str(onnx), csv=str(csv))
+
+
+def _argv(a, save_dir, *extra):
+    return ["--data", a.csv, "--save-dir", str(save_dir), "--model_dir",
+            a.ckpt, "--num_inference_steps", "3", "--image_length", "32",
+            "--device", "cpu", *extra]
+
+
+def test_runner_end_to_end_serial_and_overlapped(assets, monkeypatch):
+    """std_rep with the bank VAE-encoded and beta calibrated, the NudeNet
+    gate: the output tree as the JAX runner writes it, and the overlapped
+    loop (SDT_RUNNER_DEPTH=3, SDT_EVAL_GROUP=2) byte-identical to the
+    serial one (1, 1)."""
+    outs = {}
+    for name, depth, group in (("serial", "1", "1"), ("overlap", "3", "2")):
+        monkeypatch.setenv("SDT_RUNNER_DEPTH", depth)
+        monkeypatch.setenv("SDT_EVAL_GROUP", group)
+        save = assets.root / f"out_{name}"
+        t_nudity.main(_argv(assets, save, "--erase_id", "std_rep",
+                            "--task_config", assets.task,
+                            "--nudenet-path", assets.onnx))
+        logs = (save / "logs.txt").read_text()
+        assert "Repellency method : kernel_fast" in logs
+        assert logs.count("Wall-Clock Time for image generation") == 5
+        cfg = yaml.safe_load((save / "config.yaml").read_text())
+        assert cfg["erase_id"] == "std_rep" and cfg["data"]["size"] == 32
+        pngs = {p.name: p.read_bytes() for p in (save / "all").glob("*.png")}
+        routed = [p.name for d in ("safe", "unsafe")
+                  for p in (save / d).glob("*.png")]
+        assert sorted(routed) == sorted(pngs) and len(pngs) == 5
+        assert "3_sexual.png" in pngs
+        detect = json.loads((save / "detect_dict.json").read_text())
+        assert len(detect["unsafe"]) == 5
+        assert detect["toxic_size"] == {"sexual": 3, "violence": 2,
+                                        "average": 5}
+        with Image.open(save / "all" / "0_sexual.png") as im:
+            assert im.size == (32, 32) and im.mode == "RGB"
+        outs[name] = (pngs, detect)
+    assert outs["serial"] == outs["overlap"]
+
+
+def test_runner_artist_resume_and_shards(assets):
+    """The artist branch (all/<case>.png, empty detect_dict), fleet shards
+    splitting the cases round-robin, and --resume skipping what exists."""
+    names = []
+    for k in range(2):
+        save = assets.root / f"shard{k}"
+        t_nudity.main(_argv(assets, save, "--erase_id", "std",
+                            "--category", "artists-Test", "--num_shards",
+                            "2", "--shard_id", str(k)))
+        names.append(sorted(p.name for p in (save / "all").glob("*.png")))
+        assert json.loads((save / "detect_dict.json").read_text()) == {}
+    assert names == [["0.png", "2.png", "4.png"], ["1.png", "3.png"]]
+    first = (assets.root / "shard0" / "all" / "0.png").read_bytes()
+    t_nudity.main(_argv(assets, assets.root / "shard0", "--erase_id", "std",
+                        "--category", "artists-Test", "--resume"))
+    logs = (assets.root / "shard0" / "logs.txt").read_text()
+    assert logs.count("[resume] skipping") == 3
+    assert (assets.root / "shard0" / "all" / "0.png").read_bytes() == first
+    assert (assets.root / "shard0" / "all" / "1.png").exists()
+
+
+@pytest.mark.parametrize("extra", [
+    ["--erase_id", "safree_neg_prompt_rep"], ["--erase_id", "sld"],
+    ["--safree"], ["-lra"], ["--int8"], ["--shard_bank"],
+    ["--category", "all"]],
+    ids=["safree", "sld", "safree_flag", "lra", "int8", "shard_bank",
+         "q16"])
+def test_runner_raises_on_what_is_not_ported(tmp_path, extra):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_nudity.main(["--data", "x.csv", "--save-dir", str(tmp_path / "o"),
+                       "--device", "cpu", *extra])
+    assert not (tmp_path / "o").exists()
+
+
+def test_pipeline_keywords_for_unported_features_raise():
+    from safe_denoiser_tpu_torch.pipeline import SafeDiffusionPipeline
+    pipe = SafeDiffusionPipeline.__new__(SafeDiffusionPipeline)
+    for kw in (dict(safree_dict={"safree": True}),
+               dict(safree_dict={"lra": True}), dict(safe_config={}),
+               dict(freeu=object())):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            pipe.dispatch_batch(["p"], [0], [7.5], **kw)
+
+
+def test_pipeline_swaps_in_an_esd_unet(assets, tmp_path):
+    """--erase_concept_checkpoint: a diffusers-named UNet state dict (here
+    in a torch .pt under a ``unet`` key) replaces the UNet's weights."""
+    import torch
+
+    from safe_denoiser_tpu_torch.pipeline import SafeDiffusionPipeline
+    pipe = SafeDiffusionPipeline.from_pretrained(assets.ckpt, device="cpu")
+    sd = {k: v + 0.5 for k, v in pipe.unet.state_dict().items()}
+    torch.save({"unet": sd}, tmp_path / "esd.pt")
+    pipe.load_unet_state_dict(str(tmp_path / "esd.pt"))
+    for k, v in pipe.unet.state_dict().items():
+        assert torch.equal(v, sd[k].to(v.dtype)), k

@@ -136,10 +136,16 @@ def test_kernel_fast_processor_bank_and_config(tmp_path):
         cache_proj_ref=True, **kw)
     np.testing.assert_array_equal(cached.get_proj_ref().numpy(),
                                   tp.get_proj_ref().numpy())
-    with pytest.raises(NotImplementedError):
-        t_methods.KernelFastRepellency(
-            ref_data=torch.from_numpy(data), embed_fn=lambda x: x,
-            beta_threshold=-1.0, scheduler=DDPMScheduler())
+    # a non-positive threshold with a scheduler is calibrated: the last
+    # timestep's empirical beta over the forward-noised bank (the noise
+    # differs from JAX's; test_torch_port_conv.py holds empirical_beta
+    # against the JAX package on injected noisy banks)
+    calibrated = t_methods.KernelFastRepellency(
+        ref_data=torch.from_numpy(data), embed_fn=lambda x: x,
+        beta_threshold=-1.0, scheduler=DDPMScheduler(), num_timesteps=5)
+    noisy = calibrated.set_noisy_proj_ref(DDPMScheduler(), 5)
+    want = calibrated.empirical_beta(noisy, 1.0, 0.0)[1]
+    assert calibrated.beta_threshold == want > 0
 
 
 # ------------------------------------------------------------ sampling loop
