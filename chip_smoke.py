@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py            # every phase, needs one CUDA GPU
-    python3 chip_smoke.py --profile  # every phase, then a profiled batch
+    python3 chip_smoke.py --profile  # every phase, plus profiled batches
 
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. environment: torch/CUDA versions, the card's name and power limit, the
@@ -24,7 +24,19 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      safetensors checkpoint, 32 random 512^2 PNG bank images VAE-encoded
      through the fused conv and beta-calibrated, 4 CSV prompts x 50 steps
      with std_rep, a small NudeNet-shaped ONNX classifier as the gate --
-     its output tree and the launch count of every kernel.
+     its output tree and the launch count of every kernel;
+  7. SD3: SafeDiffusion3Pipeline on cuda at full SD3-medium width and
+     depth with seeded random weights (CLIP-L, CLIP-bigG, T5-XXL, the
+     24-block MMDiT, the 16-channel VAE) -- 1 prompt, 1024x1024, 50
+     flow-match steps, CFG 2.5, kernel_fast renoising repellency against a
+     [16,16,128,128] bank in [1000, 780] -- twice: bf16 (attention kernel)
+     and with enable_int8() and SDT_INT8_ATTN=1 (W8A8 MMDiT, int8-QK^T
+     attention kernel); stage times, images and launch counts;
+  8. SD3 runner: ``safe_denoiser_tpu_torch.runners.sdv3.main_nudity`` with
+     --int8 and SDT_INT8_ATTN=1 on an HF-layout checkpoint at the published
+     widths (depth cut: MMDiT 6 of 24 blocks, T5 2 of 24, bigG 4 of 32), 16
+     random 1024^2 bank PNGs, SAFREE on, 2 CSV prompts x 50 steps; its
+     output tree and launch counts.
 The last line of standard output is the result, {"ok": true, "device": ...};
 the line before it lists the kernels as JSON.
 """
@@ -47,6 +59,7 @@ sys.path.insert(0, ROOT)
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 without
 # tensor cores, device memory bandwidth
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -57,7 +70,7 @@ PEAK_BYTES = 3.35e12
 # (2 mid + 4 x 3 up) x 2 convs; gn_stats: 3 up_blocks[3] norm1 per step x
 # 50 + 30 VAE-decoder norms
 EXPECTED_LAUNCHES = {"attention": 500, "rbf": 11, "conv3x3_up": 53,
-                     "conv3x3": 28, "gn_stats": 180}
+                     "conv3x3": 28, "gn_stats": 180, "attention_i8": 0}
 # the decode measured with cuDNN resnet convs before the fused conv (PERF.md)
 DECODE_MS_CUDNN = "51.07-51.99"
 
@@ -68,7 +81,24 @@ DECODE_MS_CUDNN = "51.07-51.99"
 # gn_stats 3 x 50 x 4 + 30 x 4 + 22 encoder norms per chunk x 2
 RUNNER_CASES, RUNNER_BANK, RUNNER_N_EMBED = 4, 32, 16
 RUNNER_LAUNCHES = {"attention": 2000, "rbf": 40, "conv3x3_up": 212,
-                   "conv3x3": 2 * 20 + 4 * 28, "gn_stats": 600 + 120 + 44}
+                   "conv3x3": 2 * 20 + 4 * 28, "gn_stats": 600 + 120 + 44,
+                   "attention_i8": 0}
+
+# SD3 (bench.py's sd3 legs: SD3-medium, 1 prompt with CFG, 1024^2, 50
+# flow-match steps, CFG 2.5, kernel_fast against a 16-latent bank)
+SD3_PROMPT = "a photo of a cat on a sofa"
+SD3_STEPS, SD3_SIDE, SD3_BANK = 50, 1024, 16
+# the runner phase: its checkpoint's depth cuts, cases and bank
+SD3_RUNNER_LAYERS = {"mmdit": 6, "t5": 2, "clip_g": 4}
+SD3_RUNNER_CASES, SD3_RUNNER_N_EMBED = 2, 8
+
+# B8's max|d| bound at each phase-3 shape, on the inputs b8_errors draws
+# for it: above the sound kernel's readings over nine seeds and below B1's
+# on the same inputs (a B8 that skipped the quantization), so such a
+# kernel fails at every shape, the SD3 joint attention first; phase 3
+# fails if B1's reading falls under the bound. Readings in PERF.md.
+B8_ATOL = {(2, 4429, 24, 64): 2.5e-3, (8, 4096, 8, 40): 3.2e-3,
+           (8, 1024, 8, 80): 4e-3, (2, 600, 8, 40): 1.2e-3}
 
 
 def fail(msg: str) -> None:
@@ -94,6 +124,74 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def vae_kernel_plan(cfg, b: int, h: int, w: int, part: str = "decoder"):
+    """The port's kernel launches in one bf16 VAE decode of [b, C, h, w]
+    latents (or encode of [b, 3, h, w] images), derived from its routing
+    predicates over the module structure: a resnet takes the fused conv
+    (B4) for both convs when ``conv3x3.supports`` holds at both, else each
+    conv that it takes; an upsample takes B3 where ``supports_up`` holds,
+    else B4 on the upsampled input where that is supported; every bf16
+    GroupNorm takes B5 where its statistics gate passes. Returns (counts,
+    shapes): shapes per kernel as (b, h, w, c) for conv3x3_up, (b, h, w,
+    ci, co, residual) for conv3x3 and (b, s, c) for gn_stats."""
+    from safe_denoiser_tpu_torch.ops import conv3x3 as c3
+    from safe_denoiser_tpu_torch.ops import group_norm as gn
+
+    counts = {"conv3x3_up": 0, "conv3x3": 0, "gn_stats": 0}
+    shapes = {k: [] for k in counts}
+
+    def add(kind, shape):
+        counts[kind] += 1
+        if shape not in shapes[kind]:
+            shapes[kind].append(shape)
+
+    def norm(hh, ww, c):
+        if gn.takes_stats_kernel(hh * ww, c):
+            add("gn_stats", (b, hh * ww, c))
+
+    def resnet(ci, co, hh, ww):
+        norm(hh, ww, ci)
+        norm(hh, ww, co)
+        fused = (c3.supports((b, hh, ww, ci), ci, co)
+                 and c3.supports((b, hh, ww, co), co, co))
+        if fused or c3.supports((b, hh, ww, ci), ci, co):
+            add("conv3x3", (b, hh, ww, ci, co, False))
+        if fused or c3.supports((b, hh, ww, co), co, co):
+            add("conv3x3", (b, hh, ww, co, co, fused))
+
+    chans = list(cfg.block_out_channels)
+    if part == "decoder":
+        chans = chans[::-1]
+        mid = (chans[0], h, w)
+    else:
+        ci = chans[0]
+        for i, ch in enumerate(chans):
+            for j in range(cfg.layers_per_block):
+                resnet(ci if j == 0 else ch, ch, h, w)
+            ci = ch
+            if i < len(chans) - 1:
+                h, w = h // 2, w // 2
+        mid = (chans[-1], h, w)
+    c, mh, mw = mid
+    resnet(c, c, mh, mw)
+    norm(mh, mw, c)                    # the mid-block attention's norm
+    resnet(c, c, mh, mw)
+    if part == "decoder":
+        ci = chans[0]
+        for i, ch in enumerate(chans):
+            for j in range(cfg.layers_per_block + 1):
+                resnet(ci if j == 0 else ch, ch, h, w)
+            ci = ch
+            if i < len(chans) - 1:
+                if c3.supports_up((b, h, w, ch), ch, ch):
+                    add("conv3x3_up", (b, h, w, ch))
+                elif c3.supports((b, 2 * h, 2 * w, ch), ch, ch):
+                    add("conv3x3", (b, 2 * h, 2 * w, ch, ch, False))
+                h, w = 2 * h, 2 * w
+    norm(h, w, chans[-1])              # conv_norm_out
+    return counts, shapes
 
 
 def phase_env() -> str:
@@ -136,24 +234,56 @@ def _report(name, shape, err, tol, ms, plain_ms, lib_ms, bnd, lib_label,
         fail(f"{name} {shape}: {metric} {err:.3e} above tolerance {tol:.1e}")
 
 
+def b8_errors(shape, seed: int):
+    """B8 on seeded bf16 [B,S,H,D] inputs (q >= 0 and k <= 0 at S = 600,
+    so every real logit is negative and an unmasked padded key would
+    dominate): (q, k, v, max|B8 - plain|, max|B1 - plain|), the plain
+    version being ``attention_i8_ref`` on the same values in f32. The
+    second distance is what a B8 that skipped the quantization would
+    read."""
+    from safe_denoiser_tpu_torch.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g)
+               for _ in range(3))
+    if shape[1] == 600:
+        q, k = q.abs(), -k.abs()
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    scale = shape[3] ** -0.5
+    want = attention.attention_i8_ref(q.float(), k.float(), v.float(), scale)
+    out = attention._self_attention_i8_cuda(q, k, v, scale)
+    err = (out.float() - want).abs().max().item()
+    out = attention._self_attention_cuda(q, k, v, scale)
+    ctrl = (out.float() - want).abs().max().item()
+    return q, k, v, err, ctrl
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version at the main path's shapes.
     Returns per-kernel numbers at its most frequent main-path shape."""
     import torch.nn.functional as F
 
+    from safe_denoiser_tpu_torch.models import SD3_VAE
     from safe_denoiser_tpu_torch.ops import (
         attention, conv3x3, group_norm, repellency_kernels)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     results = {}
+    # the SD3 decode's shapes (1 image at 1024^2), from the routing
+    sd3 = vae_kernel_plan(SD3_VAE, 1, SD3_SIDE // 8, SD3_SIDE // 8)[1]
 
     # B1 self-attention, bf16 [B,S,H,D]: compared with the plain version on
     # the same inputs upcast to f32, within attention.BF16_ATOL (bf16 P and
-    # output; tight enough that a lost tail mask at S=600 fails)
-    for b, s, h, d in ((8, 4096, 8, 40), (8, 1024, 8, 80), (2, 600, 8, 40)):
+    # output; tight enough that a lost tail mask at S=600 fails). SD-v1's
+    # two shapes, a tail, SD3's joint attention, and a tail at SD3's D=64
+    # whose real logits are all negative (q >= 0, k <= 0)
+    for b, s, h, d in ((8, 4096, 8, 40), (8, 1024, 8, 80), (2, 600, 8, 40),
+                       (2, 4429, 24, 64), (2, 600, 24, 64)):
         q, k, v = (torch.randn(b, s, h, d, device=dev, generator=g)
                    .to(torch.bfloat16) for _ in range(3))
+        if (s, d) == (600, 64):
+            q, k = q.abs(), -k.abs()
         scale = d ** -0.5
         out = attention.self_attention(q, k, v, scale)
         want = attention.attention_ref(q.float(), k.float(), v.float(), scale)
@@ -174,31 +304,73 @@ def phase_kernels() -> dict:
                                         bound=bnd)
         results["attention"]["err"] = max(results["attention"]["err"], err)
 
-    # B2 rbf score, f32: x near the bank rows so the weights span 1e-3..1
-    n, m, dd = 4, 515, 16384
-    refs = torch.randn(m, 4, 64, 64, device=dev, generator=g)
-    refs = (refs / refs.norm(dim=1, keepdim=True)).reshape(m, dd)
-    x = refs[:n] + 0.1 * torch.randn(n, dd, device=dev, generator=g)
-    for normalize in (True, False):
-        num, beta = repellency_kernels.rbf_negative_score(
-            x, refs, 3.15, 1e-8, normalize=normalize)
-        wn, wb = repellency_kernels.rbf_negative_score_ref(
-            x, refs, 3.15, 1e-8, normalize=normalize)
-        torch.cuda.synchronize()
-        err = max((num - wn).abs().max().item(),
-                  ((beta - wb).abs() / wb.abs()).max().item())
-        ms = cuda_ms(lambda: repellency_kernels.rbf_negative_score(
-            x, refs, 3.15, 1e-8, normalize=normalize))
-        plain = cuda_ms(lambda: repellency_kernels.rbf_negative_score_ref(
-            x, refs, 3.15, 1e-8, normalize=normalize))
-        bnd = bound_ms((m * dd + 2 * n * dd + n) * 4, 4 * n * m * dd,
-                       PEAK_F32)
-        _report("rbf", [n, dd, m, f"normalize={normalize}"], err, 1e-4, ms,
-                plain, None, bnd, "no single PyTorch call")
-        if normalize:
-            results["rbf"] = dict(err=err, ms=ms, plain=plain, lib=None,
-                                  bound=bnd)
-        results["rbf"]["err"] = max(results["rbf"]["err"], err)
+    # B8 int8-QK^T self-attention, bf16 [B,S,H,D]: against its plain
+    # version (the same quantization in f32, exact integer logits) on the
+    # same values, within B8_ATOL of its shape (see there); the SD3 joint
+    # attention first, then SD-v1's two and a tail whose real logits are
+    # all negative. No PyTorch call computes int8-QK^T attention
+    # (library_ms null); SDPA in bf16 at the same shape is printed as
+    # context only.
+    for i, shape in enumerate(B8_ATOL):
+        b, s, h, d = shape
+        tol = B8_ATOL[shape]
+        q, k, v, err, ctrl = b8_errors(shape, seed=i)
+        print(f"  attention_i8 {list(shape)}: B1 (no quantization) on the "
+              f"same inputs max|d|={ctrl:.3e}")
+        if not ctrl > tol:
+            fail(f"attention_i8 {list(shape)}: bound {tol:.1e} does not "
+                 f"separate B8 from B1 (B1 max|d| {ctrl:.3e})")
+        scale = d ** -0.5
+        ms = cuda_ms(lambda: attention._self_attention_i8_cuda(q, k, v,
+                                                               scale))
+        plain = cuda_ms(lambda: attention.attention_i8_ref(q, k, v, scale),
+                        reps=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        half = attention.flops(b, s, h, d) / 2     # QK^T int8, P V bf16
+        t_ops = (half / PEAK_INT8 + half / PEAK_BF16) * 1e3
+        t_bytes = 4 * b * s * h * d * 2 / PEAK_BYTES * 1e3
+        bnd = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                               "bytes")
+        _report("attention_i8", list(shape), err, tol, ms,
+                plain, None, bnd, f"none; SDPA bf16 {sdpa:.4f} ms as "
+                "context")
+        if "attention_i8" not in results:
+            results["attention_i8"] = dict(err=err, ms=ms, plain=plain,
+                                           lib=None, bound=bnd)
+        results["attention_i8"]["err"] = max(results["attention_i8"]["err"],
+                                             err)
+
+    # B2 rbf score, f32: x near the bank rows so the weights span 1e-3..1;
+    # SD-v1's [4, 16384] against 515 rows, then SD3's one [16, 128, 128]
+    # latent (D = 262144) against its 16-latent bank
+    for n, m, cc, hw in ((4, 515, 4, 64), (1, 16, 16, 128)):
+        dd = cc * hw * hw
+        refs = torch.randn(m, cc, hw, hw, device=dev, generator=g)
+        refs = (refs / refs.norm(dim=1, keepdim=True)).reshape(m, dd)
+        x = refs[:n] + 0.1 * torch.randn(n, dd, device=dev, generator=g)
+        for normalize in (True, False):
+            def kernel():
+                return repellency_kernels.rbf_negative_score(
+                    x, refs, 3.15, 1e-8, normalize=normalize)
+
+            def plain_fn():
+                return repellency_kernels.rbf_negative_score_ref(
+                    x, refs, 3.15, 1e-8, normalize=normalize)
+
+            (num, beta), (wn, wb) = kernel(), plain_fn()
+            torch.cuda.synchronize()
+            err = max((num - wn).abs().max().item(),
+                      ((beta - wb).abs() / wb.abs()).max().item())
+            ms, plain = cuda_ms(kernel), cuda_ms(plain_fn)
+            bnd = bound_ms((m * dd + 2 * n * dd + n) * 4, 4 * n * m * dd,
+                           PEAK_F32)
+            _report("rbf", [n, dd, m, f"normalize={normalize}"], err, 1e-4,
+                    ms, plain, None, bnd, "no single PyTorch call")
+            if normalize and "rbf" not in results:
+                results["rbf"] = dict(err=err, ms=ms, plain=plain, lib=None,
+                                      bound=bnd)
+            results["rbf"]["err"] = max(results["rbf"]["err"], err)
 
     # B3 upsample-fused conv, bf16 NHWC; plain version in f32 (TF32 off) on
     # the same bf16 values. Tolerance: outputs ~ N(0, 2) rounded to bf16
@@ -206,7 +378,9 @@ def phase_kernels() -> dict:
     # kernel's pre-summed weights
     for b, h2, w2, ci, co in ((8, 32, 32, 640, 640), (4, 64, 64, 512, 512),
                               (4, 128, 128, 512, 512),
-                              (4, 256, 256, 256, 256)):
+                              (4, 256, 256, 256, 256),
+                              *((b, h, w, c, c)
+                                for b, h, w, c in sd3["conv3x3_up"])):
         hh = torch.randn(b, h2, w2, ci, device=dev,
                          generator=g).to(torch.bfloat16)
         w = (torch.randn(co, ci, 3, 3, device=dev, generator=g)
@@ -244,7 +418,12 @@ def phase_kernels() -> dict:
     # the composition: affine + SiLU, F.conv2d (cuDNN), residual add.
     # Decoder shapes at batch 4 (sd14-main), then the encoder's at the
     # runner's bank chunk of 16 (Ci < Co in the first conv of down_blocks
-    # 1 and 2); the plain version is timed once at batch 16.
+    # 1 and 2), then the SD3 decode's at batch 1 (up to 1024^2); the plain
+    # version is timed once at batch 16.
+    sd3_b4 = []
+    for b, h, w, ci, co, _ in sd3["conv3x3"]:
+        if (b, h, w, ci, co) not in sd3_b4:
+            sd3_b4.append((b, h, w, ci, co))
     for b, h, w, ci, co in ((4, 64, 64, 512, 512), (4, 128, 128, 512, 512),
                             (4, 256, 256, 512, 256), (4, 256, 256, 256, 256),
                             (4, 512, 512, 256, 128), (4, 512, 512, 128, 128),
@@ -252,7 +431,8 @@ def phase_kernels() -> dict:
                             (16, 256, 256, 128, 256),
                             (16, 256, 256, 256, 256),
                             (16, 128, 128, 256, 512),
-                            (16, 128, 128, 512, 512), (16, 64, 64, 512, 512)):
+                            (16, 128, 128, 512, 512), (16, 64, 64, 512, 512),
+                            *sd3_b4):
         if not conv3x3.supports((b, h, w, ci), ci, co):
             fail(f"conv3x3 shape {[b, h, w, ci, co]} not supported")
         x = torch.randn(b, h, w, ci, device=dev, generator=g).bfloat16()
@@ -288,7 +468,7 @@ def phase_kernels() -> dict:
             ms = cuda_ms(kernel)
             plain = cuda_ms(lambda: conv3x3.conv3x3_ref(x, wt, bias, a, s,
                                                         "silu", r),
-                            reps=3 if b == 4 else 1, warmup=1)
+                            reps=1 if b == 16 else 3, warmup=1)
             lib = cuda_ms(library)
             n_io = b * h * w * (ci + co * (1 if r is None else 2))
             bnd = bound_ms((n_io + 9 * ci * co) * 2 + (co + 2 * b * ci) * 4,
@@ -308,13 +488,14 @@ def phase_kernels() -> dict:
     # B5 GN statistics, bf16 [B,S,C] -> f32 sums, at every shape the main
     # path gives it (UNet up_blocks[3] norm1, then the VAE decoder's norms
     # from 64^2 x 512 to 512^2 x 128), then the encoder's at the runner's
-    # bank chunk of 16; tolerance relative to the sum of |x| (order of
-    # summation differs)
+    # bank chunk of 16, then the SD3 decode's; tolerance relative to the
+    # sum of |x| (order of summation differs)
     for b, s, c in ((8, 4096, 640), (8, 4096, 960), (4, 4096, 512),
                     (4, 16384, 512), (4, 65536, 512), (4, 65536, 256),
                     (4, 262144, 256), (4, 262144, 128),
                     (16, 262144, 128), (16, 65536, 128), (16, 65536, 256),
-                    (16, 16384, 256), (16, 16384, 512), (16, 4096, 512)):
+                    (16, 16384, 256), (16, 16384, 512), (16, 4096, 512),
+                    *sd3["gn_stats"]):
         xx = torch.randn(b, s, c, device=dev,
                          generator=g).to(torch.bfloat16) + 0.5
         s1, s2 = group_norm.gn_stats(xx)
@@ -339,6 +520,8 @@ def phase_kernels() -> dict:
 KERNEL_META = {
     "attention": ("cuda", "safe_denoiser_tpu_torch/csrc/attention.cu",
                   "safe_denoiser_tpu/ops/attention.py:36"),
+    "attention_i8": ("cuda", "safe_denoiser_tpu_torch/csrc/attention_i8.cu",
+                     "safe_denoiser_tpu/ops/attention.py:36"),
     "rbf": ("cuda", "safe_denoiser_tpu_torch/csrc/rbf.cu",
             "safe_denoiser_tpu/ops/repellency_kernels.py:79"),
     "conv3x3_up": ("cuda", "safe_denoiser_tpu_torch/csrc/conv3x3_up.cu",
@@ -382,6 +565,15 @@ def write_tiny_vocab(path: str) -> None:
         json.dump({t: i for i, t in enumerate(tokens)}, f)
     with open(os.path.join(path, "merges.txt"), "w") as f:
         f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges))
+
+
+def copy_vocab(vocab_src: str, dst: str) -> None:
+    """``write_tiny_vocab``'s two files into a new tokenizer dir."""
+    os.makedirs(dst)
+    for name in ("vocab.json", "merges.txt"):
+        with open(os.path.join(vocab_src, name)) as f, \
+                open(os.path.join(dst, name), "w") as g:
+            g.write(f.read())
 
 
 def build_random_pipeline(device, vocab_dir: str, unet_cfg=None,
@@ -642,11 +834,7 @@ def write_checkpoint(pipe, root: str, vocab_src: str) -> None:
                           module.state_dict())
         with open(os.path.join(root, sub, "config.json"), "w") as f:
             json.dump(configs[sub], f)
-    os.makedirs(os.path.join(root, "tokenizer"))
-    for name in ("vocab.json", "merges.txt"):
-        with open(os.path.join(vocab_src, name)) as f, \
-                open(os.path.join(root, "tokenizer", name), "w") as g:
-            g.write(f.read())
+    copy_vocab(vocab_src, os.path.join(root, "tokenizer"))
 
 
 def _pb_varint(v: int) -> bytes:
@@ -835,18 +1023,377 @@ data:
     return wall / RUNNER_CASES
 
 
-def phase_profile(pipe, kw, steps: int = 10) -> None:
-    """torch.profiler over one batch of the main path at ``steps`` DDPM
-    steps: device time by kernel, this port's kernels against the rest,
-    and the device's busy share of the profiled wall time."""
+def init_small_(module, gen: torch.Generator, std: float = 0.02):
+    """Every parameter of two or more dims ~ N(0, std^2), drawn from
+    ``gen``: random towers kept as small as bench.py's SD3 set-up keeps its
+    fabricated ones, so 24 bf16 T5 blocks stay finite."""
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, std, generator=gen)
+    return module
+
+
+def build_random_sd3_pipeline(device, vocab_dir: str, mmdit_cfg=None,
+                              t5_cfg=None, clip_l_cfg=None, clip_g_cfg=None,
+                              vae_cfg=None, seed: int = 0,
+                              dtype=torch.bfloat16, std: float = 0.02):
+    """SafeDiffusion3Pipeline with weights drawn from ``seed``, built on
+    ``device`` directly (the CLIP towers in f32, T5, the MMDiT and the VAE
+    in ``dtype``), SD3-medium widths and depth unless configs are given;
+    the towers' matrices ~ N(0, std^2), the VAE's PyTorch's defaults. All
+    three tokenizers are the BPE of ``vocab_dir``."""
+    import dataclasses
+
+    from safe_denoiser_tpu_torch.models import (
+        CLIP_BIG_G, CLIP_VIT_L_14, SD3_MEDIUM, SD3_VAE, T5_XXL,
+        AutoencoderKL, CLIPTextModel, MMDiT, T5Encoder)
+    from safe_denoiser_tpu_torch.pipeline.diffusion_sd3 import \
+        SafeDiffusion3Pipeline
+    from safe_denoiser_tpu_torch.schedulers import FlowMatchEulerScheduler
+    from safe_denoiser_tpu_torch.text import CLIPTokenizer
+
+    tok = CLIPTokenizer.from_pretrained(vocab_dir)
+    eos = dict(eos_token_id=tok.eos_token_id)
+    torch.manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prev = torch.get_default_dtype()
+    with torch.device(device):
+        clip_l, clip_g = (
+            init_small_(CLIPTextModel(dataclasses.replace(cfg, **eos),
+                                      with_projection=True), gen, std)
+            for cfg in (clip_l_cfg or CLIP_VIT_L_14, clip_g_cfg or CLIP_BIG_G))
+        torch.set_default_dtype(dtype)     # build the big towers in dtype
+        try:
+            t5 = init_small_(T5Encoder(t5_cfg or T5_XXL), gen, std)
+            mmdit = init_small_(MMDiT(mmdit_cfg or SD3_MEDIUM), gen, std)
+            vae = AutoencoderKL(vae_cfg or SD3_VAE)
+        finally:
+            torch.set_default_dtype(prev)
+    return SafeDiffusion3Pipeline(mmdit, vae, clip_l, clip_g, t5, tok, tok,
+                                  tok, FlowMatchEulerScheduler(),
+                                  device=device)
+
+
+def write_sd3_checkpoint(pipe, root: str, vocab_src: str) -> None:
+    """``pipe``'s modules as an HF-layout SD3 checkpoint: transformer/ (two
+    safetensors shards and their index), vae/, text_encoder/,
+    text_encoder_2/, text_encoder_3/ (safetensors in the modules' dtypes,
+    diffusers/HF config.json), tokenizer/, tokenizer_2/, tokenizer_3/ from
+    ``vocab_src``, and the scheduler's config."""
+    import dataclasses
+
+    m, t = pipe.transformer.config, pipe.t5.config
+
+    def clip_cfg(c):
+        return dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+                    num_hidden_layers=c.num_layers,
+                    num_attention_heads=c.num_heads,
+                    max_position_embeddings=c.max_position_embeddings,
+                    intermediate_size=c.intermediate_size,
+                    hidden_act=c.hidden_act, projection_dim=c.projection_dim,
+                    eos_token_id=c.eos_token_id)
+
+    parts = {
+        "transformer": (pipe.transformer, dict(
+            sample_size=m.sample_size, patch_size=m.patch_size,
+            in_channels=m.in_channels, out_channels=m.out_channels,
+            num_layers=m.num_layers, num_attention_heads=m.num_heads,
+            attention_head_dim=m.head_dim,
+            joint_attention_dim=m.joint_attention_dim,
+            caption_projection_dim=m.caption_projection_dim,
+            pooled_projection_dim=m.pooled_projection_dim,
+            pos_embed_max_size=m.pos_embed_max_size, qk_norm=m.qk_norm)),
+        "vae": (pipe.vae, dataclasses.asdict(pipe.vae.config)),
+        "text_encoder": (pipe.clip_l, clip_cfg(pipe.clip_l.config)),
+        "text_encoder_2": (pipe.clip_g, clip_cfg(pipe.clip_g.config)),
+        "text_encoder_3": (pipe.t5, dataclasses.asdict(t)),
+    }
+    for sub, (module, cfg) in parts.items():
+        os.makedirs(os.path.join(root, sub))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        sd = module.state_dict()
+        if sub != "transformer":
+            write_safetensors(os.path.join(root, sub, "model.safetensors"),
+                              sd)
+            continue
+        keys = sorted(sd)
+        shards = {"diffusion_pytorch_model-00001-of-00002.safetensors":
+                  keys[:len(keys) // 2],
+                  "diffusion_pytorch_model-00002-of-00002.safetensors":
+                  keys[len(keys) // 2:]}
+        for fname, ks in shards.items():
+            write_safetensors(os.path.join(root, sub, fname),
+                              {k: sd[k] for k in ks})
+        with open(os.path.join(root, sub, "diffusion_pytorch_model."
+                               "safetensors.index.json"), "w") as f:
+            json.dump({"weight_map": {k: fn for fn, ks in shards.items()
+                                      for k in ks}}, f)
+    for tok in ("tokenizer", "tokenizer_2", "tokenizer_3"):
+        copy_vocab(vocab_src, os.path.join(root, tok))
+    os.makedirs(os.path.join(root, "scheduler"))
+    with open(os.path.join(root, "scheduler", "scheduler_config.json"),
+              "w") as f:
+        json.dump(dict(dataclasses.asdict(pipe.scheduler.config),
+                       _class_name="FlowMatchEulerDiscreteScheduler"), f)
+
+
+def sd3_expected_launches(pipe, steps: int, window, layers: int,
+                          int8_attention: bool) -> dict:
+    """One SD3 image's launches, from the JAX package's gates: the joint
+    attention once per block and step (B8 under SDT_INT8_ATTN=1, else B1);
+    B2 once per step whose timestep lies in the window (the flow-match
+    table); B3/B4/B5 as the VAE decode's routing gives them."""
+    ts, _ = pipe.scheduler.timesteps_and_sigmas(steps)
+    side = SD3_SIDE // pipe.vae_scale_factor
+    dec = vae_kernel_plan(pipe.vae.config, 1, side, side)[0]
+    attn = layers * steps
+    return {"attention": 0 if int8_attention else attn,
+            "attention_i8": attn if int8_attention else 0,
+            "rbf": sum(bool(window.mask(i, float(t)))
+                       for i, t in enumerate(ts)),
+            **dec}
+
+
+def _check_images(images, side: int, what: str) -> None:
+    if not images or any(im.dtype.name != "uint8"
+                         or im.shape != (side, side, 3) for im in images):
+        fail(f"{what}: images {[(im.dtype, im.shape) for im in images]}")
+
+
+def phase_sd3(profile: bool = False) -> dict:
+    """SD3-medium at full width and depth, bf16 then int8 (with
+    ``profile``, a profiled 5-step image after each); returns the launch
+    counts of each run."""
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.pipeline import RepellencyWindow
+    from safe_denoiser_tpu_torch.repellency import KernelFastRepellency
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as vocab_dir:
+        write_tiny_vocab(vocab_dir)
+        pipe = build_random_sd3_pipeline(dev, vocab_dir)
+    torch.cuda.synchronize()
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("transformer", "t5", "clip_l", "clip_g", "vae")}
+    print(f"sd3: SD3-medium widths and depth, random weights (seed 0), built "
+          f"on the GPU in {time.perf_counter() - t0:.1f} s; parameters "
+          f"{json.dumps(n_params)}; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    g = torch.Generator(device=dev).manual_seed(1)
+    bank = torch.randn(SD3_BANK, 16, SD3_SIDE // 8, SD3_SIDE // 8,
+                       generator=g, device=dev)
+    proc = KernelFastRepellency(ref_data=bank, embed_fn=lambda x: x,
+                                sigma=2.75, scale=0.03, normalize_x=True)
+    window = RepellencyWindow(1000.0, 780.0)
+    kw = dict(seed=0, guidance_scale=2.5, height=SD3_SIDE, width=SD3_SIDE,
+              repellency_processor=proc, window=window)
+    layers = pipe.transformer.config.num_layers
+    out = {}
+    try:
+        for mode in ("bf16", "int8"):
+            if mode == "int8":
+                n_q = pipe.enable_int8()
+                want_q = 12 * (layers - 1) + 9    # the JAX selection's count
+                print(f"sd3 int8: {n_q} MMDiT linears quantized (W8A8), "
+                      f"expected {want_q}")
+                if n_q != want_q:
+                    fail(f"enable_int8 quantized {n_q} linears, the JAX "
+                         f"package's selection {want_q}")
+                os.environ["SDT_INT8_ATTN"] = "1"
+            pipe.dispatch(SD3_PROMPT, num_inference_steps=2, **kw).fetch()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            pending = pipe.dispatch(SD3_PROMPT,
+                                    num_inference_steps=SD3_STEPS, **kw)
+            images = pending.fetch()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            if not bool(torch.isfinite(pending.latents).all()
+                        and torch.isfinite(pending.image).all()):
+                fail(f"sd3 {mode}: non-finite latents or image")
+            _check_images(images, SD3_SIDE, f"sd3 {mode}")
+            st = pending.stage_ms
+            want = sd3_expected_launches(pipe, SD3_STEPS, window, layers,
+                                         mode == "int8")
+            print(f"sd3 {mode}: 1 x {SD3_SIDE}^2, {SD3_STEPS} flow-match "
+                  f"steps, CFG 2.5, kernel_fast [1000,780]: "
+                  f"encode_ms={st['encode']:.2f} loop_ms={st['loop']:.2f} "
+                  f"decode_ms={st['decode']:.2f} wall_s={wall:.3f} "
+                  f"rep_applied_steps={int(pending.applied.any(1).sum())} "
+                  f"image_mean={images[0].mean():.3f}")
+            print(f"sd3 {mode} launches: {json.dumps(counts)} expected "
+                  f"{json.dumps(want)}")
+            for name, n in want.items():
+                if counts[name] != n:
+                    fail(f"sd3 {mode}: kernel {name} launched {counts[name]}"
+                         f" times, expected {n}")
+            out[mode] = (counts, images[0], pending.latents.float())
+            if profile:
+                profile_call(lambda: pipe.dispatch(
+                    SD3_PROMPT, num_inference_steps=5, **kw).fetch(),
+                    f"sd3 {mode}, 5 steps")
+    finally:
+        os.environ.pop("SDT_INT8_ATTN", None)
+    d_lat = (out["bf16"][2] - out["int8"][2]).abs().max().item()
+    d_img = abs(out["bf16"][1].astype(float) - out["int8"][1]).mean()
+    print(f"sd3 int8 vs bf16: max|d| latents={d_lat:.4e} mean|d| image "
+          f"(0..255)={d_img:.3f}")
+    del pipe
+    torch.cuda.empty_cache()
+    return {mode: v[0] for mode, v in out.items()}
+
+
+def phase_sd3_runner() -> None:
+    """The SD3 runner on cuda with --int8 and SDT_INT8_ATTN=1 on an
+    HF-layout checkpoint at the published widths with the depth cut of
+    SD3_RUNNER_LAYERS: 16 bank PNGs VAE-encoded in chunks, SAFREE on, 2
+    cases of 50 steps, the NudeNet-shaped gate. Checks the output tree and
+    every kernel's launch count."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+
+    import numpy as np
+
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.data.images import write_png
+    from safe_denoiser_tpu_torch.models import (CLIP_BIG_G, SD3_MEDIUM,
+                                                T5_XXL)
+    from safe_denoiser_tpu_torch.pipeline import RepellencyWindow
+    from safe_denoiser_tpu_torch.runners.sdv3 import main_nudity
+
+    cut = SD3_RUNNER_LAYERS
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        voc = os.path.join(tmp, "vocab")
+        os.makedirs(voc)
+        write_tiny_vocab(voc)
+        pipe = build_random_sd3_pipeline(
+            torch.device("cuda"), voc,
+            mmdit_cfg=dataclasses.replace(SD3_MEDIUM,
+                                          num_layers=cut["mmdit"]),
+            t5_cfg=dataclasses.replace(T5_XXL, num_layers=cut["t5"]),
+            clip_g_cfg=dataclasses.replace(CLIP_BIG_G,
+                                           num_layers=cut["clip_g"]),
+            seed=4)
+        ckpt = os.path.join(tmp, "ckpt")
+        write_sd3_checkpoint(pipe, ckpt, voc)
+        want = sd3_expected_launches(pipe, SD3_STEPS,
+                                     RepellencyWindow(1000.0, 780.0),
+                                     cut["mmdit"], True)
+        want = {k: v * SD3_RUNNER_CASES for k, v in want.items()}
+        enc = vae_kernel_plan(pipe.vae.config, SD3_RUNNER_N_EMBED, SD3_SIDE,
+                              SD3_SIDE, "encoder")[0]
+        for k, v in enc.items():
+            want[k] += v * (SD3_BANK // SD3_RUNNER_N_EMBED)
+        del pipe
+        torch.cuda.empty_cache()
+        bank = os.path.join(tmp, "bank", "i2p_sexual")
+        os.makedirs(bank)
+        rs = np.random.RandomState(5)
+        for i in range(SD3_BANK):
+            write_png(rs.randint(0, 256, (SD3_SIDE, SD3_SIDE, 3),
+                                 dtype=np.uint8),
+                      os.path.join(bank, f"{i:03d}.png"))
+        task = os.path.join(tmp, "task.yaml")
+        with open(task, "w") as f:
+            f.write(f"""# the SD3 nudity task's kernel_fast settings
+repellency:
+  method: kernel_fast
+  n_embed: {SD3_RUNNER_N_EMBED}
+  params:
+    sigma: 2.75
+    scale: 0.03
+data:
+  name: nudity
+  root: {os.path.join(tmp, "bank")}
+  class_info: i2p_sexual
+  size: {SD3_SIDE}
+""")
+        csv_path = os.path.join(tmp, "prompts.csv")
+        with open(csv_path, "w") as f:
+            f.write("case_number,prompt,evaluation_seed,categories\n")
+            for i, p in enumerate(PROMPTS[:SD3_RUNNER_CASES]):
+                f.write(f"{i},{p},{200 + i},sexual\n")
+        onnx = os.path.join(tmp, "nudenet.onnx")
+        with open(onnx, "wb") as f:
+            f.write(nudenet_like_onnx())
+        print(f"sd3 runner: assets written in {time.perf_counter() - t0:.1f}"
+              f" s (checkpoint with depth cut {json.dumps(cut)}, "
+              f"{SD3_BANK} bank PNGs, task YAML, CSV, ONNX)")
+
+        out = os.path.join(tmp, "out")
+        log = io.StringIO()
+        os.environ["SDT_INT8_ATTN"] = "1"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                main_nudity(["--data", csv_path, "--save-dir", out,
+                             "--model_dir", ckpt, "--task_config", task,
+                             "--nudenet-path", onnx, "--int8",
+                             "--num_inference_steps", str(SD3_STEPS),
+                             "--image_length", str(SD3_SIDE),
+                             "--device", "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("SDT_INT8_ATTN", None)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        logs = open(os.path.join(out, "logs.txt")).read()
+        per_case = [float(v) for v in re.findall(
+            r"Wall-Clock Time for image generation \(Case#: \d+\): "
+            r"([0-9.]+) seconds", logs)]
+        names = {f"{i}_sexual.png" for i in range(SD3_RUNNER_CASES)}
+        listing = {d: set(os.listdir(os.path.join(out, d)))
+                   for d in ("all", "safe", "unsafe")}
+        detect = json.load(open(os.path.join(out, "detect_dict.json")))
+        print(f"sd3 runner: {SD3_RUNNER_CASES} cases x {SD3_STEPS} steps at "
+              f"{SD3_SIDE}^2, --int8, SDT_INT8_ATTN=1, SAFREE: "
+              f"wall_s={wall:.3f} per_case_s={per_case} "
+              f"unsafe={detect['unsafe']}")
+        print(f"sd3 runner launches: {json.dumps(counts)} expected "
+              f"{json.dumps(want)}")
+        problems = []
+        if listing["all"] != names:
+            problems.append(f"all/ holds {sorted(listing['all'])}")
+        if (listing["safe"] | listing["unsafe"] != names
+                or listing["safe"] & listing["unsafe"]):
+            problems.append("safe/ and unsafe/ do not split the cases")
+        if (len(detect["unsafe"]) != SD3_RUNNER_CASES
+                or len(per_case) != SD3_RUNNER_CASES):
+            problems.append("detect_dict.json or logs.txt miss cases")
+        for line in ("int8: MMDiT block matmuls quantized (W8A8)",
+                     "Repellency method : kernel_fast", "we remove",
+                     "Repellency applied at timestep"):
+            if line not in logs:
+                problems.append(f"logs.txt lacks {line!r}")
+        if not os.path.exists(os.path.join(out, "config.yaml")):
+            problems.append("no config.yaml")
+        for name, n in want.items():
+            if counts[name] != n:
+                problems.append(f"kernel {name} launched {counts[name]} "
+                                f"times, expected {n}")
+        if problems:
+            print(log.getvalue()[-4000:])
+            fail("sd3 runner phase: " + "; ".join(problems))
+
+
+def profile_call(fn, label: str) -> None:
+    """torch.profiler over ``fn()`` (which ends in a device sync): device
+    time by kernel, this port's kernels against the rest, and the device's
+    busy share of the profiled wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.generate_batch(PROMPTS, seeds=[0, 1, 2, 3],
-                            num_inference_steps=steps, **kw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -858,25 +1405,34 @@ def phase_profile(pipe, kw, steps: int = 10) -> None:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    ours = {"attn_kernel": 0.0, "rbf_": 0.0, "up_conv_kernel": 0.0,
-            "conv3x3_kernel": 0.0, "_partial_sums": 0.0, "_finish": 0.0}
+    ours = {"attn_kernel": 0.0, "attn_i8_kernel": 0.0, "rbf_": 0.0,
+            "up_conv_kernel": 0.0, "conv3x3_kernel": 0.0,
+            "_partial_sums": 0.0, "_finish": 0.0}
     for ms, _, key in rows:
         for k in ours:
             if k in key:
                 ours[k] += ms
-    print(f"profile ({steps} steps, batch 4): wall_ms={wall_ms:.1f} "
+    print(f"profile ({label}): wall_ms={wall_ms:.1f} "
           f"device_busy_ms={busy:.1f} busy_share={busy / wall_ms:.3f} "
           f"idle_share={1 - busy / wall_ms:.3f}")
-    print("profile port kernels ms: " + json.dumps(
+    print(f"profile ({label}) port kernels ms: " + json.dumps(
         {k: round(v, 3) for k, v in ours.items()}))
     for ms, n, key in rows[:20]:
         print(f"  profile {ms:10.3f} ms {n:6d}x {key[:100]}")
 
 
+def phase_profile(pipe, kw, steps: int = 10) -> None:
+    """One batch of the main path at ``steps`` DDPM steps, profiled."""
+    profile_call(lambda: pipe.generate_batch(
+        PROMPTS, seeds=[0, 1, 2, 3], num_inference_steps=steps, **kw),
+        f"{steps} steps, batch 4")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, profile a 10-step batch")
+                    help="after the main path, profile a 10-step batch; "
+                         "after each SD3 run, a 5-step image")
     args = ap.parse_args()
     try:
         import safe_denoiser_tpu_torch  # noqa: F401
@@ -890,8 +1446,15 @@ def main() -> None:
     phase_runner(pipe)
     if args.profile:
         phase_profile(pipe, kw)
+    del pipe, kw
+    torch.cuda.empty_cache()
+    sd3_counts = phase_sd3(args.profile)
+    phase_sd3_runner()
+    # launches over the main paths: sd14-main and both SD3 runs
+    total = {name: counts[name] + sum(c[name] for c in sd3_counts.values())
+             for name in counts}
     print(card)
-    print(kernels_line(results, counts))
+    print(kernels_line(results, total))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,14 @@
 """safe_denoiser_tpu_torch — the PyTorch/CUDA port of ``safe_denoiser_tpu``.
 
 Runs the SD-v1.4 safe-denoiser generation path (CLIP tokenize + encode, a
-DDPM UNet loop with CFG and ``kernel_fast`` repellency, VAE decode) on one
-NVIDIA Hopper GPU. Module paths mirror the JAX package so each counterpart
-is easy to find; the JAX package stays the numerical reference.
+DDPM UNet loop with CFG and ``kernel_fast`` repellency, VAE decode) and
+the SD3-medium one (CLIP-L + CLIP-bigG + T5-XXL encode, SAFREE, a
+flow-match MMDiT loop with the renoising repellency, VAE decode), with
+optional W8A8 int8, and their nudity runners, on one NVIDIA Hopper GPU.
+Module paths mirror the JAX package so each counterpart is easy to find;
+the JAX package stays the numerical reference.
 
-Plain tensor code is PyTorch. The four Pallas kernels on this path have
+Plain tensor code is PyTorch. The six Pallas kernels on these paths have
 hand-written Hopper counterparts under ``csrc/`` (CUDA C++) and
 ``ops/group_norm.py`` (Triton); each sits beside a plain PyTorch version
 that CPU tensors take. Nothing here imports ``jax`` or the JAX package.

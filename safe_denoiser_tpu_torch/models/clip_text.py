@@ -1,8 +1,9 @@
 """CLIP text encoder with HF transformers parameter names.
 
 Counterpart of ``safe_denoiser_tpu/models/clip_text.py`` (CLIP ViT-L/14 for
-SD-v1.4): pre-LN encoder layers with causal self-attention, final LN, EOS
-pooling. State-dict keys are HF ``CLIPTextModel``'s (``text_model.*``);
+SD-v1.4 and SD3's first tower, OpenCLIP bigG for SD3's second): pre-LN
+encoder layers with causal self-attention, final LN, EOS pooling.
+State-dict keys are HF ``CLIPTextModel``'s (``text_model.*``);
 ``text_projection`` exists only when the config asks for it (SD-v1's
 encoder has none, and ``projected`` then equals ``pooled``).
 """
@@ -31,7 +32,10 @@ class CLIPTextConfig:
     layer_norm_eps: float = 1e-5
 
 
-CLIP_VIT_L_14 = CLIPTextConfig()
+CLIP_VIT_L_14 = CLIPTextConfig()   # SD-v1.4 / SD3 text_encoder
+CLIP_BIG_G = CLIPTextConfig(hidden_size=1280, num_layers=32, num_heads=20,
+                            intermediate_size=5120, hidden_act="gelu",
+                            projection_dim=1280)   # SD3 text_encoder_2
 
 ACT2FN = {
     "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),

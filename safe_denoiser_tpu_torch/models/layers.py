@@ -16,6 +16,7 @@ from torch import nn
 
 from ..ops import attention as attn_ops
 from ..ops.group_norm import gn_affine_coefs, group_norm_ref
+from ..ops.quant import int8_dense
 
 _FLASH_MIN_SEQ = 512
 
@@ -103,6 +104,34 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attn_ops.attention_ref(q, k, v, float(depth) ** -0.5, mask)
 
 
+class QDense(nn.Linear):
+    """``nn.Linear`` (same parameters, bit-identical on float weights) that
+    runs W8A8 int8 once ``set_int8`` has replaced its weight by an int8 one
+    with per-output-row scales (``ops.quant``). Counterpart of the JAX
+    package's ``QDense``. The scales are f32 and never stored; quantize
+    after the module's dtype is set, since ``.to(dtype)`` would cast them
+    too."""
+
+    def set_int8(self, wq: torch.Tensor, sw: torch.Tensor) -> None:
+        if wq.dtype != torch.int8 or tuple(wq.shape) != tuple(
+                self.weight.shape):
+            raise ValueError(f"int8 weight of shape {tuple(self.weight.shape)}"
+                             f" expected, got {wq.dtype} {tuple(wq.shape)}")
+        dev = self.weight.device
+        self.weight = nn.Parameter(wq.to(dev), requires_grad=False)
+        self.register_buffer("weight_scale", sw.float().to(dev),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.dtype != torch.int8:
+            return super().forward(x)
+        sw = getattr(self, "weight_scale", None)
+        if sw is None or sw.dtype != torch.float32:
+            raise ValueError("int8 weight without its f32 scales: load them "
+                             "with ops.quant.load_quantized")
+        return int8_dense(x, self.weight, sw, self.bias, x.dtype)
+
+
 class Attention(nn.Module):
     """Multi-head attention over [B, S, C] with optional cross-attention
     context; diffusers names (to_q, to_k, to_v, to_out.0)."""
@@ -115,11 +144,10 @@ class Attention(nn.Module):
         context_dim = context_dim or query_dim
         self.num_heads = num_heads
         self.head_dim = head_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
-        self.to_k = nn.Linear(context_dim, inner, bias=qkv_bias)
-        self.to_v = nn.Linear(context_dim, inner, bias=qkv_bias)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim,
-                                               bias=out_bias),
+        self.to_q = QDense(query_dim, inner, bias=qkv_bias)
+        self.to_k = QDense(context_dim, inner, bias=qkv_bias)
+        self.to_v = QDense(context_dim, inner, bias=qkv_bias)
+        self.to_out = nn.ModuleList([QDense(inner, query_dim, bias=out_bias),
                                      nn.Dropout(0.0)])
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
@@ -146,7 +174,7 @@ def gelu_for(dtype: torch.dtype):
 class GEGLU(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = QDense(dim_in, dim_out * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -159,7 +187,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Dropout(0.0),
-                                  nn.Linear(dim * mult, dim)])
+                                  QDense(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))

@@ -1,4 +1,5 @@
-"""AutoencoderKL (SD-v1.x) with diffusers parameter names.
+"""AutoencoderKL (SD-v1.x, and SD3's 16-channel one) with diffusers
+parameter names.
 
 Counterpart of ``safe_denoiser_tpu/models/vae.py`` in the JAX package's
 default form (SDT_PALLAS_CONV=1): a bf16 resnet of the shapes the fused
@@ -39,6 +40,9 @@ class VAEConfig:
 
 
 SD14_VAE = VAEConfig()
+SD3_VAE = VAEConfig(latent_channels=16, scaling_factor=1.5305,
+                    shift_factor=0.0609, sample_size=1024,
+                    use_quant_conv=False, use_post_quant_conv=False)
 
 
 class Conv3x3(nn.Conv2d):

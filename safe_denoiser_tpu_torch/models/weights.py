@@ -18,15 +18,19 @@ import numpy as np
 import torch
 
 from .clip_text import CLIP_VIT_L_14
+from .mmdit import SD3_MEDIUM
+from .t5 import T5_XXL
 from .unet import SD14_UNET
 from .vae import SD14_VAE
 
 
 def load_component_config(model_dir: str, kind: str):
-    """Config dataclass of 'unet' | 'vae' | 'clip_text' from a diffusers/HF
-    ``config.json``; the SD-v1.4 preset when there is none."""
+    """Config dataclass of 'unet' | 'vae' | 'clip_text' | 'mmdit' | 't5'
+    from a diffusers/HF ``config.json``; the SD-v1.4 (SD3-medium, T5-XXL)
+    preset when there is none."""
     defaults = {"unet": SD14_UNET, "vae": SD14_VAE,
-                "clip_text": CLIP_VIT_L_14}[kind]
+                "clip_text": CLIP_VIT_L_14, "mmdit": SD3_MEDIUM,
+                "t5": T5_XXL}[kind]
     path = os.path.join(model_dir, "config.json")
     if not os.path.exists(path):
         return defaults
@@ -65,6 +69,34 @@ def load_component_config(model_dir: str, kind: str):
             sample_size=cfg.get("sample_size", 512),
             use_quant_conv=cfg.get("use_quant_conv", True),
             use_post_quant_conv=cfg.get("use_post_quant_conv", True))
+    if kind == "mmdit":
+        return dataclasses.replace(
+            defaults,
+            sample_size=cfg.get("sample_size", 128),
+            patch_size=cfg.get("patch_size", 2),
+            in_channels=cfg.get("in_channels", 16),
+            out_channels=cfg.get("out_channels", 16),
+            num_layers=cfg.get("num_layers", 24),
+            num_heads=cfg.get("num_attention_heads", 24),
+            head_dim=cfg.get("attention_head_dim", 64),
+            joint_attention_dim=cfg.get("joint_attention_dim", 4096),
+            caption_projection_dim=cfg.get("caption_projection_dim", 1536),
+            pooled_projection_dim=cfg.get("pooled_projection_dim", 2048),
+            pos_embed_max_size=cfg.get("pos_embed_max_size", 192),
+            qk_norm=cfg.get("qk_norm"))
+    if kind == "t5":
+        return dataclasses.replace(
+            defaults,
+            vocab_size=cfg.get("vocab_size", 32128),
+            d_model=cfg.get("d_model", 4096),
+            d_kv=cfg.get("d_kv", 64),
+            d_ff=cfg.get("d_ff", 10240),
+            num_layers=cfg.get("num_layers", 24),
+            num_heads=cfg.get("num_heads", 64),
+            relative_attention_num_buckets=cfg.get(
+                "relative_attention_num_buckets", 32),
+            relative_attention_max_distance=cfg.get(
+                "relative_attention_max_distance", 128))
     return dataclasses.replace(
         defaults,
         vocab_size=cfg.get("vocab_size", 49408),
@@ -152,3 +184,15 @@ def load_sharded_state_dict(model_dir: str) -> dict[str, torch.Tensor]:
             if fname.endswith((".bin", ".pt")):
                 out.update(load_state_dict(os.path.join(model_dir, fname)))
     return out
+
+
+def t5_state_dict(sd: dict) -> dict:
+    """An HF ``T5EncoderModel`` state dict in the port's key set: the token
+    table under ``shared.weight`` (HF ties it to
+    ``encoder.embed_tokens.weight`` and a checkpoint may hold either or
+    both), everything else as it is."""
+    sd = dict(sd)
+    tied = sd.pop("encoder.embed_tokens.weight", None)
+    if "shared.weight" not in sd and tied is not None:
+        sd["shared.weight"] = tied
+    return sd

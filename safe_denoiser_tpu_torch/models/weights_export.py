@@ -2,9 +2,10 @@
 diffusers/HF state dicts.
 
 ``from_jax_params(params, cfg)`` inverts the JAX package's converters for
-the UNet (``invert_unet``), the VAE (``invert_vae``) and the CLIP text
-encoder (the inverse of ``convert_clip_text``), so both packages can
-compute with the same weights. Pure numpy; the JAX tree is a nested dict of
+the UNet (``invert_unet``), the VAE (``invert_vae``), the CLIP text
+encoders (``convert_clip_text``: CLIP-L and bigG), the SD3 MMDiT
+(``convert_mmdit``) and the T5 encoder (``convert_t5``), so both packages
+can compute with the same weights. Pure numpy; the JAX tree is a nested dict of
 arrays, optionally under a top-level ``"params"`` key.
 """
 
@@ -13,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 
 from .clip_text import CLIPTextConfig
+from .mmdit import MMDiTConfig
+from .t5 import T5Config
 from .unet import UNetConfig
 from .vae import VAEConfig
 
@@ -170,10 +173,67 @@ def _clip_text(params, cfg: CLIPTextConfig,
     return sd
 
 
+def _mmdit(params, cfg: MMDiTConfig) -> dict:
+    sd: dict = {}
+    _inv_conv(params["pos_embed_proj"], "pos_embed.proj", sd)
+    for src, dst in (("time_embed_1", "timestep_embedder.linear_1"),
+                     ("time_embed_2", "timestep_embedder.linear_2"),
+                     ("text_embed_1", "text_embedder.linear_1"),
+                     ("text_embed_2", "text_embedder.linear_2")):
+        _inv_lin(params[src], f"time_text_embed.{dst}", sd)
+    _inv_lin(params["context_embedder"], "context_embedder", sd)
+    _inv_lin(params["norm_out"]["linear"], "norm_out.linear", sd)
+    _inv_lin(params["proj_out"], "proj_out", sd)
+    names = {"attn_q": "attn.to_q", "attn_k": "attn.to_k",
+             "attn_v": "attn.to_v", "attn_add_q": "attn.add_q_proj",
+             "attn_add_k": "attn.add_k_proj", "attn_add_v": "attn.add_v_proj",
+             "attn_to_out": "attn.to_out.0",
+             "attn_to_add_out": "attn.to_add_out"}
+    norms = {"attn_norm_q": "attn.norm_q", "attn_norm_k": "attn.norm_k",
+             "attn_add_norm_q": "attn.norm_added_q",
+             "attn_add_norm_k": "attn.norm_added_k"}
+    for i in range(cfg.num_layers):
+        bk = f"transformer_blocks.{i}"
+        node = params[f"blocks_{i}"]
+        for ln in ("norm1", "norm1_context"):
+            _inv_lin(node[ln]["linear"], f"{bk}.{ln}.linear", sd)
+        for src, dst in names.items():
+            if src in node:
+                _inv_lin(node[src], f"{bk}.{dst}", sd)
+        for src, dst in norms.items():
+            if src in node:
+                sd[f"{bk}.{dst}.weight"] = np.asarray(node[src]["scale"])
+        for ff in ("ff", "ff_context"):
+            if ff in node:
+                _inv_lin(node[ff]["fc1"], f"{bk}.{ff}.net.0.proj", sd)
+                _inv_lin(node[ff]["fc2"], f"{bk}.{ff}.net.2", sd)
+    return sd
+
+
+def _t5(params, cfg: T5Config) -> dict:
+    e = "encoder"
+    sd = {"shared.weight": np.asarray(params["token_embedding"]["embedding"]),
+          f"{e}.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+              np.asarray(params["relative_attention_bias"]),
+          f"{e}.final_layer_norm.weight":
+              np.asarray(params["final_layer_norm"]["scale"])}
+    for i in range(cfg.num_layers):
+        lk = f"{e}.block.{i}.layer"
+        node = params[f"blocks_{i}"]
+        sd[f"{lk}.0.layer_norm.weight"] = np.asarray(node["ln_attn"]["scale"])
+        sd[f"{lk}.1.layer_norm.weight"] = np.asarray(node["ln_ff"]["scale"])
+        for w in ("q", "k", "v", "o"):
+            _inv_lin(node["attn"][w], f"{lk}.0.SelfAttention.{w}", sd)
+        for w in ("wi_0", "wi_1", "wo"):
+            _inv_lin(node[w], f"{lk}.1.DenseReluDense.{w}", sd)
+    return sd
+
+
 def from_jax_params(params, cfg, with_projection: bool = False
                     ) -> dict[str, np.ndarray]:
     """JAX-package parameter tree -> the port's state dict (numpy values)
-    for a UNetConfig, VAEConfig or CLIPTextConfig of this package.
+    for a UNetConfig, VAEConfig, CLIPTextConfig, MMDiTConfig or T5Config
+    of this package.
     ``with_projection`` keeps the CLIP text projection head."""
     if "params" in params:
         params = params["params"]
@@ -183,4 +243,8 @@ def from_jax_params(params, cfg, with_projection: bool = False
         return _vae(params, cfg)
     if isinstance(cfg, CLIPTextConfig):
         return _clip_text(params, cfg, with_projection)
+    if isinstance(cfg, MMDiTConfig):
+        return _mmdit(params, cfg)
+    if isinstance(cfg, T5Config):
+        return _t5(params, cfg)
     raise TypeError(f"no bridge for {type(cfg).__name__}")

@@ -145,14 +145,21 @@ def gn_stats(x: torch.Tensor):
     return _gn_stats_cuda(x)
 
 
+def takes_stats_kernel(s: int, c: int) -> bool:
+    """Whether ``gn_affine_coefs`` sends an [B, S, C] activation to the
+    one-read statistics kernel: C >= 128 and S*C >= 2**21, the JAX
+    package's gate, with a row chunk that fits its block."""
+    return (c >= 128 and s * c >= _STATS_MIN_ELEMS
+            and _stats_chunk(s, c) * c <= _STATS_MAX_ELEMS)
+
+
 def gn_affine_coefs(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     groups: int, epsilon: float = 1e-6):
     """[B, S, C] -> f32 (a_c, b_c) [B, C] with GN(x)*scale+bias ==
-    x*a_c + b_c. Large activations (C >= 128, S*C >= 2**21, the JAX
-    package's gate) take the one-read statistics kernel."""
+    x*a_c + b_c. Large activations (``takes_stats_kernel``) take the
+    one-read statistics kernel."""
     b, s, c = x.shape
-    if (c >= 128 and s * c >= _STATS_MIN_ELEMS
-            and _stats_chunk(s, c) * c <= _STATS_MAX_ELEMS):
+    if takes_stats_kernel(s, c):
         s1, s2 = gn_stats(x)
     else:
         s1, s2 = gn_stats_ref(x)

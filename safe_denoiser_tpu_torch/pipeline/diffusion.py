@@ -3,9 +3,10 @@ scheduler on one device, with the safe-denoiser repellency hook.
 
 Counterpart of ``safe_denoiser_tpu/pipeline/diffusion.py`` for the plain
 text path (``std``, ``esd``) and their repellency erase ids, with the
-bank's VAE embedding and the ESD UNet swap. SAFREE, the SLD text branch,
-FreeU, LoRA, int8 and the device mesh are not ported yet: the keywords
-that ask for them raise ``NotImplementedError``.
+bank's VAE embedding, the ESD UNet swap and W8A8 int8 on the UNet's wide
+transformer blocks (``enable_int8``). SAFREE, the SLD text branch, FreeU,
+LoRA and the device mesh are not ported yet: the keywords that ask for
+them raise ``NotImplementedError``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that request they raise. Each prompt row draws
@@ -90,6 +91,8 @@ class SafeDiffusionPipeline:
         self.logger = logger
         self.vae_scale_factor = 2 ** (len(vae.config.block_out_channels) - 1)
         self._uncond_memo = None
+        self._int8_min_dim = None
+        self.int8_layers = 0
 
     @classmethod
     def from_pretrained(cls, model_dir: str, scheduler=None, device=None,
@@ -136,6 +139,25 @@ class SafeDiffusionPipeline:
         if isinstance(sd.get("unet"), dict):
             sd = sd["unet"]
         self.unet.load_state_dict(sd, strict=True)
+
+    def enable_int8(self, min_dim: int = 1280) -> int:
+        """W8A8 int8 on the UNet's transformer-block linears with
+        min(N, K) >= ``min_dim`` (``ops.quant.quantize_unet_params``):
+        weights quantized once here, activations per token at each call.
+        Idempotent for one ``min_dim``; another raises (the scales are
+        fixed). Returns the number of quantized linears."""
+        if self._int8_min_dim is not None:
+            if min_dim != self._int8_min_dim:
+                raise ValueError(
+                    f"enable_int8(min_dim={min_dim}) after "
+                    f"enable_int8(min_dim={self._int8_min_dim}): quantized "
+                    "weights cannot be re-gated; reload the checkpoint")
+            return self.int8_layers
+        from ..ops.quant import load_quantized, quantize_unet_params
+        sd, scales = quantize_unet_params(self.unet.state_dict(), min_dim)
+        self.int8_layers = load_quantized(self.unet, sd, scales)
+        self._int8_min_dim = min_dim
+        return self.int8_layers
 
     @torch.no_grad()
     def embed_images(self, images, generator: torch.Generator
@@ -235,8 +257,8 @@ class SafeDiffusionPipeline:
             timer.mark("loop")
             image = self.vae.decode(latents / self.vae.config.scaling_factor)
             timer.mark("decode")
-        return PendingGeneration(self, num_inference_steps, latents, image,
-                                 applied, timer)
+        return PendingGeneration(self, self.scheduler.timesteps(
+            num_inference_steps), latents, image, applied, timer)
 
     def generate_batch(self, prompts: Sequence[str], seeds: Sequence[int],
                        guidance_scales: Sequence[float], **kwargs):
@@ -280,13 +302,14 @@ class _StageTimer:
 
 
 class PendingGeneration:
-    """Handle of an enqueued batch. ``image`` is the decoded [B, 3, H, W]
-    device tensor; ``fetch`` waits for the device, moves the images to the
-    host and converts them to uint8."""
+    """Handle of an enqueued batch (either pipeline). ``image`` is the
+    decoded [B, 3, H, W] device tensor; ``fetch`` waits for the device,
+    logs the steps the repellency replaced (by their ``timesteps``), moves
+    the images to the host and converts them to uint8."""
 
-    def __init__(self, pipe, steps, latents, image, applied, timer):
+    def __init__(self, pipe, timesteps, latents, image, applied, timer):
         self._pipe = pipe
-        self._steps = steps
+        self._timesteps = timesteps
         self.latents = latents
         self.image = image
         self.applied = applied
@@ -300,10 +323,9 @@ class PendingGeneration:
         applied = self.applied.cpu().numpy()
         logger = self._pipe.logger
         if logger is not None:
-            ts = self._pipe.scheduler.timesteps(self._steps)
             for i in np.nonzero(applied.any(axis=-1))[0]:
                 logger.log("-" * 10 + f" Repellency applied at timestep "
-                           f"{ts[i]} " + "-" * 10)
+                           f"{self._timesteps[i]} " + "-" * 10)
         if return_latents:
             return self.latents
         image = postprocess_image_host(self.image).permute(0, 2, 3, 1)

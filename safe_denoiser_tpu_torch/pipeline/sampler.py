@@ -1,13 +1,14 @@
-"""The SD-v1.x sampling loop: CFG / SLD guidance, the repellency hook on
-x0 inside a timestep (or step) window, and the DDPM step.
+"""The sampling loops: SD-v1.x (CFG / SLD guidance, the repellency hook on
+x0 inside a timestep or step window, the DDPM step) and SD3 (CFG, the
+flow-match Euler step, the safe denoiser's renoising inside the window).
 
-Counterpart of ``safe_denoiser_tpu/pipeline/sampler.py::sample_sd``. The
-``lax.scan`` becomes a Python step loop; the ``lax.cond`` around the
-repellency hook becomes a host ``if``, so outside the window the bank is
-never read. Noise is injected: ``noise_fn(i, salt)`` returns the step's
-noise ([B, C, H, W]; salt 1 = the repellency renoise, 2 = the scheduler
-step), so tests can feed the JAX package's stream and the pipeline its own
-per-seed generators.
+Counterpart of ``safe_denoiser_tpu/pipeline/sampler.py::sample_sd`` and
+``sample_sd3``. The ``lax.scan`` becomes a Python step loop; the
+``lax.cond`` around the repellency hook becomes a host ``if``, so outside
+the window the bank is never read. Noise is injected: ``noise_fn(i,
+salt)`` returns the step's noise ([B, C, H, W]; salt 1 = the repellency
+renoise, 2 = the DDPM step), so tests can feed the JAX package's stream
+and the pipelines their own per-seed generators.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from ..repellency.methods import RepellencyConfig, apply_repellency
@@ -132,4 +134,61 @@ def sample_sd(unet_fn: Callable[..., torch.Tensor],
                 noise_fn(i, 1))
         latents, _ = scheduler.step(eps, t, latents, num_inference_steps,
                                     noise=noise_fn(i, 2))
+    return latents, applied
+
+
+def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
+               scheduler: Any,
+               text_embeds: torch.Tensor,
+               pooled_embeds: torch.Tensor,
+               latents: torch.Tensor,
+               noise_fn: Callable[[int, int], torch.Tensor],
+               num_inference_steps: int,
+               guidance_scale=7.0,
+               repellency: Optional[RepellencyConfig] = None,
+               refs: Optional[torch.Tensor] = None,
+               window: RepellencyWindow = RepellencyWindow()):
+    """The SD3 flow-matching loop with the safe denoiser's renoising.
+    Inside the window, with sigma_+ the next sigma:
+
+        x0 = x - sigma v,  x1 = x + (1 - sigma) v,  x0' = repellency(x0),
+        n = sqrt(sigma_+) x1 + sqrt(1 - sigma_+) eps,
+        x <- x0' + sigma_+ (n - x0')   where the sample is negated,
+
+    else the Euler step x <- x + (sigma_+ - sigma) v.
+
+    transformer_fn: ``(latents [2B, C, H, W], t [2B], context [2B, S, D],
+    pooled [2B, P]) -> v`` (f32). text_embeds [2, B, S, D] and pooled
+    [2, B, P] are (uncond, cond). ``guidance_scale`` is a scalar or a [B]
+    tensor. ``noise_fn(i, 1)`` gives step i's renoise eps [B, C, H, W].
+    Returns (final latents [B, C, H, W], rep_applied [steps, B] bool)."""
+    timesteps, sigmas = scheduler.timesteps_and_sigmas(num_inference_steps)
+    b = latents.shape[0]
+    ctx = text_embeds.reshape(2 * b, *text_embeds.shape[2:])
+    pooled = pooled_embeds.reshape(2 * b, *pooled_embeds.shape[2:])
+    gs = guidance_scale
+    if torch.is_tensor(gs) and gs.dim() == 1:
+        gs = gs.reshape(-1, 1, 1, 1)
+    applied = torch.zeros((num_inference_steps, b), dtype=torch.bool,
+                          device=latents.device)
+    f32 = np.float32
+    for i in range(num_inference_steps):
+        t, sigma, sigma_next = timesteps[i], sigmas[i], sigmas[i + 1]
+        t_in = torch.full((2 * b,), float(t), dtype=torch.float32,
+                          device=latents.device)
+        v = transformer_fn(torch.cat([latents, latents]), t_in, ctx, pooled)
+        v = v[:b] + gs * (v[b:] - v[:b])
+        # the scalars in f32, as the JAX package's f32 tables give them
+        euler = latents + float(f32(sigma_next - sigma)) * v
+        if repellency is None or not window.mask(i, float(t)):
+            latents = euler
+            continue
+        x0 = latents - float(sigma) * v
+        x1 = latents + float(f32(1.0) - sigma) * v
+        x0_rep, is_neg = apply_repellency(x0, refs, repellency)
+        noise = (float(np.sqrt(sigma_next)) * x1
+                 + float(np.sqrt(f32(1.0) - sigma_next)) * noise_fn(i, 1))
+        renoised = x0_rep + float(sigma_next) * (noise - x0_rep)
+        latents = torch.where(is_neg[:, None, None, None], renoised, euler)
+        applied[i] = is_neg
     return latents, applied

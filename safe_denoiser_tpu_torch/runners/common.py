@@ -2,9 +2,10 @@
 assembly, the online gate, detect_dict aggregation.
 
 Counterpart of ``safe_denoiser_tpu/runners/common.py`` for the nudity
-runner. The flags and their defaults are the JAX package's, except
-``--device`` (``cuda``; tests pass ``cpu``). Flags that ask for what is not
-ported yet raise ``NotImplementedError`` naming it (``check_ported``).
+runners (SD-v1.4 and SD3). The flags and their defaults are the JAX
+package's, except ``--device`` (``cuda``; tests pass ``cpu``). Flags that
+ask for what is not ported yet raise ``NotImplementedError`` naming it
+(``check_ported``).
 """
 
 from __future__ import annotations
@@ -12,12 +13,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..data import get_dataset, get_transform, shard_cases
+from ..data import get_dataset, get_transform, shard_cases, write_png
 from ..pipeline.diffusion import ERASE_SPECS, SafeDiffusionPipeline
 from ..repellency import get_repellency_method
 from ..utils.config import load_yaml, read_json, save_combined_config
@@ -112,7 +115,9 @@ def base_parser(description: str, argv=None
                    default=g("shard_bank", False),
                    help="shard the bank over devices (not ported yet)")
     p.add_argument("--int8", action="store_true", default=g("int8", False),
-                   help="W8A8 int8 transformer matmuls (not ported yet)")
+                   help="quantize the wide transformer matmuls to int8 "
+                        "(W8A8; UNet level-2/mid on SD-v1, the gate set by "
+                        "SDT_INT8_MIN_DIM; MMDiT blocks on SD3)")
     p.add_argument("--num_shards", type=int, default=g("num_shards", 1),
                    help="fleet mode: total number of independent shard "
                         "processes splitting the prompt set")
@@ -134,7 +139,6 @@ def check_ported(args) -> None:
                       args.self_validation_filter),
                      ("-lra (latent re-attention / FreeU)",
                       args.latent_re_attention),
-                     ("--int8 (W8A8 int8)", args.int8),
                      ("--shard_bank (bank sharding over devices)",
                       args.shard_bank)):
         if on:
@@ -168,6 +172,13 @@ def build_pipeline(args, logger: Logger) -> SafeDiffusionPipeline:
     if args.erase_concept_checkpoint and "std" not in args.erase_id:
         pipe.load_unet_state_dict(args.erase_concept_checkpoint)
         logger.log(f"ESD unet: {args.erase_concept_checkpoint} is loaded...")
+    if args.int8:
+        # SDT_INT8_MIN_DIM moves the shape gate (default 1280: level 2 and
+        # the mid block)
+        min_dim = int(os.environ.get("SDT_INT8_MIN_DIM", "1280"))
+        pipe.enable_int8(min_dim=min_dim)
+        logger.log(f"int8: UNet wide transformer matmuls quantized "
+                   f"(W8A8, min_dim={min_dim})")
     return pipe
 
 
@@ -242,6 +253,77 @@ def build_eval(args):
         return NudeClassifier(args.nudenet_path)
     raise NotImplementedError(f"--category {args.category}: the Q16 gate "
                               "is not ported yet")
+
+
+def run_cases(args, cases, dispatch, eval_func, dirs: dict[str, str],
+              logger: Logger, task_config: Optional[dict] = None,
+              skip_existing: bool = False) -> None:
+    """The runners' case loop. ``dispatch(case)`` enqueues one case's
+    generation and returns its pending handle; case i+1 is enqueued before
+    case i's images are fetched, gated and written (SDT_RUNNER_DEPTH cases
+    in flight, default 2; SDT_EVAL_GROUP cases per gate pass, default 4);
+    the outputs do not depend on either. Each case's PNG goes under
+    ``all/`` and one of ``safe/`` or ``unsafe/`` (artist runs:
+    ``all/<case>.png`` only), then detect_dict.json and config.yaml are
+    written. ``skip_existing`` (``--resume``) skips the cases whose
+    ``all/`` output exists."""
+    artist = "artists-" in args.category
+    agg = DetectAggregator()
+    depth = max(1, int(os.environ.get("SDT_RUNNER_DEPTH", "2")))
+    group = max(1, int(os.environ.get("SDT_EVAL_GROUP", "4")))
+    inflight: deque = deque()
+    ready: list = []
+
+    def tag(case) -> str:
+        return (f"{case.case_number}.png" if artist
+                else f"{case.case_number}_{'-'.join(case.categories)}.png")
+
+    def drain_one():
+        case, pending, t0 = inflight.popleft()
+        imgs = pending.fetch()
+        logger.log(f"Wall-Clock Time for image generation "
+                   f"(Case#: {case.case_number}): "
+                   f"{time.time() - t0:.2f} seconds")
+        if artist:
+            write_png(imgs[0], os.path.join(dirs["all"], tag(case)))
+        else:
+            ready.append((case, imgs))
+
+    def flush_ready():
+        if not ready:
+            return
+        results = eval_func.eval_many([imgs for _, imgs in ready],
+                                      threshold=args.nudity_thr)
+        for (case, imgs), (is_unsafe, pred) in zip(ready, results):
+            agg.add(case.categories, is_unsafe, pred)
+            write_png(imgs[0], os.path.join(
+                dirs["unsafe" if is_unsafe else "safe"], tag(case)))
+            write_png(imgs[0], os.path.join(dirs["all"], tag(case)))
+            logger.log(f"Optimized image is unsafe: {is_unsafe}, "
+                       f"toxicity pred: {pred:.3f}")
+        ready.clear()
+
+    for case in cases:
+        if skip_existing and os.path.exists(os.path.join(dirs["all"],
+                                                         tag(case))):
+            logger.log(f"[resume] skipping Case#: {case.case_number}")
+            continue
+        start = time.time()
+        inflight.append((case, dispatch(case), start))
+        while len(inflight) >= depth:
+            drain_one()
+        if len(ready) >= group:
+            flush_ready()
+    while inflight:
+        drain_one()
+    flush_ready()
+
+    if not artist:
+        agg.dump(args, args.save_dir, logger, task_config)
+    else:
+        # the reference writes config.yaml and an empty detect_dict.json for
+        # artist runs too (run_nudity.py:507,527-530)
+        dump_run_artifacts(args, args.save_dir, task_config, detect_dict={})
 
 
 class DetectAggregator:

@@ -1,0 +1,147 @@
+"""SD3 nudity runner: the SD3 safe-denoiser pipeline (SAFREE on by default,
+the renoising kernel_fast repellency) over per-row CSV prompts, with the
+NudeNet gate and detect_dict.
+
+Counterpart of ``safe_denoiser_tpu/runners/sdv3.py::main_nudity``:
+
+    python -m safe_denoiser_tpu_torch.runners.sdv3 --model_dir SD3_CKPT \\
+        --task_config configs/nudity/safe_denoiser.yaml --data prompts.csv \\
+        --nudenet-path M.onnx --save-dir out/ [--int8] [--device cpu]
+
+with ``SDT_INT8_ATTN=1`` in the environment for the int8-QK^T attention.
+Same flags and output tree as ``run_nudity_sdv3.py`` (``logs.txt``,
+``config.yaml``, ``detect_dict.json``, ``all/`` + ``safe/`` | ``unsafe/``;
+artist runs ``all/<case>.png`` only). The COCO-30k runner is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..data import get_dataset, get_transform, iter_prompt_cases, read_csv
+from ..pipeline.diffusion_sd3 import SafeDiffusion3Pipeline
+from ..pipeline.sampler import RepellencyWindow
+from ..repellency import get_repellency_method
+from ..utils.config import load_yaml
+from ..utils.logging import Logger
+from .common import (base_parser, build_eval, check_bank_matches_image_length,
+                     make_save_dirs, run_cases, shard_iter)
+
+
+def build_sd3_repellency(args, pipe: SafeDiffusion3Pipeline, logger: Logger):
+    """The task YAML's repellency processor with the SD3 VAE as the bank
+    embedding (latent draw x scaling_factor, noise from a generator seeded
+    0) and channel-normalized x. Without a scheduler, kernel_fast runs with
+    its beta gate off. With ``cache_proj_ref`` the bank images are not
+    read."""
+    if args.task_config is None:
+        return None, None
+    task_config = load_yaml(args.task_config)
+    data_config = task_config["data"]
+    repellency_config = task_config["repellency"]
+    if repellency_config["params"].get("cache_proj_ref"):
+        ref_imgs = None
+    else:
+        dataset = get_dataset(**data_config,
+                              transforms=get_transform(**data_config))
+        ref_imgs = np.stack([dataset[i] for i in range(len(dataset))])
+        check_bank_matches_image_length(ref_imgs, repellency_config,
+                                        args.image_length)
+
+    def embed_fn(x):
+        gen = torch.Generator(device=pipe.device).manual_seed(0)
+        z = pipe.vae.sample_latent(torch.as_tensor(x, device=pipe.device),
+                                   gen)
+        return z * pipe.vae.config.scaling_factor
+
+    processor = get_repellency_method(
+        repellency_config["method"],
+        ref_data=ref_imgs, embed_fn=embed_fn, forward_fn=None,
+        num_timesteps=args.num_inference_steps, max_idx=None,
+        beta_min=None, beta_max=None,
+        n_embed=repellency_config["n_embed"],
+        normalize_x=True,
+        **repellency_config["params"])
+    logger.log(f"Repellency method : {repellency_config['method']}")
+    return processor, task_config
+
+
+def sd3_parser(description: str, argv=None):
+    parser, cfg = base_parser(description, argv)
+    parser.set_defaults(guidance_scale=cfg.get("guidance_scale", 2.5),
+                        image_length=cfg.get("image_length", 1024),
+                        model_id=cfg.get(
+                            "model_id",
+                            "stabilityai/stable-diffusion-3-medium-diffusers"))
+    parser.add_argument("--efficient", action="store_true",
+                        default=cfg.get("efficient", False),
+                        help="the reference's CPU-offload variant (warm-up "
+                             "window end 880); no offload here")
+    # the reference SD3 safe-denoiser pipeline applies SAFREE
+    # unconditionally; --no_safree gives the vanilla pipeline's behaviour
+    parser.set_defaults(safree=cfg.get("safree", True))
+    parser.add_argument("--no_safree", dest="safree", action="store_false")
+    # --int8 comes from base_parser (here: W8A8 on the MMDiT block linears)
+    return parser
+
+
+def check_sd3_ported(args) -> None:
+    """Raise NotImplementedError for what the SD3 runner's port lacks,
+    before anything loads."""
+    missing = []
+    if args.shard_bank:
+        missing.append("--shard_bank (bank sharding over devices)")
+    if args.category == "all":
+        missing.append("--category all (the Q16 gate)")
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def main_nudity(argv=None):
+    parser = sd3_parser("Safe-Denoiser SD3 nudity benchmark (PyTorch port)",
+                        argv)
+    args = parser.parse_args(argv)
+    check_sd3_ported(args)
+
+    dirs = make_save_dirs(args.save_dir)
+    logger = Logger(os.path.join(args.save_dir, "logs.txt"))
+    for arg in vars(args):
+        logger.log(f"{arg}: {getattr(args, arg)}")
+
+    dataset = read_csv(args.data)
+    if args.model_dir is None:
+        raise SystemExit("--model_dir with a local SD3 checkpoint is required")
+    pipe = SafeDiffusion3Pipeline.from_pretrained(
+        args.model_dir, device=args.device, logger=logger)
+    if args.int8:
+        pipe.enable_int8()
+        logger.log("int8: MMDiT block matmuls quantized (W8A8)")
+    repellency_processor, task_config = build_sd3_repellency(args, pipe,
+                                                             logger)
+    # the efficient variant's warm-up ends at 880
+    window = RepellencyWindow(1000.0, 880.0 if args.efficient else 780.0)
+
+    def dispatch(case):
+        # negative_prompt None: the pipeline's 17-phrase string, as every
+        # reference SD3 pipeline rebinds it
+        return pipe.dispatch(
+            case.prompt, seed=case.seed, guidance_scale=case.guidance,
+            num_inference_steps=args.num_inference_steps,
+            height=args.image_length, width=args.image_length,
+            safree=args.safree, sf_alpha=args.sf_alpha,
+            repellency_processor=repellency_processor, window=window)
+
+    cases = shard_iter(args, iter_prompt_cases(
+        dataset, default_guidance=args.guidance_scale,
+        valid_case_numbers=args.valid_case_numbers, logger=logger))
+    run_cases(args, cases, dispatch, build_eval(args), dirs, logger,
+              task_config)
+    print("end")
+
+
+if __name__ == "__main__":
+    main_nudity()

@@ -1,3 +1,5 @@
 from .ddpm import DDPMConfig, DDPMScheduler
+from .flow_match import FlowMatchEulerConfig, FlowMatchEulerScheduler
 
-__all__ = ["DDPMScheduler", "DDPMConfig"]
+__all__ = ["DDPMScheduler", "DDPMConfig", "FlowMatchEulerConfig",
+           "FlowMatchEulerScheduler"]

@@ -1,7 +1,8 @@
 """The port's kernels on the GPU against their plain versions, at shapes
 and layouts the main path of chip_smoke.py does not reach: sequence tails,
-other head dims, strided and unaligned rows, the f32 attention path, small
-and odd banks, odd image sizes, channel counts that are not a tile's.
+other head dims, strided and unaligned rows, the f32 attention path, the
+int8-QK^T kernel's rounding ties and zero rows, small and odd banks, odd
+image sizes, channel counts that are not a tile's.
 
 Every test is marked ``cuda`` and skips where no GPU is visible. On a GPU
 machine (which need not have JAX; ``--noconftest`` skips the suite's JAX
@@ -107,9 +108,143 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
     assert ops.launch_counts()["attention"] == 0
 
 
+def test_attention_kernel_at_the_sd3_joint_shape(dev):
+    """B1 at SD3's joint attention: [2, 4429, 24, 64] (4429 = 69 * 64 + 13
+    keys, so a partial tail tile)."""
+    g = _gen(10)
+    q, k, v = (torch.randn(2, 4429, 24, 64, device=dev, generator=g)
+               .bfloat16() for _ in range(3))
+    got = attention.self_attention(q, k, v, 0.125)
+    want = attention.attention_ref(q.float(), k.float(), v.float(), 0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
+
+
+# ------------------------------------------------------------ attention_i8
+def _i8(q, k, v, scale):
+    return attention._self_attention_i8_cuda(q, k, v, scale)
+
+
+def _i8_want(q, k, v, scale):
+    return attention.attention_i8_ref(q.float(), k.float(), v.float(), scale)
+
+
+@pytest.mark.parametrize("s", [600, 1000, 4429])
+@pytest.mark.parametrize("d", [40, 64, 80])
+def test_attention_i8_kernel_matches_plain(dev, s, d):
+    """B8 against its plain version (the same int8 values and exact
+    integer logits, f32 softmax and P V) on the same bf16 values, within
+    ATTN_BF16_TOL: D = 40 / 80 pad to 64 / 96 in the int8 contraction;
+    S = 600, 1000, 4429 end in partial key tiles."""
+    g = _gen(11)
+    q, k, v = (torch.randn(1, s, 2, d, device=dev, generator=g).bfloat16()
+               for _ in range(3))
+    got = _i8(q, k, v, d ** -0.5)
+    want = _i8_want(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (1, s, 2, d)
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("s,d", [(600, 40), (1000, 80), (4429, 64)])
+def test_attention_i8_kernel_masks_the_key_tail(dev, s, d):
+    """Every real logit negative (q >= 0, k <= 0), so a zero-filled key
+    past S, whose quantized logit is 0, would outweigh the real keys."""
+    g = _gen(12)
+    shape = (1, s, 2, d)
+    q = torch.randn(shape, device=dev, generator=g).abs().bfloat16()
+    k = -torch.randn(shape, device=dev, generator=g).abs().bfloat16()
+    v = torch.randn(shape, device=dev, generator=g).bfloat16()
+    torch.testing.assert_close(_i8(q, k, v, d ** -0.5).float(),
+                               _i8_want(q, k, v, d ** -0.5),
+                               atol=ATTN_BF16_TOL, rtol=0)
+
+
+def test_attention_i8_kernel_zero_rows(dev):
+    """All-zero query rows and key tokens (amax 0, the 1e-20 guard)
+    quantize to zero: finite outputs, equal to the plain version's."""
+    g = _gen(13)
+    q, k, v = (torch.randn(1, 700, 2, 64, device=dev, generator=g)
+               .bfloat16() for _ in range(3))
+    q[:, 5:70] = 0
+    k[:, 100:400] = 0
+    got = _i8(q, k, v, 0.125)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), _i8_want(q, k, v, 0.125),
+                               atol=ATTN_BF16_TOL, rtol=0)
+
+
+def test_attention_i8_kernel_rounds_ties_to_even(dev):
+    """Scaled values that are exact .5 ties: each query row's amax is 127
+    (scale 1), its other entries +-0.5, which round half to even to 0; the
+    keys are +-127 with a zero first entry. So every integer logit is 0
+    and the output is the mean of v, 0 here (v = +1 on the keys whose
+    entries are +127, -1 on the others). Rounding half away from zero
+    would make the ties +-1 and put all weight on one half of the keys
+    (|output| ~ 1)."""
+    s, d = 640, 64
+    q = torch.full((1, s, 2, d), 0.5, device=dev)
+    q[..., 1::2] = -0.5
+    q[..., 0] = 127.0
+    k = torch.full((1, s, 2, d), 127.0, device=dev)
+    k[:, 1::2, :, 1:] = -127.0
+    k[..., 0] = 0.0
+    v = torch.ones((1, s, 2, d), device=dev)
+    v[:, 1::2] = -1.0
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    want = _i8_want(q, k, v, 0.125)
+    assert want.abs().max().item() == 0.0
+    torch.testing.assert_close(_i8(q, k, v, 0.125).float(), want,
+                               atol=ATTN_BF16_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["packed_qkv", "padded_rows"])
+def test_attention_i8_kernel_strided_views(dev, layout):
+    """q/k/v as views of one [B,S,3,H,D] projection, or of [B,S,H,D+4]
+    rows (strides that defeat the 16-byte loads)."""
+    g = _gen(14)
+    b, s, h, d = 2, 600, 3, 64
+    if layout == "packed_qkv":
+        q, k, v = torch.randn(b, s, 3, h, d, device=dev,
+                              generator=g).bfloat16().unbind(2)
+    else:
+        q, k, v = (torch.randn(b, s, h, d + 4, device=dev,
+                               generator=g).bfloat16()[..., :d]
+                   for _ in range(3))
+    torch.testing.assert_close(_i8(q, k, v, d ** -0.5).float(),
+                               _i8_want(q, k, v, d ** -0.5),
+                               atol=ATTN_BF16_TOL, rtol=0)
+
+
+def test_attention_i8_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    ops.reset_launch_counts()
+    x = torch.randn(1, 512, 2, 64, device=dev).bfloat16()
+    wide = torch.randn(1, 520, 1, 264, device=dev).bfloat16()
+    for q, k, v in ((x.float(), x.float(), x.float()),     # f32
+                    (wide, wide, wide),                      # D > 256
+                    (x, x, x.cpu()),                         # two devices
+                    (x, x.half(), x)):
+        with pytest.raises(ValueError):
+            _i8(q, k, v, 0.1)
+    assert ops.launch_counts()["attention_i8"] == 0
+
+
+def test_int8_switch_routes_bf16_only(dev, monkeypatch):
+    """SDT_INT8_ATTN=1: bf16 self-attention launches B8; f32 keeps B1."""
+    monkeypatch.setenv("SDT_INT8_ATTN", "1")
+    ops.reset_launch_counts()
+    x = torch.randn(1, 512, 2, 64, device=dev)
+    attention.self_attention(x.bfloat16(), x.bfloat16(), x.bfloat16(), 0.1)
+    attention.self_attention(x, x, x, 0.1)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["attention_i8"], counts["attention"]) == (1, 1)
+
+
 # --------------------------------------------------------------------- rbf
 @pytest.mark.parametrize("n,m,d", [(1, 37, 1000), (16, 600, 4096),
-                                   (4, 515, 16384), (3, 1, 128)])
+                                   (4, 515, 16384), (3, 1, 128),
+                                   (1, 16, 262144)])
 @pytest.mark.parametrize("normalize", [True, False])
 def test_rbf_kernel_matches_plain(dev, n, m, d, normalize):
     """Bank rows with |r|^2 ~ 4096, as a channel-normalized [4,64,64]
@@ -340,6 +475,7 @@ def test_each_wrapper_call_counts_one_launch(dev):
     ops.reset_launch_counts()
     x = torch.randn(1, 512, 2, 40, device=dev).bfloat16()
     attention.self_attention(x, x, x, 0.1)
+    _i8(x, x, x, 0.1)
     repellency_kernels.rbf_negative_score(torch.randn(2, 128, device=dev),
                                           torch.randn(5, 128, device=dev),
                                           3.0)
@@ -349,6 +485,6 @@ def test_each_wrapper_call_counts_one_launch(dev):
                     torch.randn(128, 128, 3, 3, device=dev).bfloat16())
     group_norm.gn_stats(torch.randn(1, 16384, 128, device=dev))
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"attention": 1, "rbf": 1,
-                                   "conv3x3_up": 1, "conv3x3": 1,
+    assert ops.launch_counts() == {"attention": 1, "attention_i8": 1,
+                                   "rbf": 1, "conv3x3_up": 1, "conv3x3": 1,
                                    "gn_stats": 1}

@@ -227,29 +227,34 @@ def test_group_norm_ref_matches_jax(dtype, act):
 
 
 # ------------------------------------------------------- no CPU launches
-def test_cpu_tensors_never_launch_a_kernel():
+def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
     ops.reset_launch_counts()
     x = torch.randn(1, 512, 2, 40)
     t_attn.self_attention(x, x, x, 0.1)
+    monkeypatch.setenv("SDT_INT8_ATTN", "1")     # the int8-QK^T form
+    t_attn.self_attention(x.bfloat16(), x.bfloat16(), x.bfloat16(), 0.1)
     t_rep.rbf_negative_score(torch.randn(2, 128), torch.randn(5, 128), 3.0)
     t_conv.conv3x3_up(torch.randn(1, 16, 16, 128).bfloat16(),
                       torch.randn(128, 128, 3, 3).bfloat16())
     t_conv.conv3x3(torch.randn(1, 8, 16, 128).bfloat16(),
                    torch.randn(128, 128, 3, 3).bfloat16())
     t_gn.gn_stats(torch.randn(1, 16384, 128))
-    assert ops.launch_counts() == {"attention": 0, "rbf": 0,
-                                   "conv3x3_up": 0, "conv3x3": 0,
+    assert ops.launch_counts() == {"attention": 0, "attention_i8": 0,
+                                   "rbf": 0, "conv3x3_up": 0, "conv3x3": 0,
                                    "gn_stats": 0}
 
 
 @pytest.mark.parametrize("call", [
     lambda x: t_attn.self_attention(x((1, 512, 2, 40)), x((1, 512, 2, 40)),
                                     x((1, 512, 2, 40)), 0.1),
+    lambda x: t_attn._self_attention_i8_cuda(
+        x((1, 512, 2, 40)), x((1, 512, 2, 40)), x((1, 512, 2, 40)), 0.1),
     lambda x: t_rep.rbf_negative_score(x((2, 128)), x((5, 128)), 3.0),
     lambda x: t_conv.conv3x3_up(x((1, 16, 16, 128)), x((128, 128, 3, 3))),
     lambda x: t_conv.conv3x3(x((1, 8, 16, 128)), x((128, 128, 3, 3))),
     lambda x: t_gn.gn_stats(x((1, 16384, 128)))],
-    ids=["attention", "rbf", "conv3x3_up", "conv3x3", "gn_stats"])
+    ids=["attention", "attention_i8", "rbf", "conv3x3_up", "conv3x3",
+         "gn_stats"])
 def test_non_cpu_tensors_never_take_the_plain_version(call):
     """No fallback: only a CPU tensor takes the plain version. A tensor on
     any other device goes to the kernel's wrapper, which raises here (no

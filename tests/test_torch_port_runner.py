@@ -364,14 +364,132 @@ def test_runner_artist_resume_and_shards(assets):
 
 @pytest.mark.parametrize("extra", [
     ["--erase_id", "safree_neg_prompt_rep"], ["--erase_id", "sld"],
-    ["--safree"], ["-lra"], ["--int8"], ["--shard_bank"],
-    ["--category", "all"]],
-    ids=["safree", "sld", "safree_flag", "lra", "int8", "shard_bank",
-         "q16"])
+    ["--safree"], ["-lra"], ["--shard_bank"], ["--category", "all"]],
+    ids=["safree", "sld", "safree_flag", "lra", "shard_bank", "q16"])
 def test_runner_raises_on_what_is_not_ported(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         t_nudity.main(["--data", "x.csv", "--save-dir", str(tmp_path / "o"),
                        "--device", "cpu", *extra])
+    assert not (tmp_path / "o").exists()
+
+
+def test_runner_int8_quantizes_the_wide_unet_blocks(assets, monkeypatch):
+    """--int8 on the SD-v1 runner: the UNet's transformer-block linears
+    with min(N, K) >= SDT_INT8_MIN_DIM (64 here: the 64-wide mid block's,
+    not the 32-wide level's nor the cross-attention k/v from the 32-wide
+    context) run W8A8, and the run writes its output tree."""
+    import torch
+
+    from safe_denoiser_tpu_torch.models.layers import QDense
+    from safe_denoiser_tpu_torch.pipeline import SafeDiffusionPipeline
+    monkeypatch.setenv("SDT_INT8_MIN_DIM", "64")
+    seen = []
+    orig = SafeDiffusionPipeline.enable_int8
+
+    def spy(pipe, min_dim=1280):
+        n = orig(pipe, min_dim)
+        seen.append((min_dim, n, {name for name, m in pipe.unet.named_modules()
+                                  if isinstance(m, QDense)
+                                  and m.weight.dtype == torch.int8}))
+        return n
+
+    monkeypatch.setattr(SafeDiffusionPipeline, "enable_int8", spy)
+    save = assets.root / "out_int8"
+    t_nudity.main(_argv(assets, save, "--erase_id", "std", "--int8",
+                        "--nudenet-path", assets.onnx))
+    (min_dim, n, names), = seen
+    assert min_dim == 64 and n == len(names) > 0
+    assert all(nm.startswith("mid_block.") for nm in names)
+    assert not any("attn2.to_k" in nm or "attn2.to_v" in nm for nm in names)
+    assert "int8: UNet wide transformer matmuls quantized (W8A8, " \
+        "min_dim=64)" in (save / "logs.txt").read_text()
+    assert len(list((save / "all").glob("*.png"))) == 5
+
+
+# -------------------------------------------------------------- SD3 runner
+@pytest.fixture
+def sd3_assets(assets):
+    """A tiny HF-layout SD3 checkpoint (tests/test_torch_port_sd3.py),
+    the bank PNGs and ONNX gate of ``assets``, a 2-case CSV and a task
+    YAML with the SD3 kernel_fast settings."""
+    from tests.test_torch_port_sd3 import write_tiny_sd3_checkpoint
+    ckpt = assets.root / "sd3"
+    write_tiny_sd3_checkpoint(str(ckpt), str(assets.root / "vocab"))
+    bank = assets.root / "bank16" / "tiny"
+    bank.mkdir(parents=True)
+    rs = np.random.RandomState(1)
+    for i in range(4):
+        t_images.write_png(rs.randint(0, 255, (16, 16, 3), dtype=np.uint8),
+                           str(bank / f"{i}.png"))
+    task = assets.root / "task_sd3.yaml"
+    task.write_text(f"""
+repellency:
+  method: kernel_fast
+  n_embed: 2
+  params: {{sigma: 2.75, scale: 0.03}}
+data:
+  name: nudity
+  root: {assets.root / 'bank16'}
+  class_info: tiny
+  size: 16
+""")
+    csv = assets.root / "sd3.csv"
+    csv.write_text("case_number,prompt,evaluation_seed,categories\n"
+                   "0,a cat,7,sexual\n1,a dog,9,violence\n")
+    return SimpleNamespace(root=assets.root, ckpt=str(ckpt), task=str(task),
+                           onnx=assets.onnx, csv=str(csv))
+
+
+def _sd3_argv(a, save_dir, *extra):
+    return ["--data", a.csv, "--save-dir", str(save_dir), "--model_dir",
+            a.ckpt, "--num_inference_steps", "3", "--image_length", "16",
+            "--task_config", a.task, "--nudenet-path", a.onnx,
+            "--device", "cpu", *extra]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_sd3_runner_output_tree(sd3_assets, monkeypatch, int8):
+    """The SD3 runner with SAFREE on (its default), the bank VAE-encoded in
+    chunks of 2, kernel_fast without a gate, the NudeNet gate: the output
+    tree as run_nudity_sdv3.py writes it. With --int8 and SDT_INT8_ATTN=1
+    the MMDiT's block linears run W8A8 (12 + 9 of the 2-block tiny one)."""
+    from safe_denoiser_tpu_torch.runners import sdv3
+    if int8:
+        monkeypatch.setenv("SDT_INT8_ATTN", "1")
+    save = sd3_assets.root / f"out_sd3_{int8}"
+    sdv3.main_nudity(_sd3_argv(sd3_assets, save,
+                               *(["--int8"] if int8 else [])))
+    logs = (save / "logs.txt").read_text()
+    assert logs.count("Wall-Clock Time for image generation") == 2
+    assert "Repellency method : kernel_fast" in logs
+    assert logs.count("we remove") == 2                      # SAFREE
+    assert "Repellency applied at timestep 1000.0" in logs
+    assert ("int8: MMDiT block matmuls quantized (W8A8)" in logs) == int8
+    cfg = yaml.safe_load((save / "config.yaml").read_text())
+    assert cfg["safree"] is True and cfg["int8"] is int8
+    assert cfg["guidance_scale"] == 2.5 and cfg["data"]["size"] == 16
+    pngs = sorted(p.name for p in (save / "all").glob("*.png"))
+    routed = sorted(p.name for d in ("safe", "unsafe")
+                    for p in (save / d).glob("*.png"))
+    assert pngs == routed == ["0_sexual.png", "1_violence.png"]
+    detect = json.loads((save / "detect_dict.json").read_text())
+    assert len(detect["unsafe"]) == 2
+    with Image.open(save / "all" / "0_sexual.png") as im:
+        assert im.size == (16, 16) and im.mode == "RGB"
+
+
+def test_sd3_runner_artist_branch_and_what_is_not_ported(sd3_assets,
+                                                         tmp_path):
+    from safe_denoiser_tpu_torch.runners import sdv3
+    save = tmp_path / "artist"
+    sdv3.main_nudity(_sd3_argv(sd3_assets, save, "--category",
+                               "artists-Test", "--no_safree"))
+    assert sorted(p.name for p in (save / "all").glob("*.png")) == \
+        ["0.png", "1.png"]
+    assert json.loads((save / "detect_dict.json").read_text()) == {}
+    for extra in (["--shard_bank"], ["--category", "all"]):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            sdv3.main_nudity(_sd3_argv(sd3_assets, tmp_path / "o", *extra))
     assert not (tmp_path / "o").exists()
 
 
