@@ -9,13 +9,16 @@ Phases, each of which ends the run with a non-zero exit code on failure:
   2. build: nvcc builds the CUDA kernels from csrc/ (Triton compiles its
      kernel at first launch);
   3. kernel checks: each kernel at the main path's shapes (and B4/B5 also
-     at the runner's bank-encode shapes) against its plain PyTorch version,
-     with its time, the plain version's, a library call's where one exists,
-     and the bound the card could reach;
-  4. main path: SafeDiffusionPipeline on cuda at full SD-v1.4 width with
-     seeded random weights -- 4 prompts, 512x512, 50 DDPM steps, CFG 7.5,
-     kernel_fast repellency against a [515,4,64,64] bank in the window
-     [1000, 780], VAE decode -- and the launch count of every kernel;
+     at the runner's bank-encode shapes; B9/B10 also in f32) against its
+     plain PyTorch version, with its time, the plain version's, a library
+     call's where one exists, and the bound the card could reach;
+  4. main path: the tiny f32 slice on cuda against the CPU, at 8^2 latents
+     and at 32^2 (S = 1024) under each attention layout (bhsd, nt, nt with
+     the head repacks, bshd: SDT_FLASH2_LAYOUT / SDT_ATTN_REPACK), then
+     SafeDiffusionPipeline on cuda at full SD-v1.4 width with seeded random
+     weights -- 4 prompts, 512x512, 50 DDPM steps, CFG 7.5, kernel_fast
+     repellency against a [515,4,64,64] bank in the window [1000, 780], VAE
+     decode -- and the launch count of every kernel;
   5. gate check: the same pipeline for 5 steps with a bank built from the
      run's own x0, so the beta gate opens at full width and B2's score
      must reach the latents;
@@ -25,13 +28,18 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      through the fused conv and beta-calibrated, 4 CSV prompts x 50 steps
      with std_rep, a small NudeNet-shaped ONNX classifier as the gate --
      its output tree and the launch count of every kernel;
+  6b. DDIM: the 10-step DDIM configuration (BASELINE.md #1) at full SD-v1.4
+     width on phase 4's modules -- 4 prompts, 512x512, CFG 7.5, kernel_fast
+     in [1000, 780] -- under bhsd, nt with the repacks and bshd; stage
+     times and launch counts;
   7. SD3: SafeDiffusion3Pipeline on cuda at full SD3-medium width and
      depth with seeded random weights (CLIP-L, CLIP-bigG, T5-XXL, the
      24-block MMDiT, the 16-channel VAE) -- 1 prompt, 1024x1024, 50
      flow-match steps, CFG 2.5, kernel_fast renoising repellency against a
-     [16,16,128,128] bank in [1000, 780] -- twice: bf16 (attention kernel)
-     and with enable_int8() and SDT_INT8_ATTN=1 (W8A8 MMDiT, int8-QK^T
-     attention kernel); stage times, images and launch counts;
+     [16,16,128,128] bank in [1000, 780] -- three times: bf16 (attention
+     kernel), bf16 under nt with the repacks (B9, B11, B12), and with
+     enable_int8() and SDT_INT8_ATTN=1 (W8A8 MMDiT, int8-QK^T attention
+     kernel); stage times, images and launch counts;
   8. SD3 runner: ``safe_denoiser_tpu_torch.runners.sdv3.main_nudity`` with
      --int8 and SDT_INT8_ATTN=1 on an HF-layout checkpoint at the published
      widths (depth cut: MMDiT 6 of 24 blocks, T5 2 of 24, bigG 4 of 32), 16
@@ -44,6 +52,7 @@ the line before it lists the kernels as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -70,7 +79,9 @@ PEAK_BYTES = 3.35e12
 # (2 mid + 4 x 3 up) x 2 convs; gn_stats: 3 up_blocks[3] norm1 per step x
 # 50 + 30 VAE-decoder norms
 EXPECTED_LAUNCHES = {"attention": 500, "rbf": 11, "conv3x3_up": 53,
-                     "conv3x3": 28, "gn_stats": 180, "attention_i8": 0}
+                     "conv3x3": 28, "gn_stats": 180, "attention_i8": 0,
+                     "attention_nt": 0, "attention_bshd": 0,
+                     "repack_to_heads": 0, "repack_from_heads": 0}
 # the decode measured with cuDNN resnet convs before the fused conv (PERF.md)
 DECODE_MS_CUDNN = "51.07-51.99"
 
@@ -99,6 +110,86 @@ SD3_RUNNER_CASES, SD3_RUNNER_N_EMBED = 2, 8
 # fails if B1's reading falls under the bound. Readings in PERF.md.
 B8_ATOL = {(2, 4429, 24, 64): 2.5e-3, (8, 4096, 8, 40): 3.2e-3,
            (8, 1024, 8, 80): 4e-3, (2, 600, 8, 40): 1.2e-3}
+
+
+# B1's f32 GPU test bound (tests/test_torch_port_cuda.py): |d| <= F32_TOL +
+# F32_TOL * |plain|
+F32_TOL = 2e-5
+
+# the self-attention layouts (the JAX package's SDT_FLASH2_LAYOUT and
+# SDT_ATTN_REPACK switches) and the attention kernels' counters
+LAYOUTS = {"bhsd": {}, "nt": {"SDT_FLASH2_LAYOUT": "nt"},
+           "nt+repack": {"SDT_FLASH2_LAYOUT": "nt", "SDT_ATTN_REPACK": "1"},
+           "bshd": {"SDT_FLASH2_LAYOUT": "bshd"}}
+ATTN_KERNELS = ("attention", "attention_i8", "attention_nt",
+                "attention_bshd", "repack_to_heads", "repack_from_heads")
+
+# the 10-step DDIM configuration (BASELINE.md #1, bench.py's
+# sd14_10step_ddim): 4 prompts, 512^2, CFG 7.5, kernel_fast in [1000, 780]
+DDIM_STEPS = 10
+DDIM_LAYOUTS = ("bhsd", "nt+repack", "bshd")
+
+
+def attention_launches(layout: str, n: int, int8: bool = False) -> dict:
+    """Each attention kernel's launches for n self-attentions of the
+    kernels' shapes under ``layout`` (bshd: S % 512 == 0), from the JAX
+    package's dispatch: bhsd takes B1 (B8 with ``int8``), nt B9, nt with
+    the repack three B11 and one B12 around B9, bshd B10."""
+    counts = dict.fromkeys(ATTN_KERNELS, 0)
+    if layout == "bhsd":
+        counts["attention_i8" if int8 else "attention"] = n
+    elif layout == "bshd":
+        counts["attention_bshd"] = n
+    else:
+        counts["attention_nt"] = n
+        if layout == "nt+repack":
+            counts["repack_to_heads"] = 3 * n
+            counts["repack_from_heads"] = n
+    return counts
+
+
+@contextlib.contextmanager
+def layout_env(layout: str):
+    """Set the layout switches for a run and restore them after it, so
+    later phases see the default layout."""
+    names = ("SDT_FLASH2_LAYOUT", "SDT_ATTN_REPACK")
+    saved = {k: os.environ.pop(k, None) for k in names}
+    os.environ.update(LAYOUTS[layout])
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def count_self_attention():
+    """Count the self-attentions of the kernels' shapes (D <= 256; a wider
+    head takes the plain q-chunked path) that run inside the block."""
+    from safe_denoiser_tpu_torch.ops import attention
+
+    inner, calls = attention.self_attention, [0]
+
+    def counted(q, k, v, sm_scale):
+        calls[0] += q.shape[3] <= 256
+        return inner(q, k, v, sm_scale)
+
+    attention.self_attention = counted
+    try:
+        yield calls
+    finally:
+        attention.self_attention = inner
+
+
+def check_launches(counts: dict, want: dict, what: str) -> None:
+    print(f"{what} launches: {json.dumps(counts)} expected "
+          f"{json.dumps(want)}")
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"{what}: kernel {name} launched {counts[name]} times, "
+                 f"expected {n}")
 
 
 def fail(msg: str) -> None:
@@ -234,6 +325,20 @@ def _report(name, shape, err, tol, ms, plain_ms, lib_ms, bnd, lib_label,
         fail(f"{name} {shape}: {metric} {err:.3e} above tolerance {tol:.1e}")
 
 
+def _attn_err(out, want, dtype):
+    """(error, tolerance, metric label) of an attention kernel's output
+    against its plain version in f32: max |d| within attention.BF16_ATOL
+    for bf16; for f32 the largest |d| - F32_TOL * |plain| within F32_TOL
+    (B1's f32 GPU test bound)."""
+    from safe_denoiser_tpu_torch.ops import attention
+
+    d = (out.float() - want).abs()
+    if dtype == torch.bfloat16:
+        return d.max().item(), attention.BF16_ATOL, "max|d|"
+    return ((d - F32_TOL * want.abs()).max().item(), F32_TOL,
+            f"max(|d|-{F32_TOL}*|plain|)")
+
+
 def b8_errors(shape, seed: int):
     """B8 on seeded bf16 [B,S,H,D] inputs (q >= 0 and k <= 0 at S = 600,
     so every real logit is negative and an unmasked padded key would
@@ -340,6 +445,120 @@ def phase_kernels() -> dict:
                                            lib=None, bound=bnd)
         results["attention_i8"]["err"] = max(results["attention_i8"]["err"],
                                              err)
+
+    # B9 head-major attention on [BH, S, D] as the nt layout hands it over:
+    # SD3's joint attention padded to 4608 with valid_kv 4429 (the padded
+    # keys are zero rows and must be masked), SD-v1's two shapes, a tail
+    # whose real logits are all negative (q >= 0, k <= 0: a weighed zero key
+    # would dominate), then the f32 entry. bf16 within attention.BF16_ATOL
+    # of the plain version on the same values in f32; f32 within B1's f32
+    # bound (|d| <= F32_TOL + F32_TOL * |plain|, reported as the excess over
+    # the relative term). Library: SDPA over the valid keys. Bound: the
+    # valid rows' work, 4 * BH * valid^2 * D operations.
+    for bh, s, d, valid, dtype in ((48, 4608, 64, 4429, torch.bfloat16),
+                                   (64, 4096, 40, None, torch.bfloat16),
+                                   (64, 1024, 80, None, torch.bfloat16),
+                                   (16, 1024, 40, 600, torch.bfloat16),
+                                   (16, 1024, 64, 600, torch.float32)):
+        q, k, v = (torch.randn(bh, s, d, device=dev, generator=g)
+                   for _ in range(3))
+        if valid is not None:
+            k[:, valid:] = 0
+            v[:, valid:] = 0
+            if dtype == torch.bfloat16 and s == 1024:
+                q, k = q.abs(), -k.abs()
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        scale, n = d ** -0.5, valid or s
+        out = attention.attention_nt(q, k, v, scale, valid)
+        want = attention.attention_nt_ref(q.float(), k.float(), v.float(),
+                                          scale, valid)
+        torch.cuda.synchronize()
+        err, tol, metric = _attn_err(out, want, dtype)
+        ms = cuda_ms(lambda: attention.attention_nt(q, k, v, scale, valid))
+        plain = cuda_ms(lambda: attention.attention_nt_ref(q, k, v, scale,
+                                                           valid),
+                        reps=3, warmup=1)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None, :, :n], v[None, :, :n]))
+        bnd = bound_ms(4 * bh * s * d * q.element_size(),
+                       4 * bh * n * n * d,
+                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+        _report("attention_nt", [bh, s, d, f"valid_kv={n}", str(dtype)[6:]],
+                err, tol, ms, plain, lib, bnd,
+                "F.scaled_dot_product_attention over the valid keys",
+                metric=metric)
+        del want
+        if "attention_nt" not in results:
+            results["attention_nt"] = dict(err=err, ms=ms, plain=plain,
+                                           lib=lib, bound=bnd)
+        if dtype == torch.bfloat16:
+            results["attention_nt"]["err"] = max(
+                results["attention_nt"]["err"], err)
+
+    # B10 natural-layout attention on [B, S, H, D], S % 512 == 0: SD-v1's
+    # two shapes in bf16, then the f32 entry; bounds and library as B1's
+    for b, s, h, d, dtype in ((8, 4096, 8, 40, torch.bfloat16),
+                              (8, 1024, 8, 80, torch.bfloat16),
+                              (2, 1024, 8, 40, torch.float32)):
+        q, k, v = (torch.randn(b, s, h, d, device=dev, generator=g)
+                   .to(dtype) for _ in range(3))
+        scale = d ** -0.5
+        out = attention.attention_bshd(q, k, v, scale)
+        want = attention.attention_bshd_ref(q.float(), k.float(), v.float(),
+                                            scale)
+        torch.cuda.synchronize()
+        err, tol, metric = _attn_err(out, want, dtype)
+        ms = cuda_ms(lambda: attention.attention_bshd(q, k, v, scale))
+        plain = cuda_ms(lambda: attention.attention_bshd_ref(q, k, v, scale),
+                        reps=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bnd = bound_ms(4 * b * s * h * d * q.element_size(),
+                       attention.flops(b, s, h, d),
+                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+        _report("attention_bshd", [b, s, h, d, str(dtype)[6:]], err, tol,
+                ms, plain, lib, bnd, "F.scaled_dot_product_attention",
+                metric=metric)
+        del want
+        if "attention_bshd" not in results:
+            results["attention_bshd"] = dict(err=err, ms=ms, plain=plain,
+                                             lib=lib, bound=bnd)
+        if dtype == torch.bfloat16:
+            results["attention_bshd"]["err"] = max(
+                results["attention_bshd"]["err"], err)
+
+    # B11 / B12 head repacks, bf16 copies: bit-exact (torch.equal) against
+    # the plain versions, at SD3's joint shape and SD-v1's two; library:
+    # the transpose + contiguous() copy; bound: bytes read and written
+    for b, s, h, d in ((2, 4608, 24, 64), (8, 4096, 8, 40), (8, 1024, 8, 80)):
+        x = torch.randn(b, s, h * d, device=dev, generator=g).bfloat16()
+        heads = attention.repack_to_heads(x, h)
+        for name, fn, plain_fn, lib_fn, arg in (
+                ("repack_to_heads", lambda t: attention.repack_to_heads(t, h),
+                 lambda t: attention.repack_to_heads_ref(t, h),
+                 lambda t: t.view(b, s, h, d).transpose(1, 2).contiguous(),
+                 x),
+                ("repack_from_heads", attention.repack_from_heads,
+                 attention.repack_from_heads_ref,
+                 lambda t: t.transpose(1, 2).reshape(b, s, h * d), heads)):
+            out, want = fn(arg), plain_fn(arg)
+            torch.cuda.synchronize()
+            err = 0.0 if torch.equal(out, want) else \
+                (out.float() - want.float()).abs().max().item() or 1.0
+            ms = cuda_ms(lambda: fn(arg), reps=20)
+            plain = cuda_ms(lambda: plain_fn(arg), reps=20)
+            lib = cuda_ms(lambda: lib_fn(arg), reps=20)
+            bnd = bound_ms(2 * arg.nbytes, 0, PEAK_BF16)
+            _report(name, [b, s, h, d], err, 0.0, ms, plain, lib, bnd,
+                    "transpose(1, 2) + contiguous copy",
+                    metric="max|d| (0: bit-exact)")
+            if name not in results:
+                results[name] = dict(err=err, ms=ms, plain=plain, lib=lib,
+                                     bound=bnd)
+            results[name]["err"] = max(results[name]["err"], err)
+        if not torch.equal(attention.repack_from_heads(heads), x):
+            fail(f"repack_from_heads(repack_to_heads(x)) != x at "
+                 f"{[b, s, h, d]}")
 
     # B2 rbf score, f32: x near the bank rows so the weights span 1e-3..1;
     # SD-v1's [4, 16384] against 515 rows, then SD3's one [16, 128, 128]
@@ -522,6 +741,17 @@ KERNEL_META = {
                   "safe_denoiser_tpu/ops/attention.py:36"),
     "attention_i8": ("cuda", "safe_denoiser_tpu_torch/csrc/attention_i8.cu",
                      "safe_denoiser_tpu/ops/attention.py:36"),
+    "attention_nt": ("cuda", "safe_denoiser_tpu_torch/csrc/attention_nt.cu",
+                     "safe_denoiser_tpu/ops/attention.py:177"),
+    "attention_bshd": ("cuda",
+                       "safe_denoiser_tpu_torch/csrc/attention_bshd.cu",
+                       "safe_denoiser_tpu/ops/attention.py:262"),
+    "repack_to_heads": ("cuda",
+                        "safe_denoiser_tpu_torch/csrc/repack_heads.cu",
+                        "safe_denoiser_tpu/ops/attention.py:367"),
+    "repack_from_heads": ("cuda",
+                          "safe_denoiser_tpu_torch/csrc/repack_heads.cu",
+                          "safe_denoiser_tpu/ops/attention.py:376"),
     "rbf": ("cuda", "safe_denoiser_tpu_torch/csrc/rbf.cu",
             "safe_denoiser_tpu/ops/repellency_kernels.py:79"),
     "conv3x3_up": ("cuda", "safe_denoiser_tpu_torch/csrc/conv3x3_up.cu",
@@ -603,12 +833,14 @@ def build_random_pipeline(device, vocab_dir: str, unet_cfg=None,
                                  DDPMScheduler(), device=device)
 
 
-def tiny_slice(device, vocab_dir: str, steps: int = 5):
+def tiny_slice(device, vocab_dir: str, steps: int = 5, side: int = 8):
     """The whole slice at a tiny width in f32 -- tokenize, CLIP encode, the
     DDPM loop with CFG and kernel_fast repellency, VAE decode -- on
     ``device``, with weights, initial latents, noise and bank made on the
-    CPU from seeds, so two devices compute the same function. Returns
-    (final latents, image, rep_applied) as CPU tensors."""
+    CPU from seeds, so two devices compute the same function. ``side`` is
+    the latents' height and width (32: S = 1024 tokens in the UNet's first
+    level and the VAE's mid-block, so self-attention takes the kernels).
+    Returns (final latents, image, rep_applied) as CPU tensors."""
     from safe_denoiser_tpu_torch.models import CLIPTextConfig, UNetConfig, \
         VAEConfig
     from safe_denoiser_tpu_torch.pipeline import (
@@ -619,7 +851,7 @@ def tiny_slice(device, vocab_dir: str, steps: int = 5):
 
     cpu = build_random_pipeline(
         "cpu", vocab_dir,
-        UNetConfig(sample_size=8, block_out_channels=(32, 64),
+        UNetConfig(sample_size=side, block_out_channels=(32, 64),
                    layers_per_block=1, cross_attention_dim=32,
                    num_attention_heads=2, norm_num_groups=8),
         VAEConfig(block_out_channels=(32, 64), layers_per_block=1,
@@ -630,7 +862,7 @@ def tiny_slice(device, vocab_dir: str, steps: int = 5):
     pipe = SafeDiffusionPipeline(cpu.unet, cpu.vae, cpu.text_encoder,
                                  cpu.tokenizer, cpu.scheduler, device=device)
     g = torch.Generator().manual_seed(1)
-    b, shape = 2, (4, 8, 8)
+    b, shape = 2, (4, side, side)
     lat0 = torch.randn(b, *shape, generator=g)
     noise = torch.randn(steps, 2, b, *shape, generator=g)
     bank = torch.randn(6, *shape, generator=g)
@@ -647,6 +879,33 @@ def tiny_slice(device, vocab_dir: str, steps: int = 5):
             refs=bank.to(dev), window=RepellencyWindow(1000.0, 300.0))
         image = pipe.vae.decode(lat / pipe.vae.config.scaling_factor)
     return lat.cpu(), image.float().cpu(), applied.cpu()
+
+
+def phase_layouts_f32(vocab_dir: str) -> None:
+    """The tiny slice at 32^2 latents, f32, under each attention layout on
+    the GPU against the CPU under the same layout, within the tiny slice's
+    bounds; the CPU run counts the self-attentions that the layout's
+    kernels (their f32 entries) must take on the GPU."""
+    from safe_denoiser_tpu_torch import ops
+
+    for layout in LAYOUTS:
+        with layout_env(layout):
+            with count_self_attention() as calls:
+                want = tiny_slice("cpu", vocab_dir, steps=3, side=32)
+            ops.reset_launch_counts()
+            got = tiny_slice("cuda", vocab_dir, steps=3, side=32)
+            counts = ops.launch_counts()
+        d_lat = (got[0] - want[0]).abs().max().item()
+        d_img = (got[1] - want[1]).abs().max().item()
+        print(f"tiny slice at 32^2, f32, layout {layout}: cuda vs cpu max|d| "
+              f"latents={d_lat:.3e} image={d_img:.3e}")
+        if not (d_lat <= 2e-3 and d_img <= 1e-2
+                and torch.equal(got[2], want[2])):
+            fail(f"tiny slice at 32^2 under {layout}: the GPU disagrees "
+                 "with the CPU")
+        check_launches({k: counts[k] for k in ATTN_KERNELS},
+                       attention_launches(layout, calls[0]),
+                       f"tiny slice at 32^2 under {layout}")
 
 
 def phase_main_path() -> dict:
@@ -670,6 +929,7 @@ def phase_main_path() -> dict:
         if not (d_lat <= 2e-3 and d_img <= 1e-2
                 and torch.equal(got[2], want[2]) and bool(got[2].any())):
             fail("tiny slice on the GPU disagrees with the CPU")
+        phase_layouts_f32(vocab_dir)
 
         t0 = time.perf_counter()
         pipe = build_random_pipeline(dev, vocab_dir)
@@ -708,12 +968,7 @@ def phase_main_path() -> dict:
     print(f"main path decode: {st['decode']:.2f} ms with the fused conv "
           f"(B4) in the resnets; with cuDNN resnet convs it took "
           f"{DECODE_MS_CUDNN} ms")
-    print(f"main path launches: {json.dumps(counts)} "
-          f"expected {json.dumps(EXPECTED_LAUNCHES)}")
-    for name, n in EXPECTED_LAUNCHES.items():
-        if counts[name] != n:
-            fail(f"kernel {name} launched {counts[name]} times on the main "
-                 f"path, expected {n}")
+    check_launches(counts, EXPECTED_LAUNCHES, "main path")
     return counts, pipe, kw
 
 
@@ -777,6 +1032,53 @@ def phase_gate_open(pipe) -> None:
             and bool(torch.isfinite(lat_a).all())):
         fail("at full width the open beta gate did not carry B2's score "
              "into the latents")
+
+
+def phase_ddim(pipe, kw) -> dict:
+    """The 10-step DDIM configuration at full SD-v1.4 width: phase 4's
+    modules and repellency under a DDIMScheduler, 4 prompts, once under
+    each of DDIM_LAYOUTS. Expected launches from the JAX package's gates:
+    10 self-attentions with S >= 512 per UNet step through the layout's
+    kernels; B2 once per timestep in [1000, 780] (901 and 801); B3 once per
+    step plus the VAE's 3 upsamples; B4 28; B5 3 per step plus the
+    decoder's 30. Returns the launch counts of each run."""
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.pipeline import SafeDiffusionPipeline
+    from safe_denoiser_tpu_torch.schedulers import DDIMConfig, DDIMScheduler
+
+    ddim = SafeDiffusionPipeline(pipe.unet, pipe.vae, pipe.text_encoder,
+                                 pipe.tokenizer, DDIMScheduler(DDIMConfig()),
+                                 device=pipe.device)
+    window = kw["erase_spec"].window
+    ts = ddim.scheduler.timesteps(DDIM_STEPS)
+    n_rbf = sum(bool(window.mask(i, int(t))) for i, t in enumerate(ts))
+    out = {}
+    for layout in DDIM_LAYOUTS:
+        with layout_env(layout):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            pending = ddim.dispatch_batch(PROMPTS, seeds=[0, 1, 2, 3],
+                                          num_inference_steps=DDIM_STEPS,
+                                          **kw)
+            images = pending.fetch()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+        if not bool(torch.isfinite(pending.image).all()):
+            fail(f"ddim {layout}: decoded images hold non-finite values")
+        _check_images(images, 512, f"ddim {layout}")
+        st = pending.stage_ms
+        print(f"ddim {layout}: 4 x 512^2, {DDIM_STEPS} DDIM steps (t = "
+              f"{int(ts[0])} ... {int(ts[-1])}), CFG 7.5, kernel_fast "
+              f"[1000,780]: encode_ms={st['encode']:.2f} "
+              f"loop_ms={st['loop']:.2f} decode_ms={st['decode']:.2f} "
+              f"wall_s={wall:.3f} images_per_s={4 / wall:.4f} "
+              f"rep_applied_steps={int(pending.applied.any(1).sum())}")
+        want = {**attention_launches(layout, 10 * DDIM_STEPS), "rbf": n_rbf,
+                "conv3x3_up": DDIM_STEPS + 3, "conv3x3": 28,
+                "gn_stats": 3 * DDIM_STEPS + 30}
+        check_launches(counts, want, f"ddim {layout}")
+        out[f"ddim {layout}"] = counts
+    return out
 
 
 _ST_DTYPE = {torch.bfloat16: "BF16", torch.float16: "F16",
@@ -1140,17 +1442,17 @@ def write_sd3_checkpoint(pipe, root: str, vocab_src: str) -> None:
 
 
 def sd3_expected_launches(pipe, steps: int, window, layers: int,
-                          int8_attention: bool) -> dict:
+                          int8_attention: bool, layout: str = "bhsd"
+                          ) -> dict:
     """One SD3 image's launches, from the JAX package's gates: the joint
-    attention once per block and step (B8 under SDT_INT8_ATTN=1, else B1);
-    B2 once per step whose timestep lies in the window (the flow-match
-    table); B3/B4/B5 as the VAE decode's routing gives them."""
+    attention once per block and step through the layout's kernels (bhsd:
+    B8 under SDT_INT8_ATTN=1, else B1; nt never int8); B2 once per step
+    whose timestep lies in the window (the flow-match table); B3/B4/B5 as
+    the VAE decode's routing gives them."""
     ts, _ = pipe.scheduler.timesteps_and_sigmas(steps)
     side = SD3_SIDE // pipe.vae_scale_factor
     dec = vae_kernel_plan(pipe.vae.config, 1, side, side)[0]
-    attn = layers * steps
-    return {"attention": 0 if int8_attention else attn,
-            "attention_i8": attn if int8_attention else 0,
+    return {**attention_launches(layout, layers * steps, int8_attention),
             "rbf": sum(bool(window.mask(i, float(t)))
                        for i, t in enumerate(ts)),
             **dec}
@@ -1163,9 +1465,9 @@ def _check_images(images, side: int, what: str) -> None:
 
 
 def phase_sd3(profile: bool = False) -> dict:
-    """SD3-medium at full width and depth, bf16 then int8 (with
-    ``profile``, a profiled 5-step image after each); returns the launch
-    counts of each run."""
+    """SD3-medium at full width and depth: bf16, bf16 under nt + repack,
+    then int8 (with ``profile``, a profiled 5-step image after each);
+    returns the launch counts of each run."""
     from safe_denoiser_tpu_torch import ops
     from safe_denoiser_tpu_torch.pipeline import RepellencyWindow
     from safe_denoiser_tpu_torch.repellency import KernelFastRepellency
@@ -1193,7 +1495,8 @@ def phase_sd3(profile: bool = False) -> dict:
     layers = pipe.transformer.config.num_layers
     out = {}
     try:
-        for mode in ("bf16", "int8"):
+        for mode in ("bf16", "nt+repack", "int8"):
+            layout = mode if mode in LAYOUTS else "bhsd"
             if mode == "int8":
                 n_q = pipe.enable_int8()
                 want_q = 12 * (layers - 1) + 9    # the JAX selection's count
@@ -1203,44 +1506,43 @@ def phase_sd3(profile: bool = False) -> dict:
                     fail(f"enable_int8 quantized {n_q} linears, the JAX "
                          f"package's selection {want_q}")
                 os.environ["SDT_INT8_ATTN"] = "1"
-            pipe.dispatch(SD3_PROMPT, num_inference_steps=2, **kw).fetch()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            pending = pipe.dispatch(SD3_PROMPT,
-                                    num_inference_steps=SD3_STEPS, **kw)
-            images = pending.fetch()
-            wall = time.perf_counter() - t0
-            counts = ops.launch_counts()
+            with layout_env(layout):
+                pipe.dispatch(SD3_PROMPT, num_inference_steps=2,
+                              **kw).fetch()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                pending = pipe.dispatch(SD3_PROMPT,
+                                        num_inference_steps=SD3_STEPS, **kw)
+                images = pending.fetch()
+                wall = time.perf_counter() - t0
+                counts = ops.launch_counts()
             if not bool(torch.isfinite(pending.latents).all()
                         and torch.isfinite(pending.image).all()):
                 fail(f"sd3 {mode}: non-finite latents or image")
             _check_images(images, SD3_SIDE, f"sd3 {mode}")
             st = pending.stage_ms
             want = sd3_expected_launches(pipe, SD3_STEPS, window, layers,
-                                         mode == "int8")
+                                         mode == "int8", layout)
             print(f"sd3 {mode}: 1 x {SD3_SIDE}^2, {SD3_STEPS} flow-match "
                   f"steps, CFG 2.5, kernel_fast [1000,780]: "
                   f"encode_ms={st['encode']:.2f} loop_ms={st['loop']:.2f} "
                   f"decode_ms={st['decode']:.2f} wall_s={wall:.3f} "
                   f"rep_applied_steps={int(pending.applied.any(1).sum())} "
                   f"image_mean={images[0].mean():.3f}")
-            print(f"sd3 {mode} launches: {json.dumps(counts)} expected "
-                  f"{json.dumps(want)}")
-            for name, n in want.items():
-                if counts[name] != n:
-                    fail(f"sd3 {mode}: kernel {name} launched {counts[name]}"
-                         f" times, expected {n}")
+            check_launches(counts, want, f"sd3 {mode}")
             out[mode] = (counts, images[0], pending.latents.float())
             if profile:
-                profile_call(lambda: pipe.dispatch(
-                    SD3_PROMPT, num_inference_steps=5, **kw).fetch(),
-                    f"sd3 {mode}, 5 steps")
+                with layout_env(layout):
+                    profile_call(lambda: pipe.dispatch(
+                        SD3_PROMPT, num_inference_steps=5, **kw).fetch(),
+                        f"sd3 {mode}, 5 steps")
     finally:
         os.environ.pop("SDT_INT8_ATTN", None)
-    d_lat = (out["bf16"][2] - out["int8"][2]).abs().max().item()
-    d_img = abs(out["bf16"][1].astype(float) - out["int8"][1]).mean()
-    print(f"sd3 int8 vs bf16: max|d| latents={d_lat:.4e} mean|d| image "
-          f"(0..255)={d_img:.3f}")
+    for mode in ("nt+repack", "int8"):
+        d_lat = (out["bf16"][2] - out[mode][2]).abs().max().item()
+        d_img = abs(out["bf16"][1].astype(float) - out[mode][1]).mean()
+        print(f"sd3 {mode} vs bf16: max|d| latents={d_lat:.4e} mean|d| "
+              f"image (0..255)={d_img:.3f}")
     del pipe
     torch.cuda.empty_cache()
     return {mode: v[0] for mode, v in out.items()}
@@ -1405,7 +1707,8 @@ def profile_call(fn, label: str) -> None:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    ours = {"attn_kernel": 0.0, "attn_i8_kernel": 0.0, "rbf_": 0.0,
+    ours = {"attn_kernel": 0.0, "attn_i8_kernel": 0.0, "attn_nt_kernel": 0.0,
+            "attn_bshd_kernel": 0.0, "repack_kernel": 0.0, "rbf_": 0.0,
             "up_conv_kernel": 0.0, "conv3x3_kernel": 0.0,
             "_partial_sums": 0.0, "_finish": 0.0}
     for ms, _, key in rows:
@@ -1444,15 +1747,17 @@ def main() -> None:
     counts, pipe, kw = phase_main_path()
     phase_gate_open(pipe)
     phase_runner(pipe)
+    ddim_counts = phase_ddim(pipe, kw)
     if args.profile:
         phase_profile(pipe, kw)
     del pipe, kw
     torch.cuda.empty_cache()
     sd3_counts = phase_sd3(args.profile)
     phase_sd3_runner()
-    # launches over the main paths: sd14-main and both SD3 runs
-    total = {name: counts[name] + sum(c[name] for c in sd3_counts.values())
-             for name in counts}
+    # launches over the main paths: sd14-main, the three DDIM runs and the
+    # three SD3 runs
+    runs = [counts, *ddim_counts.values(), *sd3_counts.values()]
+    total = {name: sum(c[name] for c in runs) for name in counts}
     print(card)
     print(kernels_line(results, total))
     print(json.dumps({"ok": True, "device": {

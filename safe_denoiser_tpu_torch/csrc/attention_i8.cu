@@ -32,10 +32,7 @@
 // Not yet done (later work): cp.async/TMA double buffering, wgmma, a
 // quantize pass that does not stall the tensor cores.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -44,23 +41,9 @@ constexpr int BK = 64;       // keys per tile
 constexpr int NTHREADS = 128;
 constexpr int LDT = BK + 8;  // row pitch of the transposed V tile (bf16)
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using sdt_tile::ld32;
+using sdt_tile::mma16816;
+using sdt_tile::pack_bf16;
 
 __device__ __forceinline__ void mma16832_s8(int* c, const uint32_t* a,
                                             const uint32_t* b) {

@@ -1,13 +1,17 @@
 """The port's kernels, each beside its plain PyTorch version.
 
-| kernel       | module             | route  | replaces (JAX package)                   |
-| ------------ | ------------------ | ------ | ---------------------------------------- |
-| attention    | ops/attention.py   | CUDA   | ops/attention.py::_attn_kernel           |
-| attention_i8 | ops/attention.py   | CUDA   | ::_attn_kernel(quant_i8=True)            |
-| rbf          | repellency_kernels | CUDA   | ops/repellency_kernels.py::_rbf_kernel   |
-| conv3x3_up   | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_up_kernel_planar        |
-| conv3x3      | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_kernel                  |
-| gn_stats     | ops/group_norm.py  | Triton | ops/group_norm.py::_gn_stats_kernel      |
+| kernel            | module             | route  | replaces (JAX package)                |
+| ----------------- | ------------------ | ------ | ------------------------------------- |
+| attention         | ops/attention.py   | CUDA   | ops/attention.py::_attn_kernel        |
+| attention_i8      | ops/attention.py   | CUDA   | ::_attn_kernel(quant_i8=True)         |
+| attention_nt      | ops/attention.py   | CUDA   | ::_attn_kernel_nt                     |
+| attention_bshd    | ops/attention.py   | CUDA   | ::_attn_kernel_bshd                   |
+| repack_to_heads   | ops/attention.py   | CUDA   | ::_repack_to_heads_kernel             |
+| repack_from_heads | ops/attention.py   | CUDA   | ::_repack_from_heads_kernel           |
+| rbf               | repellency_kernels | CUDA   | ops/repellency_kernels.py::_rbf_kernel |
+| conv3x3_up        | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_up_kernel_planar     |
+| conv3x3           | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_kernel               |
+| gn_stats          | ops/group_norm.py  | Triton | ops/group_norm.py::_gn_stats_kernel   |
 
 Each wrapper counts its launches in a module-level integer (``COUNTERS``).
 """
@@ -20,6 +24,10 @@ from . import attention, conv3x3, group_norm, repellency_kernels
 COUNTERS = {
     "attention": (attention, "launches"),
     "attention_i8": (attention, "i8_launches"),
+    "attention_nt": (attention, "nt_launches"),
+    "attention_bshd": (attention, "bshd_launches"),
+    "repack_to_heads": (attention, "to_heads_launches"),
+    "repack_from_heads": (attention, "from_heads_launches"),
     "rbf": (repellency_kernels, "launches"),
     "conv3x3_up": (conv3x3, "up_launches"),
     "conv3x3": (conv3x3, "fused_launches"),

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes``. The build runs
 at first use, one ``nvcc`` per source, all started together, into
 ``build/torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``). A library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded.
+``.gitignore``). A library's file name carries a hash of its source and of
+the shared headers (``csrc/*.cuh``), so an edited source or header is
+rebuilt and a stale library is never loaded.
 
 Nothing here runs at import time: the CPU test host has no ``nvcc``.
 """
@@ -24,13 +25,16 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("attention", "attention_i8", "rbf", "conv3x3_up", "conv3x3")
+SOURCES = ("attention", "attention_i8", "rbf", "conv3x3_up", "conv3x3",
+           "attention_nt", "attention_bshd", "repack_heads")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ATTN = [_P] * 4 + [_I] * 4 + [_L] * 3 + [_F, _P]
+_LAYOUT = [_P] * 4 + [_I] * 4 + [_F, _P]       # nt and bshd attention
+_REPACK = [_P] * 2 + [_I] * 5 + [_P]
 # argument types of each C entry point (all return a cudaError_t as int),
 # bound once when its library is loaded
 SIGNATURES = {
@@ -40,6 +44,12 @@ SIGNATURES = {
     "rbf": {"sdt_rbf_score_f32": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P]},
     "conv3x3_up": {"sdt_conv3x3_up_bf16": [_P] * 4 + [_I] * 5 + [_P]},
     "conv3x3": {"sdt_conv3x3_bf16": [_P] * 7 + [_I] * 6 + [_P]},
+    "attention_nt": {"sdt_attention_nt_bf16": _LAYOUT,
+                     "sdt_attention_nt_f32": _LAYOUT},
+    "attention_bshd": {"sdt_attention_bshd_bf16": _LAYOUT,
+                       "sdt_attention_bshd_f32": _LAYOUT},
+    "repack_heads": {"sdt_repack_to_heads": _REPACK,
+                     "sdt_repack_from_heads": _REPACK},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -60,7 +70,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

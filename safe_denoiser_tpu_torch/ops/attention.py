@@ -1,13 +1,22 @@
-"""Unmasked self-attention: the CUDA kernels (``csrc/attention.cu``, and
-``csrc/attention_i8.cu`` for the int8-QK^T option) and their plain PyTorch
-versions.
+"""Unmasked self-attention: the CUDA kernels and their plain PyTorch
+versions, and the dispatch over the TPU kernels' layouts.
 
 Counterpart of ``safe_denoiser_tpu/ops/attention.py``. The public layout is
 the JAX package's ``[B, S, H, D]``. A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises. ``SDT_INT8_ATTN=1`` runs bf16
-attention with QK^T in int8 (the JAX package's ``quant_i8``); f32 always
-keeps the bf16/f32 kernel. The TPU's layout variants (nt, bshd, the repack
-kernels) are not ported yet.
+CUDA tensor launches the kernel or raises. ``self_attention`` takes the JAX
+package's branches in its order (``SDT_FLASH2_LAYOUT``, ``SDT_ATTN_REPACK``,
+``SDT_INT8_ATTN``):
+
+| branch                   | kernel, source                 | JAX kernel      |
+| ------------------------ | ------------------------------ | --------------- |
+| bhsd (default)           | attention, attention.cu        | _attn_kernel    |
+| bhsd + SDT_INT8_ATTN=1   | attention_i8, attention_i8.cu  | (quant_i8)      |
+| nt                       | attention_nt, attention_nt.cu  | _attn_kernel_nt |
+| nt + SDT_ATTN_REPACK=1   | repack_to_heads x3, nt,        | _repack_*       |
+|                          | repack_from_heads (repack_heads.cu) |            |
+| bshd, S % 512 == 0       | attention_bshd, ..._bshd.cu    | _attn_kernel_bshd |
+
+A wide head (D > 256) takes the q-chunked plain path in every layout.
 """
 
 from __future__ import annotations
@@ -16,11 +25,17 @@ import math
 import os
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
-launches = 0      # kernel launches of the bf16/f32 kernel on CUDA tensors
-i8_launches = 0   # kernel launches of the int8-QK^T kernel
+launches = 0        # kernel launches of the bf16/f32 kernel on CUDA tensors
+i8_launches = 0     # kernel launches of the int8-QK^T kernel
+nt_launches = 0     # ... of the head-major kernel
+bshd_launches = 0   # ... of the natural-layout kernel
+to_heads_launches = 0
+from_heads_launches = 0
+BLOCK = 512         # the TPU kernels' sequence grid
 LOG2E = math.log2(math.e)
 
 # max |d| a bf16 kernel call is held to against the plain version on the
@@ -153,24 +168,217 @@ def _self_attention_i8_cuda(q, k, v, sm_scale: float) -> torch.Tensor:
     return out
 
 
+def attention_nt_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     sm_scale: float, valid_kv: int | None = None
+                     ) -> torch.Tensor:
+    """Plain version of the head-major kernel: q/k/v [BH, S, D] -> [BH, S,
+    D] in v's dtype; keys at or past ``valid_kv`` (a sequence's zero padding
+    to the block grid) get no weight. f32 logits and softmax, probabilities
+    cast to v's dtype for the second product."""
+    logits = torch.einsum("bqd,bkd->bqk", q.float() * sm_scale, k.float())
+    if valid_kv is not None and valid_kv < k.shape[1]:
+        logits[..., valid_kv:] = float("-inf")
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bqk,bkd->bqd", p.float(), v.float()).to(v.dtype)
+
+
+def attention_bshd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       sm_scale: float) -> torch.Tensor:
+    """Plain version of the natural-layout kernel: [B, S, H, D] in and out,
+    S a multiple of the 512 grid, as the TPU kernel takes."""
+    if q.shape[1] % BLOCK:
+        raise ValueError(f"the bshd kernel takes S % {BLOCK} == 0, got "
+                         f"S={q.shape[1]}")
+    return attention_ref(q, k, v, sm_scale)
+
+
+def repack_to_heads_ref(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, H*D] -> [B, H, S, D], one head slice at a time as the TPU
+    kernel copies them."""
+    d = x.shape[2] // n_heads
+    return torch.stack([x[:, :, i * d:(i + 1) * d] for i in range(n_heads)],
+                       dim=1)
+
+
+def repack_from_heads_ref(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, D] -> [B, S, H*D], the heads' slices side by side."""
+    return torch.cat(x.unbind(1), dim=-1)
+
+
+def _check_same(what: str, tensors, dtypes, dim: int) -> None:
+    """One GPU, one dtype of ``dtypes``, one shape of ``dim`` dims, all
+    contiguous: what the layout kernels take."""
+    t0 = tensors[0]
+    if not (t0.is_cuda and all(t.device == t0.device for t in tensors)):
+        raise ValueError(f"{what}: the tensors must all lie on one GPU")
+    if t0.dtype not in dtypes or any(t.dtype != t0.dtype for t in tensors):
+        raise ValueError(f"{what} takes {dtypes}, got "
+                         f"{[t.dtype for t in tensors]}")
+    if t0.dim() != dim or any(t.shape != t0.shape for t in tensors):
+        raise ValueError(f"{what}: one {dim}-dim shape expected, got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} takes contiguous tensors")
+
+
+_FLOAT = (torch.bfloat16, torch.float32)
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def _attention_nt_cuda(q, k, v, sm_scale: float, valid_kv: int | None):
+    global nt_launches
+    _check_same("attention_nt", (q, k, v), _FLOAT, 3)
+    bh, s, d = q.shape
+    valid = s if valid_kv is None else int(valid_kv)
+    if d > 256 or not 1 <= valid <= s:
+        raise ValueError(f"attention_nt: head dim {d} (<= 256) and valid_kv "
+                         f"{valid} (1..{s})")
+    entry = f"sdt_attention_nt_{_SUFFIX[q.dtype]}"
+    out = torch.empty_like(q)
+    err = getattr(_build.library("attention_nt"), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
+        valid, float(sm_scale), _build.stream_ptr(q.device))
+    _build.check(err, entry)
+    nt_launches += 1
+    return out
+
+
+def attention_nt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 sm_scale: float, valid_kv: int | None = None
+                 ) -> torch.Tensor:
+    """Head-major attention over contiguous [BH, S, D] q/k/v, keys at or
+    past ``valid_kv`` masked (B9, ``csrc/attention_nt.cu``)."""
+    if q.device.type == "cpu":
+        return attention_nt_ref(q, k, v, sm_scale, valid_kv)
+    return _attention_nt_cuda(q, k, v, sm_scale, valid_kv)
+
+
+def _attention_bshd_cuda(q, k, v, sm_scale: float):
+    global bshd_launches
+    _check_same("attention_bshd", (q, k, v), _FLOAT, 4)
+    b, s, h, d = q.shape
+    if s % BLOCK or d > 256:
+        raise ValueError(f"attention_bshd takes S % {BLOCK} == 0 and D <= "
+                         f"256, got S={s}, D={d}")
+    entry = f"sdt_attention_bshd_{_SUFFIX[q.dtype]}"
+    out = torch.empty_like(q)           # the kernel's [B, S, H*D] rows
+    err = getattr(_build.library("attention_bshd"), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
+        float(sm_scale), _build.stream_ptr(q.device))
+    _build.check(err, entry)
+    bshd_launches += 1
+    return out
+
+
+def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   sm_scale: float) -> torch.Tensor:
+    """Natural-layout attention over contiguous [B, S, H, D] q/k/v with S %
+    512 == 0; returns [B, S, H, D] (B10, ``csrc/attention_bshd.cu``)."""
+    if q.device.type == "cpu":
+        return attention_bshd_ref(q, k, v, sm_scale)
+    return _attention_bshd_cuda(q, k, v, sm_scale)
+
+
+def _repack_cuda(entry: str, x, out, b, s, h, d) -> None:
+    if x.element_size() not in (2, 4):
+        raise ValueError(f"{entry} moves 2- or 4-byte elements, got "
+                         f"{x.dtype}")
+    err = getattr(_build.library("repack_heads"), entry)(
+        x.data_ptr(), out.data_ptr(), b, s, h, d, x.element_size(),
+        _build.stream_ptr(x.device))
+    _build.check(err, entry)
+
+
+def repack_to_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, H*D] -> [B, H, S, D], a copy in x's dtype (B11,
+    ``csrc/repack_heads.cu``)."""
+    global to_heads_launches
+    if x.device.type == "cpu":
+        return repack_to_heads_ref(x, n_heads)
+    _check_same("repack_to_heads", (x,), (x.dtype,), 3)
+    b, s, hd = x.shape
+    if hd % n_heads:
+        raise ValueError(f"repack_to_heads: {hd} columns in {n_heads} heads")
+    d = hd // n_heads
+    out = torch.empty((b, n_heads, s, d), dtype=x.dtype, device=x.device)
+    _repack_cuda("sdt_repack_to_heads", x, out, b, s, n_heads, d)
+    to_heads_launches += 1
+    return out
+
+
+def repack_from_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, D] -> [B, S, H*D], a copy in x's dtype (B12,
+    ``csrc/repack_heads.cu``)."""
+    global from_heads_launches
+    if x.device.type == "cpu":
+        return repack_from_heads_ref(x)
+    _check_same("repack_from_heads", (x,), (x.dtype,), 4)
+    b, h, s, d = x.shape
+    out = torch.empty((b, s, h * d), dtype=x.dtype, device=x.device)
+    _repack_cuda("sdt_repack_from_heads", x, out, b, s, h, d)
+    from_heads_launches += 1
+    return out
+
+
+def _self_attention_nt(q, k, v, sm_scale: float, dtype) -> torch.Tensor:
+    """The nt layout of ``self_attention``: zero-pad S to the 512 grid,
+    split the heads (B11 with ``SDT_ATTN_REPACK=1``, else transposes), B9
+    with the padded keys masked, merge the heads, drop the padded rows."""
+    b, s, h, d = q.shape
+    s_pad = -(-s // BLOCK) * BLOCK
+    valid = s if s_pad != s else None
+    if s_pad != s:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, s_pad - s)) for t in (q, k, v))
+    if os.environ.get("SDT_ATTN_REPACK") == "1":
+        # the JAX package repacks before the cast
+        qf, kf, vf = (repack_to_heads(t.reshape(b, s_pad, h * d)
+                                      .contiguous(), h)
+                      .reshape(b * h, s_pad, d).to(dtype) for t in (q, k, v))
+        out = attention_nt(qf, kf, vf, sm_scale, valid)
+        out = repack_from_heads(out.reshape(b, h, s_pad, d))
+        return out[:, :s].reshape(b, s, h, d)
+    qf, kf, vf = (t.permute(0, 2, 1, 3).contiguous().reshape(b * h, s_pad, d)
+                  .to(dtype) for t in (q, k, v))
+    out = attention_nt(qf, kf, vf, sm_scale, valid)
+    return out.reshape(b, h, s_pad, d).permute(0, 2, 1, 3)[:, :s]
+
+
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    sm_scale: float) -> torch.Tensor:
     """Unmasked self-attention over [B, S, H, D]; returns [B, S, H, D] in
-    v's dtype. A wide head (D > 256, S % 512 == 0) takes the q-chunked
-    plain path on any device. Otherwise bf16 with ``SDT_INT8_ATTN=1``
-    takes the int8-QK^T form, the rest the bf16/f32 kernel: a CUDA tensor
-    launches the kernel, a CPU tensor takes the plain version."""
+    v's dtype, computed in bf16 if v is bf16, else in f32. The JAX
+    package's branches, in its order:
+
+    1. a wide head (D > 256, S % 512 == 0): the q-chunked plain path;
+    2. ``SDT_FLASH2_LAYOUT=bshd`` and S % 512 == 0: B10;
+    3. ``SDT_FLASH2_LAYOUT=nt``: B9 on head-major copies (B11/B12 for the
+       head split with ``SDT_ATTN_REPACK=1``), never int8;
+    4. otherwise (bhsd): B8 for bf16 with ``SDT_INT8_ATTN=1``, else B1.
+
+    Each kernel's wrapper launches it for CUDA tensors and takes its plain
+    version for CPU tensors."""
     b, s, h, d = q.shape
-    if d > 256 and s % 512 == 0:
-        return chunked_attention(q, k, v, sm_scale)
-    # the JAX package's dispatch: int8-QK^T for bf16 only, f32 bypasses it
-    quant = (os.environ.get("SDT_INT8_ATTN") == "1"
-             and v.dtype == torch.bfloat16)
+    out_dtype = v.dtype
+    dtype = torch.bfloat16 if v.dtype == torch.bfloat16 else torch.float32
+    layout = os.environ.get("SDT_FLASH2_LAYOUT", "bhsd")
+    if d > 256 and s % BLOCK == 0:
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        return chunked_attention(q, k, v, sm_scale).to(out_dtype)
+    if layout == "bshd" and s % BLOCK == 0:
+        q, k, v = (t.to(dtype).contiguous() for t in (q, k, v))
+        return attention_bshd(q, k, v, sm_scale).to(out_dtype)
+    quant = (os.environ.get("SDT_INT8_ATTN") == "1" and layout != "nt"
+             and dtype == torch.bfloat16)
+    if layout == "nt":
+        return _self_attention_nt(q, k, v, sm_scale, dtype).to(out_dtype)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
     if q.device.type == "cpu":
-        return (attention_i8_ref if quant else attention_ref)(q, k, v,
-                                                              sm_scale)
-    return (_self_attention_i8_cuda if quant else _self_attention_cuda)(
-        q, k, v, sm_scale)
+        out = (attention_i8_ref if quant else attention_ref)(q, k, v,
+                                                             sm_scale)
+    else:
+        out = (_self_attention_i8_cuda if quant else _self_attention_cuda)(
+            q, k, v, sm_scale)
+    return out.to(out_dtype)
 
 
 def flops(b: int, s: int, h: int, d: int) -> int:

@@ -1,14 +1,15 @@
 """The sampling loops: SD-v1.x (CFG / SLD guidance, the repellency hook on
-x0 inside a timestep or step window, the DDPM step) and SD3 (CFG, the
-flow-match Euler step, the safe denoiser's renoising inside the window).
+x0 inside a timestep or step window, the DDPM or DDIM step) and SD3 (CFG,
+the flow-match Euler step, the safe denoiser's renoising inside the
+window).
 
 Counterpart of ``safe_denoiser_tpu/pipeline/sampler.py::sample_sd`` and
 ``sample_sd3``. The ``lax.scan`` becomes a Python step loop; the
 ``lax.cond`` around the repellency hook becomes a host ``if``, so outside
 the window the bank is never read. Noise is injected: ``noise_fn(i,
 salt)`` returns the step's noise ([B, C, H, W]; salt 1 = the repellency
-renoise, 2 = the DDPM step), so tests can feed the JAX package's stream
-and the pipelines their own per-seed generators.
+renoise, 2 = the scheduler's step), so tests can feed the JAX package's
+stream and the pipelines their own per-seed generators.
 """
 
 from __future__ import annotations
@@ -87,6 +88,8 @@ def _repellency_hook(scheduler, eps, t: int, latents, refs, rep_cfg,
                      noise):
     """Tweedie x0 -> repellency -> renoise -> replace where negated."""
     x0 = scheduler.pred_original_sample(eps, t, latents)
+    if isinstance(x0, tuple):       # DDIM returns (x0, eps)
+        x0 = x0[0]
     x0_rep, is_neg = apply_repellency(x0, refs, rep_cfg)
     renoised = scheduler.add_noise(x0_rep, noise, t)
     return (torch.where(is_neg[:, None, None, None], renoised, latents),

@@ -1,7 +1,8 @@
 """The port's kernels on the GPU against their plain versions, at shapes
 and layouts the main path of chip_smoke.py does not reach: sequence tails,
 other head dims, strided and unaligned rows, the f32 attention path, the
-int8-QK^T kernel's rounding ties and zero rows, small and odd banks, odd
+int8-QK^T kernel's rounding ties and zero rows, the layout kernels (nt,
+bshd, the head repacks) and their switches, small and odd banks, odd
 image sizes, channel counts that are not a tile's.
 
 Every test is marked ``cuda`` and skips where no GPU is visible. On a GPU
@@ -94,18 +95,26 @@ def test_attention_kernel_masks_the_key_tail(dev, s, d):
 
 
 def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    """B1's wrapper raises; the dispatch in front of it casts to the
+    compute dtype first (f32 unless v is bf16), as the JAX package, so
+    f16 or mixed inputs reach the kernel in f32."""
     ops.reset_launch_counts()
     x = torch.randn(1, 512, 2, 40, device=dev)
     with pytest.raises(ValueError):
-        attention.self_attention(x.half(), x.half(), x.half(), 0.1)
+        attention._self_attention_cuda(x.half(), x.half(), x.half(), 0.1)
     with pytest.raises(ValueError):
-        attention.self_attention(x, x.bfloat16(), x, 0.1)
+        attention._self_attention_cuda(x, x.bfloat16(), x, 0.1)
     with pytest.raises(ValueError):
         attention.self_attention(x, x.transpose(1, 2).contiguous()
                                  .transpose(1, 2), x, 0.1)
     with pytest.raises(ValueError):
         attention.self_attention(x, x, x.cpu(), 0.1)
     assert ops.launch_counts()["attention"] == 0
+    got = attention.self_attention(x.half(), x.half(), x.half(), 0.1)
+    assert got.dtype == torch.float16 and ops.launch_counts()["attention"] == 1
+    torch.testing.assert_close(
+        got.float(), attention.attention_ref(*(x.half().float(),) * 3, 0.1),
+        atol=1e-3, rtol=0)
 
 
 def test_attention_kernel_at_the_sd3_joint_shape(dev):
@@ -239,6 +248,164 @@ def test_int8_switch_routes_bf16_only(dev, monkeypatch):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert (counts["attention_i8"], counts["attention"]) == (1, 1)
+
+
+# ------------------------------------------------- attention layout kernels
+def _close(got, want, dtype):
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL,
+                                   rtol=0)
+    else:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("bh,s,d,valid", [
+    (4, 512, 40, None), (2, 1024, 64, 600), (3, 1024, 80, 1000),
+    (2, 520, 128, None), (1, 512, 160, 300), (1, 512, 256, 512),
+    (2, 512, 20, 450)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_nt_kernel_matches_plain(dev, bh, s, d, valid, dtype):
+    """B9 on head-major [BH, S, D] against its plain version on the same
+    values: keys past valid_kv are the zero rows of a padded sequence (and
+    masked), S=520 ends in a partial key tile, D=20 takes the 2-byte
+    loads."""
+    g = _gen(20)
+    q, k, v = (torch.randn(bh, s, d, device=dev, generator=g).to(dtype)
+               for _ in range(3))
+    if valid is not None:
+        k[:, valid:] = 0
+        v[:, valid:] = 0
+    got = attention.attention_nt(q, k, v, d ** -0.5, valid)
+    want = attention.attention_nt_ref(q.float(), k.float(), v.float(),
+                                      d ** -0.5, valid)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, s, d)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("s,d", [(600, 40), (1000, 80), (4429, 64)])
+def test_attention_nt_kernel_masks_the_key_tail(dev, monkeypatch, s, d):
+    """Through the nt dispatch (S padded to the 512 grid, valid_kv = S):
+    every real logit negative (q >= 0, k <= 0), so a padded zero key,
+    whose logit is 0, would outweigh the real keys if it were weighed."""
+    monkeypatch.setenv("SDT_FLASH2_LAYOUT", "nt")
+    monkeypatch.delenv("SDT_ATTN_REPACK", raising=False)
+    g = _gen(21)
+    shape = (1, s, 2, d)
+    q = torch.randn(shape, device=dev, generator=g).abs().bfloat16()
+    k = -torch.randn(shape, device=dev, generator=g).abs().bfloat16()
+    v = torch.randn(shape, device=dev, generator=g).bfloat16()
+    ops.reset_launch_counts()
+    got = attention.self_attention(q, k, v, d ** -0.5)
+    want = attention.attention_ref(q.float(), k.float(), v.float(),
+                                   d ** -0.5)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["attention_nt"] == 1
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,s,h,d", [
+    (1, 512, 2, 40), (2, 1024, 8, 80), (1, 512, 8, 40), (1, 512, 3, 64),
+    (1, 1024, 6, 48), (1, 512, 5, 24), (1, 512, 2, 128), (1, 512, 2, 160),
+    (1, 512, 1, 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_bshd_kernel_matches_plain(dev, b, s, h, d, dtype):
+    """B10 on natural [B, S, H, D] against its plain version: head groups
+    of 4 (H=8), 3 (H=6), 1 (H=5, a prime above the group size), the wide
+    heads one at a time, D=24 with its zero-padded slice."""
+    g = _gen(22)
+    q, k, v = (torch.randn(b, s, h, d, device=dev, generator=g).to(dtype)
+               for _ in range(3))
+    got = attention.attention_bshd(q, k, v, d ** -0.5)
+    want = attention.attention_ref(q.float(), k.float(), v.float(),
+                                   d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s, h, d)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("b,s,h,d,dtype", [
+    (2, 600, 2, 40, torch.bfloat16), (2, 600, 2, 40, torch.float32),
+    (1, 600, 3, 20, torch.bfloat16), (1, 600, 3, 20, torch.float16),
+    (2, 4608, 24, 64, torch.bfloat16), (1, 600, 5, 3, torch.float32)])
+def test_repack_kernels_are_bit_exact(dev, b, s, h, d, dtype):
+    """B11/B12 against the plain versions and the library transposes,
+    torch.equal: S=600 (no tile multiple), 40-byte head slices (the
+    element path), SD3's joint shape, 12-byte f32 slices."""
+    x = torch.randn(b, s, h * d, device=dev, generator=_gen(23)).to(dtype)
+    heads = attention.repack_to_heads(x, h)
+    torch.cuda.synchronize()
+    assert torch.equal(heads, attention.repack_to_heads_ref(x, h))
+    assert torch.equal(heads, x.view(b, s, h, d).transpose(1, 2).contiguous())
+    back = attention.repack_from_heads(heads)
+    torch.cuda.synchronize()
+    assert torch.equal(back, attention.repack_from_heads_ref(heads))
+    assert torch.equal(back, x)
+
+
+def test_layout_wrappers_reject_what_the_kernels_do_not_take(dev):
+    ops.reset_launch_counts()
+    x = torch.randn(2, 512, 40, device=dev).bfloat16()
+    for args in ((x.half(), x.half(), x.half(), 0.1),          # dtype
+                 (x, x.float(), x, 0.1),                       # mixed
+                 (x.transpose(0, 1).contiguous().transpose(0, 1), x, x, 0.1),
+                 (x, x, x[:1], 0.1),                           # shapes
+                 (x, x, x.cpu(), 0.1),                         # devices
+                 (x, x, x, 0.1, 0), (x, x, x, 0.1, 513)):      # valid_kv
+        with pytest.raises(ValueError):
+            attention.attention_nt(*args)
+    wide = torch.randn(1, 512, 264, device=dev).bfloat16()
+    with pytest.raises(ValueError):
+        attention.attention_nt(wide, wide, wide, 0.1)
+    y = torch.randn(1, 600, 2, 40, device=dev).bfloat16()
+    z = torch.randn(1, 512, 2, 40, device=dev).bfloat16()
+    for args in ((y, y, y, 0.1), (z, z, z.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), 0.1),
+                 (z.half(), z.half(), z.half(), 0.1)):
+        with pytest.raises(ValueError):
+            attention.attention_bshd(*args)
+    r = torch.randn(1, 512, 80, device=dev).bfloat16()
+    for fn, arg in ((lambda t: attention.repack_to_heads(t, 3), r),
+                    (lambda t: attention.repack_to_heads(t, 2), r[:, ::2]),
+                    (lambda t: attention.repack_to_heads(t, 2), r.double()),
+                    (attention.repack_from_heads,
+                     r.view(1, 512, 2, 40).transpose(1, 2))):
+        with pytest.raises(ValueError):
+            fn(arg)
+    counts = ops.launch_counts()
+    assert all(counts[n] == 0 for n in ("attention_nt", "attention_bshd",
+                                        "repack_to_heads",
+                                        "repack_from_heads"))
+
+
+@pytest.mark.parametrize("layout,repack,s,int8,want", [
+    ("nt", "0", 600, True, {"attention_nt": 1}),
+    ("nt", "1", 600, True, {"attention_nt": 1, "repack_to_heads": 3,
+                            "repack_from_heads": 1}),
+    ("bshd", "0", 512, True, {"attention_bshd": 1}),
+    ("bshd", "0", 600, True, {"attention_i8": 1}),
+    ("bshd", "0", 600, False, {"attention": 1})])
+def test_layout_switches_launch_their_kernels(dev, monkeypatch, layout,
+                                              repack, s, int8, want):
+    """The JAX package's branches on the GPU: each switch combination
+    launches exactly its kernels, and the result is its plain version's
+    (the int8-QK^T form's where B8 runs)."""
+    monkeypatch.setenv("SDT_FLASH2_LAYOUT", layout)
+    monkeypatch.setenv("SDT_ATTN_REPACK", repack)
+    monkeypatch.setenv("SDT_INT8_ATTN", "1" if int8 else "0")
+    g = _gen(24)
+    q, k, v = (torch.randn(2, s, 3, 64, device=dev, generator=g).bfloat16()
+               for _ in range(3))
+    ops.reset_launch_counts()
+    got = attention.self_attention(q, k, v, 0.125)
+    plain = (attention.attention_i8_ref if "attention_i8" in want
+             else attention.attention_ref)
+    want_out = plain(q.float(), k.float(), v.float(), 0.125)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.launch_counts().items() if c} == want
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want_out, atol=ATTN_BF16_TOL,
+                               rtol=0)
 
 
 # --------------------------------------------------------------------- rbf
@@ -484,7 +651,10 @@ def test_each_wrapper_call_counts_one_launch(dev):
     conv3x3.conv3x3(torch.randn(1, 8, 16, 128, device=dev).bfloat16(),
                     torch.randn(128, 128, 3, 3, device=dev).bfloat16())
     group_norm.gn_stats(torch.randn(1, 16384, 128, device=dev))
+    y = x.reshape(2, 512, 40).contiguous()
+    attention.attention_nt(y, y, y, 0.1)
+    attention.attention_bshd(x, x, x, 0.1)
+    attention.repack_from_heads(attention.repack_to_heads(
+        x.reshape(1, 512, 80), 2))
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"attention": 1, "attention_i8": 1,
-                                   "rbf": 1, "conv3x3_up": 1, "conv3x3": 1,
-                                   "gn_stats": 1}
+    assert set(ops.launch_counts().values()) == {1}

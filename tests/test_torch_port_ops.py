@@ -233,6 +233,10 @@ def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
     t_attn.self_attention(x, x, x, 0.1)
     monkeypatch.setenv("SDT_INT8_ATTN", "1")     # the int8-QK^T form
     t_attn.self_attention(x.bfloat16(), x.bfloat16(), x.bfloat16(), 0.1)
+    for layout, repack in (("nt", "0"), ("nt", "1"), ("bshd", "0")):
+        monkeypatch.setenv("SDT_FLASH2_LAYOUT", layout)
+        monkeypatch.setenv("SDT_ATTN_REPACK", repack)
+        t_attn.self_attention(x, x, x, 0.1)
     t_rep.rbf_negative_score(torch.randn(2, 128), torch.randn(5, 128), 3.0)
     t_conv.conv3x3_up(torch.randn(1, 16, 16, 128).bfloat16(),
                       torch.randn(128, 128, 3, 3).bfloat16())
@@ -240,7 +244,10 @@ def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
                    torch.randn(128, 128, 3, 3).bfloat16())
     t_gn.gn_stats(torch.randn(1, 16384, 128))
     assert ops.launch_counts() == {"attention": 0, "attention_i8": 0,
-                                   "rbf": 0, "conv3x3_up": 0, "conv3x3": 0,
+                                   "attention_nt": 0, "attention_bshd": 0,
+                                   "repack_to_heads": 0,
+                                   "repack_from_heads": 0, "rbf": 0,
+                                   "conv3x3_up": 0, "conv3x3": 0,
                                    "gn_stats": 0}
 
 
@@ -249,12 +256,19 @@ def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
                                     x((1, 512, 2, 40)), 0.1),
     lambda x: t_attn._self_attention_i8_cuda(
         x((1, 512, 2, 40)), x((1, 512, 2, 40)), x((1, 512, 2, 40)), 0.1),
+    lambda x: t_attn.attention_nt(x((2, 512, 40)), x((2, 512, 40)),
+                                  x((2, 512, 40)), 0.1, 500),
+    lambda x: t_attn.attention_bshd(x((1, 512, 2, 40)), x((1, 512, 2, 40)),
+                                    x((1, 512, 2, 40)), 0.1),
+    lambda x: t_attn.repack_to_heads(x((1, 512, 80)), 2),
+    lambda x: t_attn.repack_from_heads(x((1, 2, 512, 40))),
     lambda x: t_rep.rbf_negative_score(x((2, 128)), x((5, 128)), 3.0),
     lambda x: t_conv.conv3x3_up(x((1, 16, 16, 128)), x((128, 128, 3, 3))),
     lambda x: t_conv.conv3x3(x((1, 8, 16, 128)), x((128, 128, 3, 3))),
     lambda x: t_gn.gn_stats(x((1, 16384, 128)))],
-    ids=["attention", "attention_i8", "rbf", "conv3x3_up", "conv3x3",
-         "gn_stats"])
+    ids=["attention", "attention_i8", "attention_nt", "attention_bshd",
+         "repack_to_heads", "repack_from_heads", "rbf", "conv3x3_up",
+         "conv3x3", "gn_stats"])
 def test_non_cpu_tensors_never_take_the_plain_version(call):
     """No fallback: only a CPU tensor takes the plain version. A tensor on
     any other device goes to the kernel's wrapper, which raises here (no
