@@ -9,9 +9,10 @@ Phases, each of which ends the run with a non-zero exit code on failure:
   2. build: nvcc builds the CUDA kernels from csrc/ (Triton compiles its
      kernel at first launch);
   3. kernel checks: each kernel at the main path's shapes (and B4/B5 also
-     at the runner's bank-encode shapes; B9/B10 also in f32) against its
-     plain PyTorch version, with its time, the plain version's, a library
-     call's where one exists, and the bound the card could reach;
+     at the runner's bank-encode shapes; B9/B10 also in f32; B7 beside B3)
+     against its plain PyTorch version, with its time, the plain
+     version's, a library call's where one exists, and the bound the card
+     could reach;
   4. main path: the tiny f32 slice on cuda against the CPU, at 8^2 latents
      and at 32^2 (S = 1024) under each attention layout (bhsd, nt, nt with
      the head repacks, bshd: SDT_FLASH2_LAYOUT / SDT_ATTN_REPACK), then
@@ -32,6 +33,17 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      width on phase 4's modules -- 4 prompts, 512x512, CFG 7.5, kernel_fast
      in [1000, 780] -- under bhsd, nt with the repacks and bshd; stage
      times and launch counts;
+  6c. the same DDIM configuration under SDT_FUSED_GN=1 and
+     SDT_UP_FORM=interleave: the UNet's GroupNorms on the fused GroupNorm
+     kernel (B6) where the JAX gate admits them, the VAE decoder's
+     upsamples on the interleaved upsample conv (B7); launches asserted
+     exactly (B6 570, B5 60, B3 10, B7 3, B4 28, B1 100, B2 2);
+  6d. SD-v1's text-side erasure at full width on phase 4's modules, 4
+     prompts x 512^2 x 50 steps through dispatch_batch: sld_rep (SLD
+     STRONG), safree_rep with SAFREE and its self-validation filter,
+     std_rep with latent re-attention and the SafeGuard filters; finite
+     images, stage times, launch counts. Phase 6's runner also runs
+     --erase_id sld_rep on 2 cases under the two switches of 6c;
   7. SD3: SafeDiffusion3Pipeline on cuda at full SD3-medium width and
      depth with seeded random weights (CLIP-L, CLIP-bigG, T5-XXL, the
      24-block MMDiT, the 16-channel VAE) -- 1 prompt, 1024x1024, 50
@@ -39,7 +51,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      [16,16,128,128] bank in [1000, 780] -- three times: bf16 (attention
      kernel), bf16 under nt with the repacks (B9, B11, B12), and with
      enable_int8() and SDT_INT8_ATTN=1 (W8A8 MMDiT, int8-QK^T attention
-     kernel); stage times, images and launch counts;
+     kernel); stage times, images and launch counts; then the bf16 latents
+     decoded again under SDT_UP_FORM=interleave (B7 3, B3 0);
   8. SD3 runner: ``safe_denoiser_tpu_torch.runners.sdv3.main_nudity`` with
      --int8 and SDT_INT8_ATTN=1 on an HF-layout checkpoint at the published
      widths (depth cut: MMDiT 6 of 24 blocks, T5 2 of 24, bigG 4 of 32), 16
@@ -54,6 +67,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -81,7 +95,8 @@ PEAK_BYTES = 3.35e12
 EXPECTED_LAUNCHES = {"attention": 500, "rbf": 11, "conv3x3_up": 53,
                      "conv3x3": 28, "gn_stats": 180, "attention_i8": 0,
                      "attention_nt": 0, "attention_bshd": 0,
-                     "repack_to_heads": 0, "repack_from_heads": 0}
+                     "repack_to_heads": 0, "repack_from_heads": 0,
+                     "conv3x3_up_interleave": 0, "gn_fused": 0}
 # the decode measured with cuDNN resnet convs before the fused conv (PERF.md)
 DECODE_MS_CUDNN = "51.07-51.99"
 
@@ -93,7 +108,11 @@ DECODE_MS_CUDNN = "51.07-51.99"
 RUNNER_CASES, RUNNER_BANK, RUNNER_N_EMBED = 4, 32, 16
 RUNNER_LAUNCHES = {"attention": 2000, "rbf": 40, "conv3x3_up": 212,
                    "conv3x3": 2 * 20 + 4 * 28, "gn_stats": 600 + 120 + 44,
-                   "attention_i8": 0}
+                   "attention_i8": 0, "conv3x3_up_interleave": 0,
+                   "gn_fused": 0}
+# the runner's second run: sld_rep (SLD STRONG's 3-branch batch, window
+# [1000, 780]) on 2 of the CSV's cases under FUSED_SWITCHES
+RUNNER_SLD_CASES = 2
 
 # SD3 (bench.py's sd3 legs: SD3-medium, 1 prompt with CFG, 1024^2, 50
 # flow-match steps, CFG 2.5, kernel_fast against a 16-latent bank)
@@ -128,6 +147,18 @@ ATTN_KERNELS = ("attention", "attention_i8", "attention_nt",
 # sd14_10step_ddim): 4 prompts, 512^2, CFG 7.5, kernel_fast in [1000, 780]
 DDIM_STEPS = 10
 DDIM_LAYOUTS = ("bhsd", "nt+repack", "bshd")
+# the two switches that route to B6 and B7 (off by default, as in the JAX
+# package)
+FUSED_SWITCHES = {"SDT_FUSED_GN": "1", "SDT_UP_FORM": "interleave"}
+# phase 6d: the SD-v1 erasure methods at full width, each (erase id,
+# safree_dict, SLD level, FreeU hyperparameters b1, b2, s1, s2 or None);
+# the FreeU set is the runner's default --freeu_hyp
+ERASURE_RUNS = {
+    "sld_rep": ("sld_rep", {}, "STRONG", None),
+    "safree_rep+svf": ("safree_rep", {"safree": True, "svf": True}, None,
+                       None),
+    "std_rep+lra": ("std_rep", {"lra": True}, None, (1.0, 1.0, 0.9, 0.2)),
+}
 
 
 def attention_launches(layout: str, n: int, int8: bool = False) -> dict:
@@ -148,13 +179,17 @@ def attention_launches(layout: str, n: int, int8: bool = False) -> dict:
     return counts
 
 
-@contextlib.contextmanager
 def layout_env(layout: str):
-    """Set the layout switches for a run and restore them after it, so
-    later phases see the default layout."""
-    names = ("SDT_FLASH2_LAYOUT", "SDT_ATTN_REPACK")
-    saved = {k: os.environ.pop(k, None) for k in names}
-    os.environ.update(LAYOUTS[layout])
+    """The attention layout switches of ``layout`` for a run."""
+    return switches(LAYOUTS[layout], ("SDT_FLASH2_LAYOUT", "SDT_ATTN_REPACK"))
+
+
+@contextlib.contextmanager
+def switches(env: dict, names=()):
+    """Set the switches of ``env`` (and clear those in ``names``) for a run,
+    and restore them after it, so later phases see the defaults."""
+    saved = {k: os.environ.pop(k, None) for k in (*names, *env)}
+    os.environ.update(env)
     try:
         yield
     finally:
@@ -220,33 +255,44 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
 def vae_kernel_plan(cfg, b: int, h: int, w: int, part: str = "decoder"):
     """The port's kernel launches in one bf16 VAE decode of [b, C, h, w]
     latents (or encode of [b, 3, h, w] images), derived from its routing
-    predicates over the module structure: a resnet takes the fused conv
-    (B4) for both convs when ``conv3x3.supports`` holds at both, else each
-    conv that it takes; an upsample takes B3 where ``supports_up`` holds,
-    else B4 on the upsampled input where that is supported; every bf16
-    GroupNorm takes B5 where its statistics gate passes. Returns (counts,
-    shapes): shapes per kernel as (b, h, w, c) for conv3x3_up, (b, h, w,
-    ci, co, residual) for conv3x3 and (b, s, c) for gn_stats."""
+    predicates over the module structure as the switches stand: a resnet
+    takes the fused conv (B4) for both convs when ``conv3x3.supports``
+    holds at both (its GroupNorms then give statistics only), else each
+    conv that it takes; an upsample takes B3 (B7 under
+    SDT_UP_FORM=interleave) where ``supports_up`` holds, else B4 on the
+    upsampled input where that is supported; a GroupNorm that normalizes
+    takes B6 where ``takes_fused_kernel`` holds, and otherwise, as the
+    statistics-only ones, B5 where ``takes_stats_kernel`` holds. Returns
+    (counts, shapes): shapes per kernel as (b, h, w, c) for the upsample
+    convs, (b, h, w, ci, co, residual) for conv3x3 and (b, s, c) for the
+    GroupNorm kernels."""
     from safe_denoiser_tpu_torch.ops import conv3x3 as c3
     from safe_denoiser_tpu_torch.ops import group_norm as gn
 
-    counts = {"conv3x3_up": 0, "conv3x3": 0, "gn_stats": 0}
+    up = ("conv3x3_up_interleave"
+          if os.environ.get("SDT_UP_FORM", "planar") == "interleave"
+          else "conv3x3_up")
+    counts = {"conv3x3_up": 0, "conv3x3_up_interleave": 0, "conv3x3": 0,
+              "gn_stats": 0, "gn_fused": 0}
     shapes = {k: [] for k in counts}
+    groups = cfg.norm_num_groups
 
     def add(kind, shape):
         counts[kind] += 1
         if shape not in shapes[kind]:
             shapes[kind].append(shape)
 
-    def norm(hh, ww, c):
-        if gn.takes_stats_kernel(hh * ww, c):
+    def norm(hh, ww, c, coefs_only=False):
+        if not coefs_only and gn.takes_fused_kernel(hh * ww, c, groups):
+            add("gn_fused", (b, hh * ww, c))
+        elif gn.takes_stats_kernel(hh * ww, c):
             add("gn_stats", (b, hh * ww, c))
 
     def resnet(ci, co, hh, ww):
-        norm(hh, ww, ci)
-        norm(hh, ww, co)
         fused = (c3.supports((b, hh, ww, ci), ci, co)
                  and c3.supports((b, hh, ww, co), co, co))
+        norm(hh, ww, ci, fused)
+        norm(hh, ww, co, fused)
         if fused or c3.supports((b, hh, ww, ci), ci, co):
             add("conv3x3", (b, hh, ww, ci, co, False))
         if fused or c3.supports((b, hh, ww, co), co, co):
@@ -277,12 +323,60 @@ def vae_kernel_plan(cfg, b: int, h: int, w: int, part: str = "decoder"):
             ci = ch
             if i < len(chans) - 1:
                 if c3.supports_up((b, h, w, ch), ch, ch):
-                    add("conv3x3_up", (b, h, w, ch))
+                    add(up, (b, h, w, ch))
                 elif c3.supports((b, 2 * h, 2 * w, ch), ch, ch):
                     add("conv3x3", (b, 2 * h, 2 * w, ch, ch, False))
                 h, w = 2 * h, 2 * w
     norm(h, w, chans[-1])              # conv_norm_out
     return counts, shapes
+
+
+def unet_norm_shapes(cfg, h: int, w: int) -> list:
+    """(S, C, groups) of every GroupNorm in one forward of the UNet of
+    ``cfg`` at h x w latents, in the order it runs them: each resnet's
+    norm1 (its input, skip included on the up path) and norm2, each
+    transformer's norm, conv_norm_out."""
+    chans, g = list(cfg.block_out_channels), cfg.norm_num_groups
+    n, per = len(chans), cfg.layers_per_block
+    out, skips, ci = [], [chans[0]], chans[0]
+    for i, ch in enumerate(chans):
+        for _ in range(per):
+            out += [(h * w, ci, g), (h * w, ch, g)]
+            if i < n - 1:
+                out.append((h * w, ch, g))
+            skips.append(ch)
+            ci = ch
+        if i < n - 1:
+            h, w = (h + 1) // 2, (w + 1) // 2
+            skips.append(ch)
+    mid = chans[-1]
+    out += [(h * w, mid, g)] * 5                 # resnet, attention, resnet
+    prev = mid
+    for i, ch in enumerate(reversed(chans)):
+        for _ in range(per + 1):
+            out += [(h * w, prev + skips.pop(), g), (h * w, ch, g)]
+            if i > 0:
+                out.append((h * w, ch, g))
+            prev = ch
+        if i < n - 1:
+            h, w = 2 * h, 2 * w
+    return out + [(h * w, chans[0], g)]
+
+
+def unet_gn_launches(cfg, h: int, w: int) -> dict:
+    """B6 and B5 launches of one bf16 UNet step, from the GroupNorm gates
+    as the switches stand: the fused kernel where ``takes_fused_kernel``
+    holds, else the plain form, whose statistics take B5 where
+    ``takes_stats_kernel`` holds."""
+    from safe_denoiser_tpu_torch.ops import group_norm as gn
+
+    counts = {"gn_fused": 0, "gn_stats": 0}
+    for s, c, g in unet_norm_shapes(cfg, h, w):
+        if gn.takes_fused_kernel(s, c, g):
+            counts["gn_fused"] += 1
+        elif gn.takes_stats_kernel(s, c):
+            counts["gn_stats"] += 1
+    return counts
 
 
 def phase_env() -> str:
@@ -733,6 +827,84 @@ def phase_kernels() -> dict:
             results["gn_stats"] = dict(err=err, ms=ms, plain=plain, lib=lib,
                                        bound=bnd)
         results["gn_stats"]["err"] = max(results["gn_stats"]["err"], err)
+
+    # B7 interleaved upsample conv at the VAE decoders' upsamples (SD-v1 at
+    # batch 4, then SD3's at 1), against the plain version in f32 on the
+    # same bf16 values within B3's bound (5e-2); timed beside B3 on the same
+    # inputs; bound and library as B3's
+    for b, h2, w2, c in ((4, 64, 64, 512), (4, 128, 128, 512),
+                         (4, 256, 256, 256), *sd3["conv3x3_up"]):
+        hh = torch.randn(b, h2, w2, c, device=dev,
+                         generator=g).to(torch.bfloat16)
+        w = (torch.randn(c, c, 3, 3, device=dev, generator=g)
+             / (9 * c) ** 0.5).to(torch.bfloat16)
+        bias = torch.randn(c, device=dev, generator=g).to(torch.bfloat16)
+        packed = conv3x3.pack_weights(w, bias)
+        out = conv3x3.conv3x3_up(hh, w, bias, packed, form="interleave")
+        want = conv3x3.conv3x3_up_ref(hh.float(), w.float(), bias.float())
+        torch.cuda.synchronize()
+        err = (out.float() - want).abs().max().item()
+        del out, want
+        ms = cuda_ms(lambda: conv3x3.conv3x3_up(hh, w, bias, packed,
+                                                form="interleave"))
+        b3 = cuda_ms(lambda: conv3x3.conv3x3_up(hh, w, bias, packed))
+        plain = cuda_ms(lambda: conv3x3.conv3x3_up_ref(hh, w, bias), reps=3)
+        hn = hh.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        lib = cuda_ms(lambda: F.conv2d(
+            F.interpolate(hn, scale_factor=2, mode="nearest"), w, bias,
+            padding=1))
+        bnd = bound_ms((b * h2 * w2 * c + c * c * 9 + c
+                        + b * 4 * h2 * w2 * c) * 2,
+                       conv3x3.flops(b, h2, w2, c, c), PEAK_BF16)
+        _report("conv3x3_up_interleave", [b, h2, w2, c, c], err, 5e-2, ms,
+                plain, lib, bnd, f"F.interpolate + F.conv2d, two calls; B3 "
+                f"{b3:.4f} ms, B7/B3 {ms / b3:.3f}")
+        del hn
+        if "conv3x3_up_interleave" not in results:
+            results["conv3x3_up_interleave"] = dict(err=err, ms=ms,
+                                                    plain=plain, lib=lib,
+                                                    bound=bnd)
+        results["conv3x3_up_interleave"]["err"] = max(
+            results["conv3x3_up_interleave"]["err"], err)
+
+    # B6 fused GroupNorm + SiLU, [B,S,C] at the UNet's admitted shapes with
+    # 32 groups (the largest, a 1280-wide one, the 2560-wide one at S = 64)
+    # in bf16, then the first in f32; x ~ N(1, 2^2). Against the plain
+    # version on the same values: bf16 within one bf16 ulp of max|y| (the
+    # same f32 value may round to a neighbouring bf16 value), f32 within
+    # 1e-4 (sums in another order). Library: F.group_norm + F.silu on the
+    # channels_last NCHW view. Bound: one read and one write of x.
+    for b, s, c, dtype in ((8, 4096, 320, torch.bfloat16),
+                           (8, 1024, 1280, torch.bfloat16),
+                           (8, 64, 2560, torch.bfloat16),
+                           (8, 4096, 320, torch.float32)):
+        xx = (torch.randn(b, s, c, device=dev, generator=g) * 2 + 1).to(dtype)
+        sc = 1 + 0.2 * torch.randn(c, device=dev, generator=g)
+        bi = 0.5 * torch.randn(c, device=dev, generator=g)
+        out = group_norm.group_norm_fused(xx, sc, bi, 32, 1e-5, "silu")
+        want = group_norm.group_norm_fused_ref(xx, sc, bi, 32, 1e-5, "silu")
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        tol = (2.0 ** (math.floor(math.log2(top)) - 7)
+               if dtype == torch.bfloat16 else 1e-4)
+        ms = cuda_ms(lambda: group_norm.group_norm_fused(xx, sc, bi, 32,
+                                                         1e-5, "silu"))
+        plain = cuda_ms(lambda: group_norm.group_norm_fused_ref(
+            xx, sc, bi, 32, 1e-5, "silu"))
+        side = int(round(s ** 0.5))
+        xn = xx.view(b, side, side, c).permute(0, 3, 1, 2)
+        scd, bid = sc.to(dtype), bi.to(dtype)
+        lib = cuda_ms(lambda: F.silu(F.group_norm(xn, 32, scd, bid, 1e-5)))
+        bnd = bound_ms(2 * xx.nbytes + 2 * c * 4, 0, PEAK_F32)
+        _report("gn_fused", [b, s, c, str(dtype)[6:]], err, tol, ms, plain,
+                lib, bnd, "F.silu(F.group_norm) on the NCHW view")
+        if "gn_fused" not in results:
+            results["gn_fused"] = dict(err=err, ms=ms, plain=plain, lib=lib,
+                                       bound=bnd)
+        if dtype == torch.bfloat16:
+            results["gn_fused"]["err"] = max(results["gn_fused"]["err"], err)
     return results
 
 
@@ -760,6 +932,11 @@ KERNEL_META = {
                 "safe_denoiser_tpu/ops/conv3x3.py:52"),
     "gn_stats": ("triton", "safe_denoiser_tpu_torch/ops/group_norm.py",
                  "safe_denoiser_tpu/ops/group_norm.py:138"),
+    "conv3x3_up_interleave": (
+        "cuda", "safe_denoiser_tpu_torch/csrc/conv3x3_up_interleave.cu",
+        "safe_denoiser_tpu/ops/conv3x3.py:180"),
+    "gn_fused": ("triton", "safe_denoiser_tpu_torch/ops/group_norm.py",
+                 "safe_denoiser_tpu/ops/group_norm.py:181"),
 }
 
 
@@ -1037,11 +1214,16 @@ def phase_gate_open(pipe) -> None:
 def phase_ddim(pipe, kw) -> dict:
     """The 10-step DDIM configuration at full SD-v1.4 width: phase 4's
     modules and repellency under a DDIMScheduler, 4 prompts, once under
-    each of DDIM_LAYOUTS. Expected launches from the JAX package's gates:
-    10 self-attentions with S >= 512 per UNet step through the layout's
-    kernels; B2 once per timestep in [1000, 780] (901 and 801); B3 once per
-    step plus the VAE's 3 upsamples; B4 28; B5 3 per step plus the
-    decoder's 30. Returns the launch counts of each run."""
+    each of DDIM_LAYOUTS (6b) and once under FUSED_SWITCHES with the
+    default layout (6c), each timed after a 2-step warm-up under its
+    switches. Expected launches from the JAX package's gates as
+    the switches stand: 10 self-attentions with S >= 512 per UNet step
+    through the layout's kernels; B2 once per timestep in [1000, 780] (901
+    and 801); B3 once per step (the UNet's upsample, planar under every
+    switch); the decode's B3 or B7, B4 and GroupNorm kernels from
+    ``vae_kernel_plan``; the UNet's B6 and B5 from ``unet_gn_launches``
+    (without the switches 3 B5 a step; with them 57 B6 and 3 B5). Returns
+    the launch counts of each run."""
     from safe_denoiser_tpu_torch import ops
     from safe_denoiser_tpu_torch.pipeline import SafeDiffusionPipeline
     from safe_denoiser_tpu_torch.schedulers import DDIMConfig, DDIMScheduler
@@ -1052,9 +1234,19 @@ def phase_ddim(pipe, kw) -> dict:
     window = kw["erase_spec"].window
     ts = ddim.scheduler.timesteps(DDIM_STEPS)
     n_rbf = sum(bool(window.mask(i, int(t))) for i, t in enumerate(ts))
-    out = {}
-    for layout in DDIM_LAYOUTS:
-        with layout_env(layout):
+    runs = [(layout, layout, lambda lay=layout: layout_env(lay))
+            for layout in DDIM_LAYOUTS]
+    runs.append(("fused-gn+interleave", "bhsd",
+                 lambda: switches(FUSED_SWITCHES)))
+    out, lat_bhsd = {}, None
+    for label, layout, env in runs:
+        with env():
+            dec = vae_kernel_plan(pipe.vae.config, 4, 64, 64)[0]
+            gnl = unet_gn_launches(pipe.unet.config, 64, 64)
+            # warm-up: Triton compiles B6 for each new shape at its first
+            # launch, which would land in the timed loop
+            ddim.generate_batch(PROMPTS, seeds=[0, 1, 2, 3],
+                                num_inference_steps=2, **kw)
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             pending = ddim.dispatch_batch(PROMPTS, seeds=[0, 1, 2, 3],
@@ -1064,20 +1256,90 @@ def phase_ddim(pipe, kw) -> dict:
             wall = time.perf_counter() - t0
             counts = ops.launch_counts()
         if not bool(torch.isfinite(pending.image).all()):
-            fail(f"ddim {layout}: decoded images hold non-finite values")
-        _check_images(images, 512, f"ddim {layout}")
+            fail(f"ddim {label}: decoded images hold non-finite values")
+        _check_images(images, 512, f"ddim {label}")
         st = pending.stage_ms
-        print(f"ddim {layout}: 4 x 512^2, {DDIM_STEPS} DDIM steps (t = "
+        lat = pending.latents.float()
+        lat_bhsd = lat if lat_bhsd is None else lat_bhsd
+        print(f"ddim {label}: 4 x 512^2, {DDIM_STEPS} DDIM steps (t = "
               f"{int(ts[0])} ... {int(ts[-1])}), CFG 7.5, kernel_fast "
               f"[1000,780]: encode_ms={st['encode']:.2f} "
               f"loop_ms={st['loop']:.2f} decode_ms={st['decode']:.2f} "
               f"wall_s={wall:.3f} images_per_s={4 / wall:.4f} "
-              f"rep_applied_steps={int(pending.applied.any(1).sum())}")
+              f"rep_applied_steps={int(pending.applied.any(1).sum())} "
+              f"max|latents|={lat.abs().max().item():.4e} max|latents - "
+              f"bhsd's|={(lat - lat_bhsd).abs().max().item():.4e}")
         want = {**attention_launches(layout, 10 * DDIM_STEPS), "rbf": n_rbf,
-                "conv3x3_up": DDIM_STEPS + 3, "conv3x3": 28,
-                "gn_stats": 3 * DDIM_STEPS + 30}
-        check_launches(counts, want, f"ddim {layout}")
-        out[f"ddim {layout}"] = counts
+                **dec, "conv3x3_up": DDIM_STEPS + dec["conv3x3_up"],
+                "gn_stats": DDIM_STEPS * gnl["gn_stats"] + dec["gn_stats"],
+                "gn_fused": DDIM_STEPS * gnl["gn_fused"] + dec["gn_fused"]}
+        check_launches(counts, want, f"ddim {label}")
+        out[f"ddim {label}"] = counts
+    return out
+
+
+class _Lines:
+    """A logger that keeps the lines it is given."""
+
+    def __init__(self):
+        self.lines = []
+
+    def log(self, msg: str) -> None:
+        self.lines.append(msg)
+
+
+def phase_erasure(pipe, kw) -> dict:
+    """SD-v1's text-side erasure methods at full SD-v1.4 width on phase 4's
+    modules, bank and repellency: 4 prompts, 512^2, 50 DDPM steps through
+    ``dispatch_batch`` under the default switches, once per ERASURE_RUNS
+    entry (SLD STRONG; SAFREE with its self-validation filter over the
+    nudity concept space; latent re-attention with the SafeGuard filters).
+    SLD and re-attention fold three branches into the UNet batch, so the
+    launches per UNet call are those of the main path; B2 runs once per
+    step in the erase id's window. Returns the launch counts of each run."""
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.models import FreeUConfig
+    from safe_denoiser_tpu_torch.pipeline import ERASE_SPECS, SLD_CONFIGS
+    from safe_denoiser_tpu_torch.runners.common import \
+        NUDITY_NEGATIVE_PROMPT_SPACE
+
+    ts = pipe.scheduler.timesteps(50)
+    out = {}
+    for label, (erase_id, sf, level, hyp) in ERASURE_RUNS.items():
+        spec = ERASE_SPECS[erase_id]
+        run_kw = {**kw, "erase_spec": spec, "safree_dict": sf,
+                  "safe_config": SLD_CONFIGS[level] if level else None,
+                  "freeu": None if hyp is None else FreeUConfig(
+                      *hyp, mode="all"),
+                  "negative_prompt_space": (NUDITY_NEGATIVE_PROMPT_SPACE
+                                            if sf.get("safree") else None)}
+        pipe.logger = _Lines()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        pending = pipe.dispatch_batch(PROMPTS, seeds=[0, 1, 2, 3],
+                                      num_inference_steps=50, **run_kw)
+        images = pending.fetch()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        lines, pipe.logger = pipe.logger.lines, None
+        if not bool(torch.isfinite(pending.image).all()
+                    and torch.isfinite(pending.latents).all()):
+            fail(f"erasure {label}: non-finite latents or images")
+        _check_images(images, 512, f"erasure {label}")
+        st = pending.stage_ms
+        safree_lines = [ln for ln in lines if "remove" in ln or "beta" in ln]
+        print(f"erasure {label}: 4 x 512^2, 50 DDPM steps, CFG 7.5, "
+              f"kernel_fast in [{spec.window.t_end:g},"
+              f"{spec.window.t_start:g}]: encode_ms={st['encode']:.2f} "
+              f"loop_ms={st['loop']:.2f} decode_ms={st['decode']:.2f} "
+              f"wall_s={wall:.3f} images_per_s={4 / wall:.4f} "
+              f"rep_applied_steps={int(pending.applied.any(1).sum())} "
+              f"{safree_lines}")
+        want = {**EXPECTED_LAUNCHES,
+                "rbf": sum(bool(spec.window.mask(i, int(t)))
+                           for i, t in enumerate(ts))}
+        check_launches(counts, want, f"erasure {label}")
+        out[f"erasure {label}"] = counts
     return out
 
 
@@ -1322,6 +1584,53 @@ data:
         if problems:
             print(log.getvalue()[-4000:])
             fail("runner phase: " + "; ".join(problems))
+
+        # 6d's runner run: sld_rep on the first RUNNER_SLD_CASES cases under
+        # FUSED_SWITCHES; launches per case from the gates as they stand,
+        # plus the bank encode
+        out = os.path.join(tmp, "out_sld")
+        n, chunks = RUNNER_SLD_CASES, RUNNER_BANK // RUNNER_N_EMBED
+        log = io.StringIO()
+        with switches(FUSED_SWITCHES):
+            gnl = unet_gn_launches(pipe.unet.config, 64, 64)
+            dec = vae_kernel_plan(pipe.vae.config, 1, 64, 64)[0]
+            enc = vae_kernel_plan(pipe.vae.config, RUNNER_N_EMBED, 512, 512,
+                                  "encoder")[0]
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                run_nudity(["--data", csv_path, "--save-dir", out,
+                            "--erase_id", "sld_rep", "--model_dir", ckpt,
+                            "--task_config", task, "--nudenet-path", onnx,
+                            "--num_inference_steps", "50",
+                            "--image_length", "512", "--device", "cuda",
+                            "--valid_case_numbers", f"0,{n}"])
+            torch.cuda.synchronize()
+            wall_sld = time.perf_counter() - t0
+            counts = ops.launch_counts()
+        want = {"attention": 500 * n, "rbf": 11 * n, "attention_i8": 0}
+        for k in dec:
+            want[k] = n * dec[k] + chunks * enc[k]
+        want["conv3x3_up"] += 50 * n
+        for k in gnl:
+            want[k] += 50 * n * gnl[k]
+        logs = open(os.path.join(out, "logs.txt")).read()
+        names = {f"{i}_sexual.png" for i in range(n)}
+        detect = json.load(open(os.path.join(out, "detect_dict.json")))
+        print(f"runner sld_rep under {json.dumps(FUSED_SWITCHES)}: {n} cases "
+              f"x 50 steps at 512^2: wall_s={wall_sld:.3f} "
+              f"unsafe={detect['unsafe']}")
+        print(f"runner sld_rep launches: {json.dumps(counts)} expected "
+              f"{json.dumps(want)}")
+        problems = [f"kernel {k} launched {counts[k]} times, expected {v}"
+                    for k, v in want.items() if counts[k] != v]
+        if set(os.listdir(os.path.join(out, "all"))) != names:
+            problems.append("all/ does not hold the cases")
+        if len(detect["unsafe"]) != n or "SLD safe level: WEAK" not in logs:
+            problems.append("detect_dict.json or logs.txt content")
+        if problems:
+            print(log.getvalue()[-4000:])
+            fail("runner sld_rep: " + "; ".join(problems))
     return wall / RUNNER_CASES
 
 
@@ -1543,9 +1852,29 @@ def phase_sd3(profile: bool = False) -> dict:
         d_img = abs(out["bf16"][1].astype(float) - out[mode][1]).mean()
         print(f"sd3 {mode} vs bf16: max|d| latents={d_lat:.4e} mean|d| "
               f"image (0..255)={d_img:.3f}")
+    # the bf16 latents decoded again under SDT_UP_FORM=interleave: the
+    # decoder's three upsamples on B7, none on B3
+    counts = {mode: v[0] for mode, v in out.items()}
+    vc = pipe.vae.config
+    z = out["bf16"][2] / vc.scaling_factor + vc.shift_factor
+    with torch.no_grad():
+        planar = pipe.vae.decode(z).float()
+        with switches({"SDT_UP_FORM": "interleave"}):
+            want = vae_kernel_plan(vc, 1, z.shape[2], z.shape[3])[0]
+            ops.reset_launch_counts()
+            inter = pipe.vae.decode(z).float()
+            torch.cuda.synchronize()
+            counts["decode interleave"] = ops.launch_counts()
+    if not bool(torch.isfinite(inter).all()):
+        fail("sd3 decode under SDT_UP_FORM=interleave: non-finite image")
+    print(f"sd3 decode under SDT_UP_FORM=interleave vs the default decode of "
+          f"the bf16 latents: max|d| image (-1..1)="
+          f"{(inter - planar).abs().max().item():.4e}")
+    check_launches(counts["decode interleave"], want,
+                   "sd3 decode under SDT_UP_FORM=interleave")
     del pipe
     torch.cuda.empty_cache()
-    return {mode: v[0] for mode, v in out.items()}
+    return counts
 
 
 def phase_sd3_runner() -> None:
@@ -1709,8 +2038,9 @@ def profile_call(fn, label: str) -> None:
     busy = sum(r[0] for r in rows)
     ours = {"attn_kernel": 0.0, "attn_i8_kernel": 0.0, "attn_nt_kernel": 0.0,
             "attn_bshd_kernel": 0.0, "repack_kernel": 0.0, "rbf_": 0.0,
-            "up_conv_kernel": 0.0, "conv3x3_kernel": 0.0,
-            "_partial_sums": 0.0, "_finish": 0.0}
+            "up_conv_kernel": 0.0, "up_interleave_kernel": 0.0,
+            "conv3x3_kernel": 0.0, "_partial_sums": 0.0, "_finish": 0.0,
+            "_gn_apply": 0.0}
     for ms, _, key in rows:
         for k in ours:
             if k in key:
@@ -1748,15 +2078,18 @@ def main() -> None:
     phase_gate_open(pipe)
     phase_runner(pipe)
     ddim_counts = phase_ddim(pipe, kw)
+    erasure_counts = phase_erasure(pipe, kw)
     if args.profile:
         phase_profile(pipe, kw)
     del pipe, kw
     torch.cuda.empty_cache()
     sd3_counts = phase_sd3(args.profile)
     phase_sd3_runner()
-    # launches over the main paths: sd14-main, the three DDIM runs and the
-    # three SD3 runs
-    runs = [counts, *ddim_counts.values(), *sd3_counts.values()]
+    # launches over the main paths: sd14-main, the four DDIM runs (6b, 6c),
+    # the three erasure runs (6d), the three SD3 runs and the SD3 decode
+    # under SDT_UP_FORM=interleave
+    runs = [counts, *ddim_counts.values(), *erasure_counts.values(),
+            *sd3_counts.values()]
     total = {name: sum(c[name] for c in runs) for name in counts}
     print(card)
     print(kernels_line(results, total))

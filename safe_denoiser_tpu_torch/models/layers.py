@@ -3,19 +3,22 @@
 Counterpart of ``safe_denoiser_tpu/models/layers.py``. Modules take NCHW
 (or [B, S, C] token) tensors and compute in the dtype of their parameters;
 normalization statistics and softmax stay f32. Under bf16 the JAX package's
-fast forms are kept: GroupNorm/LayerNorm affine and SiLU at bf16, tanh GELU.
+fast forms are kept, behind its switches read at each call: GroupNorm and
+LayerNorm affine and SiLU at bf16 (SDT_FAST_SILU, default 1), tanh GELU
+(SDT_FAST_GELU, default 1).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
-from ..ops.group_norm import gn_affine_coefs, group_norm_ref
+from ..ops.group_norm import fast_act_ok, gn_affine_coefs, group_norm
 from ..ops.quant import int8_dense
 
 _FLASH_MIN_SEQ = 512
@@ -43,8 +46,10 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 class GroupNorm32(nn.Module):
     """GroupNorm with f32 statistics and an optional fused SiLU, over NCHW.
     The work happens on the [B, H*W, C] view (free when the tensor is
-    channels_last), where bf16 activations large enough take the one-read
-    statistics kernel (ops/group_norm.py)."""
+    channels_last) through ``ops.group_norm.group_norm``: the fused kernel
+    under SDT_FUSED_GN=1 for the shapes its gate admits, else the plain
+    form, where bf16 activations large enough take the one-read statistics
+    kernel."""
 
     def __init__(self, num_channels: int, num_groups: int = 32,
                  eps: float = 1e-6, act: str | None = None):
@@ -64,14 +69,15 @@ class GroupNorm32(nn.Module):
         if coefs_only:
             return gn_affine_coefs(xs.contiguous(), self.weight, self.bias,
                                    self.num_groups, self.eps)
-        y = group_norm_ref(xs.contiguous(), self.weight, self.bias,
-                           self.num_groups, self.eps, self.act)
+        y = group_norm(xs.contiguous(), self.weight, self.bias,
+                       self.num_groups, self.eps, self.act)
         return y.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
 class LayerNormFp32(nn.Module):
-    """LayerNorm with f32 statistics; under bf16 the affine is applied at
-    bf16, as in the JAX package."""
+    """LayerNorm with f32 statistics; where ``fast_act_ok`` holds (bf16,
+    SDT_FAST_SILU=1) the affine is applied at bf16, as in the JAX
+    package."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -84,7 +90,7 @@ class LayerNormFp32(nn.Module):
         mean = xf.mean(-1, keepdim=True)
         var = ((xf - mean) ** 2).mean(-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
-        if x.dtype == torch.bfloat16:
+        if fast_act_ok(x.dtype):
             return y.to(x.dtype) * self.weight.to(x.dtype) \
                 + self.bias.to(x.dtype)
         return (y * self.weight.float() + self.bias.float()).to(x.dtype)
@@ -164,9 +170,11 @@ class Attention(nn.Module):
 
 
 def gelu_for(dtype: torch.dtype):
-    """Exact-erf GELU under f32; the tanh form under bf16 (within bf16
+    """Exact-erf GELU under f32; the tanh form under bf16 unless
+    SDT_FAST_GELU is set to another value than "1" (the two are within bf16
     quantization of each other), as the JAX package's ``_gelu_for``."""
-    if dtype == torch.bfloat16:
+    if (dtype == torch.bfloat16
+            and os.environ.get("SDT_FAST_GELU", "1") == "1"):
         return lambda x: F.gelu(x, approximate="tanh")
     return F.gelu
 

@@ -5,7 +5,8 @@ numerics, NCHW at the boundary. On the GPU the activations run
 channels_last, so the [B, H*W, C] views of the normalizations, the
 attention tokens and the upsample kernel's NHWC input are free. An
 HF-layout ``unet/`` state dict loads with ``load_state_dict(strict=True)``.
-FreeU is not ported yet.
+``forward(..., freeu=FreeUConfig)`` applies FreeU / the SafeGuard filters
+(``models/fourier.py``) on the up path at the two widest channel counts.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv3x3 as c3
+from .fourier import apply_skip_filter
 from .layers import (
     Attention,
     FeedForward,
@@ -136,28 +138,33 @@ def _packed_up_weights(conv: nn.Conv2d):
     return cached_pack(conv, "_up_packed", c3.pack_weights)
 
 
-def upsample_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+def upsample_conv(conv: nn.Conv2d, x: torch.Tensor,
+                  form: str = "planar") -> torch.Tensor:
     """conv(nearest_2x(x)) for NCHW x. bf16 inputs of the shapes
-    ``supports_up`` takes go through ``conv3x3_up`` on the NHWC view (the
-    kernel on the GPU, with weights packed once per module; its plain
-    version on the CPU); the rest upsample and convolve."""
+    ``supports_up`` takes go through ``conv3x3_up`` in ``form`` on the
+    NHWC view (the kernel on the GPU, with weights packed once per module;
+    its plain version on the CPU); the rest upsample and convolve."""
     b, c, h, w = x.shape
     if (x.dtype == torch.bfloat16
             and c3.supports_up((b, h, w, c), c, conv.out_channels)):
         packed = _packed_up_weights(conv) if x.is_cuda else None
         y = c3.conv3x3_up(x.permute(0, 2, 3, 1).contiguous(), conv.weight,
-                          conv.bias, packed=packed)
+                          conv.bias, packed=packed, form=form)
         return y.permute(0, 3, 1, 2)
     return conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
 
 class Upsample2D(nn.Module):
+    """The UNet's upsample: always the planar form, whatever SDT_UP_FORM
+    says, as the JAX package hard-codes it (its 640-channel weights fit
+    VMEM only per parity)."""
+
     def __init__(self, ch: int):
         super().__init__()
         self.conv = nn.Conv2d(ch, ch, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample_conv(self.conv, x)
+        return upsample_conv(self.conv, x, "planar")
 
 
 class _Block(nn.Module):
@@ -246,9 +253,12 @@ class UNet2DConditionModel(nn.Module):
                 encoder_hidden_states: torch.Tensor,
                 freeu=None) -> torch.Tensor:
         """sample [B, C, H, W]; timesteps scalar or [B]; context [B, S, D].
-        Computes in the parameters' dtype and returns f32 [B, C, H, W]."""
-        if freeu is not None:
-            raise NotImplementedError("FreeU is not ported yet")
+        Computes in the parameters' dtype and returns f32 [B, C, H, W].
+        ``freeu``: a ``FreeUConfig``; where the up path's backbone features
+        have the widest (b1, s1) or second widest (b2, s2) channel count,
+        their first half is scaled by b and the skip goes through
+        ``apply_skip_filter`` with s. The SafeGuard modes need the 3-way
+        [uncond, cond, re-attention] batch."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         dev = sample.device
@@ -283,9 +293,20 @@ class UNet2DConditionModel(nn.Module):
         x = self.mid_block.attentions[0](x, ctx)
         x = self.mid_block.resnets[1](x, temb)
 
+        distinct = sorted(set(cfg.block_out_channels))
+        ch_hi = distinct[-1]
+        ch_lo = distinct[-2] if len(distinct) > 1 else -1
         for blk in self.up_blocks:
             for j, res in enumerate(blk.resnets):
-                x = torch.cat([x, skips.pop()], dim=1)
+                skip = skips.pop()
+                if freeu is not None and x.shape[1] in (ch_hi, ch_lo):
+                    b_s, s_s = ((freeu.b1, freeu.s1) if x.shape[1] == ch_hi
+                                else (freeu.b2, freeu.s2))
+                    half = x.shape[1] // 2
+                    x = torch.cat([x[:, :half] * b_s, x[:, half:]], dim=1)
+                    skip = apply_skip_filter(skip.permute(0, 2, 3, 1), freeu,
+                                             s_s).permute(0, 3, 1, 2)
+                x = torch.cat([x, skip], dim=1)
                 x = res(x, temb)
                 if len(blk.attentions):
                     x = blk.attentions[j](x, ctx)

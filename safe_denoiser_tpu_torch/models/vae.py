@@ -7,12 +7,16 @@ conv takes (``ops.conv3x3.supports``) computes GroupNorm statistics only
 (``GroupNorm32(coefs_only=True)``, the one-read kernel for the large
 activations) and leaves the affine, the SiLU and the residual add to the
 fused conv (``ops.conv3x3``: the kernel for CUDA tensors, its plain
-version on the CPU). The decoder's upsamples go through ``conv3x3_up``.
+version on the CPU). The fused form needs ``fast_act_ok`` (SDT_FAST_SILU
+not 0), as in the JAX package. The decoder's upsamples go through
+``conv3x3_up`` in the form SDT_UP_FORM names at each call (``planar``, the
+default: the upsample conv kernel; ``interleave``: the interleaved one).
 f32 and other shapes run the plain composition.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv3x3 as c3
+from ..ops.group_norm import fast_act_ok
 from .layers import Attention, GroupNorm32
 from .unet import cached_pack, upsample_conv
 
@@ -91,7 +96,7 @@ class ResnetBlock2D(nn.Module):
         shortcut = x if self.conv_shortcut is None else self.conv_shortcut(x)
         # the JAX package's fused form (models/vae.py:142-148): GroupNorm
         # statistics here, the affine+SiLU and the residual in the convs
-        if (x.dtype == torch.bfloat16
+        if (x.dtype == torch.bfloat16 and fast_act_ok(x.dtype)
                 and c3.supports((b, hh, ww, ci), ci, co)
                 and c3.supports((b, hh, ww, co), co, co)):
             h = self.conv1(x, pre=self.norm1(x, coefs_only=True), act="silu")
@@ -133,7 +138,8 @@ class Upsample2D(nn.Module):
         self.conv = Conv3x3(ch, ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample_conv(self.conv, x)
+        return upsample_conv(self.conv, x,
+                             os.environ.get("SDT_UP_FORM", "planar"))
 
 
 class _Block(nn.Module):

@@ -1,17 +1,19 @@
 """The port's kernels, each beside its plain PyTorch version.
 
-| kernel            | module             | route  | replaces (JAX package)                |
-| ----------------- | ------------------ | ------ | ------------------------------------- |
-| attention         | ops/attention.py   | CUDA   | ops/attention.py::_attn_kernel        |
-| attention_i8      | ops/attention.py   | CUDA   | ::_attn_kernel(quant_i8=True)         |
-| attention_nt      | ops/attention.py   | CUDA   | ::_attn_kernel_nt                     |
-| attention_bshd    | ops/attention.py   | CUDA   | ::_attn_kernel_bshd                   |
-| repack_to_heads   | ops/attention.py   | CUDA   | ::_repack_to_heads_kernel             |
-| repack_from_heads | ops/attention.py   | CUDA   | ::_repack_from_heads_kernel           |
-| rbf               | repellency_kernels | CUDA   | ops/repellency_kernels.py::_rbf_kernel |
-| conv3x3_up        | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_up_kernel_planar     |
-| conv3x3           | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_kernel               |
-| gn_stats          | ops/group_norm.py  | Triton | ops/group_norm.py::_gn_stats_kernel   |
+| kernel                | module             | route  | replaces (JAX package)                 |
+| --------------------- | ------------------ | ------ | -------------------------------------- |
+| attention             | ops/attention.py   | CUDA   | ops/attention.py::_attn_kernel         |
+| attention_i8          | ops/attention.py   | CUDA   | ::_attn_kernel(quant_i8=True)          |
+| attention_nt          | ops/attention.py   | CUDA   | ::_attn_kernel_nt                      |
+| attention_bshd        | ops/attention.py   | CUDA   | ::_attn_kernel_bshd                    |
+| repack_to_heads       | ops/attention.py   | CUDA   | ::_repack_to_heads_kernel              |
+| repack_from_heads     | ops/attention.py   | CUDA   | ::_repack_from_heads_kernel            |
+| rbf                   | repellency_kernels | CUDA   | ops/repellency_kernels.py::_rbf_kernel |
+| conv3x3_up            | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_up_kernel_planar      |
+| conv3x3_up_interleave | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_up_kernel             |
+| conv3x3               | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_kernel                |
+| gn_stats              | ops/group_norm.py  | Triton | ops/group_norm.py::_gn_stats_kernel    |
+| gn_fused              | ops/group_norm.py  | Triton | ops/group_norm.py::_gn_kernel          |
 
 Each wrapper counts its launches in a module-level integer (``COUNTERS``).
 """
@@ -30,8 +32,10 @@ COUNTERS = {
     "repack_from_heads": (attention, "from_heads_launches"),
     "rbf": (repellency_kernels, "launches"),
     "conv3x3_up": (conv3x3, "up_launches"),
+    "conv3x3_up_interleave": (conv3x3, "interleave_launches"),
     "conv3x3": (conv3x3, "fused_launches"),
     "gn_stats": (group_norm, "launches"),
+    "gn_fused": (group_norm, "fused_launches"),
 }
 
 

@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("attention", "attention_i8", "rbf", "conv3x3_up", "conv3x3",
-           "attention_nt", "attention_bshd", "repack_heads")
+           "attention_nt", "attention_bshd", "repack_heads",
+           "conv3x3_up_interleave")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,6 +44,8 @@ SIGNATURES = {
     "attention_i8": {"sdt_self_attention_i8_bf16": _ATTN[:-1] + [_F, _P]},
     "rbf": {"sdt_rbf_score_f32": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P]},
     "conv3x3_up": {"sdt_conv3x3_up_bf16": [_P] * 4 + [_I] * 5 + [_P]},
+    "conv3x3_up_interleave": {
+        "sdt_conv3x3_up_interleave_bf16": [_P] * 4 + [_I] * 5 + [_P]},
     "conv3x3": {"sdt_conv3x3_bf16": [_P] * 7 + [_I] * 6 + [_P]},
     "attention_nt": {"sdt_attention_nt_bf16": _LAYOUT,
                      "sdt_attention_nt_f32": _LAYOUT},

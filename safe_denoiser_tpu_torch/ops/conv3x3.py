@@ -7,9 +7,13 @@ version, with the JAX package's NHWC layout at the public functions:
   ``safe_denoiser_tpu/ops/conv3x3.py::conv3x3`` and its ``supports``
   gate).
 - ``conv3x3_up``: conv3x3_SAME(nearest_2x(h)) without the upsampled tensor
-  (``csrc/conv3x3_up.cu``; counterpart of ``conv3x3_up`` and
-  ``supports_up``). It splits into four output parities, each a 2x2 conv
-  of the half-resolution input with pre-summed weights (``w_eff_up``).
+  (counterpart of ``conv3x3_up`` and ``supports_up``). It splits into four
+  output parities, each a 2x2 conv of the half-resolution input with
+  pre-summed weights (``w_eff_up``). ``form="planar"`` launches
+  ``csrc/conv3x3_up.cu`` (the JAX package's ``_up_kernel_planar``),
+  ``form="interleave"`` ``csrc/conv3x3_up_interleave.cu`` (its
+  ``_up_kernel``: all four parities from one staged band); both compute
+  the same function, with the same plain version and packed weights.
 
 Weights arrive in diffusers' [Co, Ci, 3, 3] layout.
 """
@@ -21,8 +25,10 @@ import torch.nn.functional as F
 
 from . import _build
 
-up_launches = 0      # kernel launches of conv3x3_up on CUDA tensors
+up_launches = 0      # kernel launches of conv3x3_up (planar) on CUDA tensors
+interleave_launches = 0   # ... of conv3x3_up(form="interleave")
 fused_launches = 0   # kernel launches of conv3x3 on CUDA tensors
+UP_FORMS = ("planar", "interleave")
 
 # tap groups of the 3x3 kernel per output parity: j=0/1 -> taps of dy
 _GROUPS = {0: ((0,), (1, 2)), 1: ((0, 1), (2,))}
@@ -94,8 +100,8 @@ def pack_weights(w_oihw: torch.Tensor, b: torch.Tensor | None = None):
     return kernel_weights(w_oihw.detach()), bias
 
 
-def _conv3x3_up_cuda(h, w_oihw, b, packed):
-    global up_launches
+def _conv3x3_up_cuda(h, w_oihw, b, packed, form):
+    global up_launches, interleave_launches
     if not h.is_cuda or w_oihw.device != h.device or (
             b is not None and b.device != h.device):
         raise ValueError("h, the weight and the bias must lie on one GPU")
@@ -120,24 +126,33 @@ def _conv3x3_up_cuda(h, w_oihw, b, packed):
                          "weight on this GPU")
     out = torch.empty((bsz, 2 * h2, 2 * w2, co), dtype=h.dtype,
                       device=h.device)
-    fn = _build.library("conv3x3_up").sdt_conv3x3_up_bf16
-    err = fn(h.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(),
-             bsz, h2, w2, ci, co, _build.stream_ptr(h.device))
-    _build.check(err, "sdt_conv3x3_up_bf16")
-    up_launches += 1
+    name = "conv3x3_up" if form == "planar" else "conv3x3_up_interleave"
+    entry = f"sdt_{name}_bf16"
+    err = getattr(_build.library(name), entry)(
+        h.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz,
+        h2, w2, ci, co, _build.stream_ptr(h.device))
+    _build.check(err, entry)
+    if form == "planar":
+        up_launches += 1
+    else:
+        interleave_launches += 1
     return out
 
 
 def conv3x3_up(h: torch.Tensor, w_oihw: torch.Tensor,
-               b: torch.Tensor | None = None, packed=None) -> torch.Tensor:
+               b: torch.Tensor | None = None, packed=None,
+               form: str = "planar") -> torch.Tensor:
     """conv3x3_SAME(nearest_2x(h), w) + b for NHWC half-res h
     [B, H2, W2, Ci]; weights in diffusers' [Co, Ci, 3, 3]. A CUDA tensor
-    launches the kernel (bf16) or raises; a CPU tensor takes the plain
-    version. ``packed``: ``pack_weights(w_oihw, b)``, computed once by a
-    caller that reuses the weights; built per call when None."""
+    launches the kernel of ``form`` (bf16; ``UP_FORMS``) or raises; a CPU
+    tensor takes the plain version. ``packed``: ``pack_weights(w_oihw,
+    b)``, computed once by a caller that reuses the weights; built per
+    call when None."""
+    if form not in UP_FORMS:
+        raise ValueError(f"form must be one of {UP_FORMS}, got {form!r}")
     if h.device.type == "cpu":
         return conv3x3_up_ref(h, w_oihw, b)
-    return _conv3x3_up_cuda(h, w_oihw, b, packed)
+    return _conv3x3_up_cuda(h, w_oihw, b, packed, form)
 
 
 def flops(b: int, h2: int, w2: int, ci: int, co: int) -> int:

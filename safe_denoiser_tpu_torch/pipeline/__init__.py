@@ -1,5 +1,7 @@
 from .diffusion import (
     ERASE_SPECS,
+    SLD_CONFIGS,
+    SLD_SAFETY_CONCEPT,
     EraseSpec,
     PendingGeneration,
     SafeDiffusionPipeline,
@@ -7,6 +9,6 @@ from .diffusion import (
 )
 from .sampler import GuidanceConfig, RepellencyWindow, sample_sd, sample_sd3
 
-__all__ = ["ERASE_SPECS", "EraseSpec", "PendingGeneration",
+__all__ = ["ERASE_SPECS", "SLD_CONFIGS", "SLD_SAFETY_CONCEPT", "EraseSpec", "PendingGeneration",
            "SafeDiffusionPipeline", "postprocess_image_host",
            "GuidanceConfig", "RepellencyWindow", "sample_sd", "sample_sd3"]

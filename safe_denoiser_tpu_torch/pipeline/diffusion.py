@@ -1,12 +1,13 @@
 """SafeDiffusionPipeline: tokenizer, CLIP text encoder, UNet, VAE and DDPM
 scheduler on one device, with the safe-denoiser repellency hook.
 
-Counterpart of ``safe_denoiser_tpu/pipeline/diffusion.py`` for the plain
-text path (``std``, ``esd``) and their repellency erase ids, with the
-bank's VAE embedding, the ESD UNet swap and W8A8 int8 on the UNet's wide
-transformer blocks (``enable_int8``). SAFREE, the SLD text branch, FreeU,
-LoRA and the device mesh are not ported yet: the keywords that ask for
-them raise ``NotImplementedError``.
+Counterpart of ``safe_denoiser_tpu/pipeline/diffusion.py``: every erase id
+of ``ERASE_SPECS`` (plain, ESD, SLD, RECE, SAFREE and their repellency
+windows), SAFREE's projection with its fixed or self-validated (``svf``)
+window, the SLD safety branch with ``safe_config``, latent re-attention
+(``lra``) with FreeU / the SafeGuard filters (``freeu``), the bank's VAE
+embedding, the ESD UNet swap and W8A8 int8 on the UNet's wide transformer
+blocks (``enable_int8``). LoRA and the device mesh are not ported yet.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that request they raise. Each prompt row draws
@@ -26,29 +27,79 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models import AutoencoderKL, CLIPTextModel, UNet2DConditionModel
+from ..models import (AutoencoderKL, CLIPTextModel, FreeUConfig,
+                      UNet2DConditionModel)
 from ..schedulers import DDPMConfig, DDPMScheduler
+from .safree import (f_beta, projection_and_orthogonal, projection_matrix,
+                     safree_projection, svf_beta)
 from .sampler import GuidanceConfig, RepellencyWindow, sample_sd
+
+# Safe Latent Diffusion's safety levels (the sld package's SafetyConfig)
+SLD_CONFIGS: dict[str, dict] = {
+    "WEAK": dict(sld_warmup_steps=15, sld_guidance_scale=200.0,
+                 sld_threshold=0.0, sld_momentum_scale=0.0, sld_mom_beta=0.0),
+    "MEDIUM": dict(sld_warmup_steps=10, sld_guidance_scale=1000.0,
+                   sld_threshold=0.01, sld_momentum_scale=0.3,
+                   sld_mom_beta=0.4),
+    "STRONG": dict(sld_warmup_steps=7, sld_guidance_scale=2000.0,
+                   sld_threshold=0.025, sld_momentum_scale=0.5,
+                   sld_mom_beta=0.7),
+    "MAX": dict(sld_warmup_steps=0, sld_guidance_scale=5000.0,
+                sld_threshold=1.0, sld_momentum_scale=0.5, sld_mom_beta=0.7),
+}
+
+# the SLD safety concept (the sld package's SafetyConfig prompt)
+SLD_SAFETY_CONCEPT = (
+    "an image showing hate, harassment, violence, suffering, humiliation, "
+    "harm, suicide, sexual, nudity, bodily fluids, blood, obscene gestures, "
+    "illegal activity, drug use, theft, vandalism, weapons, child abuse, "
+    "brutality, cruelty")
 
 
 @dataclasses.dataclass(frozen=True)
 class EraseSpec:
-    """Text-safety method x repellency gating of one erase id."""
+    """Text-safety method x repellency gating of one erase id. Only 'sld'
+    changes the text path by itself; SAFREE runs where ``safree_dict``
+    asks for it, as in the JAX package."""
 
-    text_method: str = "none"         # only 'none' in this port so far
+    text_method: str = "none"         # 'none' | 'safree' | 'sld'
     repellency: bool = False
     window: RepellencyWindow = RepellencyWindow()
 
 
-# the erase ids whose text path is the plain one ('esd' swaps in a
-# fine-tuned UNet checkpoint; its sampling is 'std')
+_TEXT_METHODS = ("none", "safree", "sld")
+
+# erase id -> spec ('esd' and 'rece' sample as 'std' and 'sld' with a
+# fine-tuned UNet swapped in)
 ERASE_SPECS: dict[str, EraseSpec] = {
     "std": EraseSpec(),
     "esd": EraseSpec(),
     "std_rep": EraseSpec(repellency=True,
                          window=RepellencyWindow(1000.0, 800.0)),
+    "sld": EraseSpec(text_method="sld"),
+    "rece": EraseSpec(text_method="sld"),
+    "safree": EraseSpec(text_method="safree"),
+    "safree_neg_prompt": EraseSpec(text_method="safree"),
+    "sld_rep": EraseSpec("sld", True, RepellencyWindow(1000.0, 780.0)),
     "esd_rep": EraseSpec(repellency=True,
                          window=RepellencyWindow(1000.0, 780.0)),
+    "rece_rep": EraseSpec("sld", True, RepellencyWindow(1000.0, 780.0)),
+    "safree_rep": EraseSpec("safree", True, RepellencyWindow(1000.0, 780.0)),
+    "sld_rep_time": EraseSpec("sld", True, RepellencyWindow(1000.0, 780.0)),
+    "sld_rep_threshold": EraseSpec(
+        "sld", True, RepellencyWindow(step_start=0, step_end=50,
+                                      by_timestep=False)),
+    "sld_rep_threshold_time": EraseSpec(
+        "sld", True, RepellencyWindow(1000.0, 780.0)),
+    "safree_neg_prompt_rep": EraseSpec(
+        "safree", True, RepellencyWindow(1001.0, -1.0)),
+    "safree_neg_prompt_rep_time": EraseSpec(
+        "safree", True, RepellencyWindow(1000.0, 800.0)),
+    "safree_neg_prompt_rep_threshold": EraseSpec(
+        "safree", True, RepellencyWindow(step_start=0, step_end=50,
+                                         by_timestep=False)),
+    "safree_neg_prompt_rep_threshold_time": EraseSpec(
+        "safree", True, RepellencyWindow(1000.0, 780.0)),
 }
 
 
@@ -171,12 +222,14 @@ class SafeDiffusionPipeline:
 
     # -- text ---------------------------------------------------------------
     @torch.no_grad()
+    def _encode_ids(self, ids) -> tuple:
+        ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        return self.text_encoder(ids)
+
     def _encode(self, texts: Sequence[str], max_length: int) -> torch.Tensor:
         enc = self.tokenizer(list(texts), padding="max_length",
                              max_length=max_length)
-        ids = torch.tensor(enc["input_ids"], dtype=torch.long,
-                           device=self.device)
-        return self.text_encoder(ids)[0]
+        return self._encode_ids(enc["input_ids"])[0]
 
     def encode_prompt(self, prompt: str, negative_prompt: Optional[str] = None,
                       max_length: Optional[int] = None) -> torch.Tensor:
@@ -188,6 +241,86 @@ class SafeDiffusionPipeline:
             self._uncond_memo = (key, self._encode([negative_prompt or ""],
                                                    max_length))
         return torch.stack([self._uncond_memo[1], cond])
+
+    def _encode_pooled(self, prompts: Sequence[str]) -> torch.Tensor:
+        """The EOS-pooled states [N, D] of ``prompts``."""
+        enc = self.tokenizer(list(prompts), padding="max_length",
+                             max_length=self.tokenizer.model_max_length)
+        return self._encode_ids(enc["input_ids"])[2]
+
+    def _masked_encode_prompt(self, prompt: str) -> torch.Tensor:
+        """Pooled states [n, D] of the prompt with each of its n real
+        tokens replaced by id 0 in turn (SAFREE's leave-one-out)."""
+        ids = self.tokenizer([prompt], padding="longest")["input_ids"][0]
+        ids = ids[:self.tokenizer.model_max_length]
+        n_real = len(ids) - 2
+        masked = torch.tensor([ids] * n_real, dtype=torch.long)
+        idx = torch.arange(n_real)
+        masked[idx, idx + 1] = 0
+        return self._encode_ids(masked)[2]
+
+    def _prepare_text(self, prompt: str, negative_prompt: Optional[str],
+                      negative_prompt_space: Optional[Sequence[str]],
+                      sf: dict, erase_spec: EraseSpec,
+                      safe_config: Optional[dict], num_inference_steps: int):
+        """One prompt's text: encode, SAFREE's projection and window, the
+        branch layout. Returns (text_embeds [branches, 1, L, D], the
+        alternative embeddings of the same shape, use_alt [steps] bool, the
+        GuidanceConfig)."""
+        logger = self.logger
+        embeds = self.encode_prompt(prompt, negative_prompt)   # [2,1,L,D]
+        steps_idx = torch.arange(num_inference_steps)
+        use_alt = torch.zeros(num_inference_steps, dtype=torch.bool)
+        embeds_alt = None
+        if sf.get("safree"):
+            if not negative_prompt_space:
+                raise ValueError("SAFREE needs a negative_prompt_space")
+            concept_proj = projection_matrix(
+                self._encode_pooled(list(negative_prompt_space)).T)
+            masked = self._masked_encode_prompt(prompt)
+            masked_proj = projection_matrix(masked.T)
+            pair = embeds[:, 0]                                 # [2, L, D]
+            rescaled, n_removed, _ = safree_projection(
+                pair, masked, masked_proj, concept_proj,
+                alpha=float(sf.get("alpha", 0.01)), max_length=pair.shape[1])
+            if logger is not None:
+                logger.log(f"Among {masked.shape[0]} tokens, we remove "
+                           f"{int(n_removed)}.")
+            embeds_alt = rescaled[:, None]
+            if sf.get("svf"):
+                proj_ort = projection_and_orthogonal(pair, masked_proj,
+                                                     concept_proj)
+                mask = self.tokenizer([prompt], padding="max_length",
+                                      max_length=pair.shape[1])
+                beta = svf_beta(pair[1], proj_ort[1],
+                                mask["attention_mask"][0])
+                beta_adj = f_beta(beta,
+                                  upperbound_timestep=sf.get("up_t", 10),
+                                  concept_type=sf.get("category", "nudity"))
+                if logger is not None:
+                    logger.log(f"beta : {beta}, adjusted_beta: {beta_adj}")
+                use_alt = steps_idx <= beta_adj
+            else:
+                lo, hi = sf.get("re_attn_t", [-1, 1001])
+                use_alt = (steps_idx >= lo) & (steps_idx <= hi)
+
+        if erase_spec.text_method == "sld":
+            extra = self._encode([SLD_SAFETY_CONCEPT],
+                                 embeds.shape[2])[None]         # [1,1,L,D]
+            guidance = GuidanceConfig(
+                mode="sld", **(safe_config or SLD_CONFIGS["STRONG"]))
+        elif sf.get("lra"):
+            extra = embeds[1:2]
+            guidance = GuidanceConfig(mode="lra")
+        else:
+            extra = None
+            guidance = GuidanceConfig()
+        if extra is not None:
+            embeds = torch.cat([embeds, extra])
+            if embeds_alt is not None:
+                embeds_alt = torch.cat([embeds_alt, extra])
+        return (embeds, embeds if embeds_alt is None else embeds_alt,
+                use_alt, guidance)
 
     # -- generation ---------------------------------------------------------
     def dispatch_batch(self, prompts: Sequence[str], seeds: Sequence[int],
@@ -201,33 +334,39 @@ class SafeDiffusionPipeline:
                        negative_prompt_space: Optional[Sequence[str]] = None,
                        safree_dict: Optional[dict] = None,
                        safe_config: Optional[dict] = None,
-                       freeu=None) -> "PendingGeneration":
-        """Enqueue text encoding, the sampling loop and the VAE decode for a
-        batch of prompts (CUDA runs them asynchronously); ``fetch()`` on the
-        returned handle waits and returns the images. The JAX package's
-        keywords are taken: ``negative_prompt_space`` serves SAFREE only;
-        ``safree_dict`` asking for SAFREE or latent re-attention, an SLD
-        ``safe_config`` and ``freeu`` raise (not ported yet)."""
+                       freeu: Optional[FreeUConfig] = None
+                       ) -> "PendingGeneration":
+        """Enqueue text preparation, the sampling loop and the VAE decode
+        for a batch of prompts (CUDA runs them asynchronously); ``fetch()``
+        on the returned handle waits and returns the images.
+        ``safree_dict``: ``safree`` (the projection; its window from
+        ``re_attn_t`` or, with ``svf``, from beta with ``up_t`` and
+        ``category``), ``alpha``, ``lra`` (the 3-way re-attention batch).
+        ``safe_config``: SLD's hyperparameters (default STRONG) for an
+        'sld' erase spec. ``freeu``: a FreeUConfig; its SafeGuard modes need
+        ``lra``. The batch's branches fold into one UNet batch."""
         sf = safree_dict or {}
-        if erase_spec.text_method != "none":
-            raise NotImplementedError(
-                f"text method {erase_spec.text_method!r} is not ported yet")
-        for key, what in (("safree", "SAFREE"), ("svf", "SAFREE's "
-                          "self-validation filter"),
-                          ("lra", "latent re-attention")):
-            if sf.get(key):
-                raise NotImplementedError(f"{what} is not ported yet")
-        if safe_config is not None:
-            raise NotImplementedError("SLD (safe_config) is not ported yet")
-        if freeu is not None:
-            raise NotImplementedError("FreeU is not ported yet")
+        if erase_spec.text_method not in _TEXT_METHODS:
+            raise ValueError(f"text method {erase_spec.text_method!r}: one "
+                             f"of {_TEXT_METHODS}")
+        if freeu is not None and freeu.mode != "freeu" and not sf.get("lra"):
+            raise ValueError(
+                "SafeGuard Fourier modes ('high'/'low'/'all') require the "
+                "3-way latent re-attention batch (safree_dict['lra']=True); "
+                "use mode='freeu' for plain FreeU scaling")
         b = len(prompts)
         if len(seeds) != b or len(guidance_scales) != b:
             raise ValueError("one seed and one guidance scale per prompt")
         timer = _StageTimer(self.device)
         with torch.no_grad():
-            text = torch.cat([self.encode_prompt(p, negative_prompt)
-                              for p in prompts], dim=1)       # [2, B, L, D]
+            per = [self._prepare_text(p, negative_prompt,
+                                      negative_prompt_space, sf, erase_spec,
+                                      safe_config, num_inference_steps)
+                   for p in prompts]
+            text = torch.cat([t for t, _, _, _ in per], dim=1)  # [br,B,L,D]
+            alt = torch.cat([a for _, a, _, _ in per], dim=1)
+            use_alt = torch.stack([u for _, _, u, _ in per], dim=1)
+            guidance = per[0][3]
             timer.mark("encode")
 
             gens = [torch.Generator(device=self.device).manual_seed(int(s))
@@ -252,8 +391,9 @@ class SafeDiffusionPipeline:
             latents, applied = sample_sd(
                 self.unet, self.scheduler, text, latents,
                 lambda i, salt: draw(), num_inference_steps,
-                guidance=GuidanceConfig(), repellency=rep_cfg, refs=refs,
-                window=erase_spec.window, guidance_scale=gs)
+                guidance=guidance, repellency=rep_cfg, refs=refs,
+                window=erase_spec.window, guidance_scale=gs,
+                text_embeds_alt=alt, use_alt_per_step=use_alt, freeu=freeu)
             timer.mark("loop")
             image = self.vae.decode(latents / self.vae.config.scaling_factor)
             timer.mark("decode")

@@ -37,14 +37,11 @@ from ..models import (AutoencoderKL, CLIPTextModel, MMDiT, T5Encoder)
 from ..schedulers.flow_match import (FlowMatchEulerScheduler,
                                      flow_match_config_from_checkpoint)
 from .diffusion import PendingGeneration, _StageTimer
-from .safree import projection_matrix, safree_projection
+from .safree import (NUDITY_NEGATIVE_PROMPT_SPACE, projection_matrix,
+                     safree_projection)
 from .sampler import RepellencyWindow, sample_sd3
 
-SD3_NUDITY_NEGATIVE_PROMPT = (
-    "Sexual Acts, Content Meant to Arouse Sexual Excitement, Nudity, "
-    "Pornography, Erotic Art, Lustful, Seductive, Orgasmic, Libido, Kinky, "
-    "Sexual Orientation, Sexual Attraction, Sexual Intercourse, Sexual "
-    "Pleasure, Sexual Fantasy, Carnal Desires, Sexual Gratification")
+SD3_NUDITY_NEGATIVE_PROMPT = ", ".join(NUDITY_NEGATIVE_PROMPT_SPACE)
 
 
 def joint_text_embed(pen_l, proj_l, pen_g, proj_g, t5_states,

@@ -1,7 +1,8 @@
-"""The sampling loops: SD-v1.x (CFG / SLD guidance, the repellency hook on
-x0 inside a timestep or step window, the DDPM or DDIM step) and SD3 (CFG,
-the flow-match Euler step, the safe denoiser's renoising inside the
-window).
+"""The sampling loops: SD-v1.x (CFG, latent re-attention or SLD guidance,
+SAFREE's per-step swap of the text embeddings, FreeU / SafeGuard through
+the UNet, the repellency hook on x0 inside a timestep or step window, the
+DDPM or DDIM step) and SD3 (CFG, the flow-match Euler step, the safe
+denoiser's renoising inside the window).
 
 Counterpart of ``safe_denoiser_tpu/pipeline/sampler.py::sample_sd`` and
 ``sample_sd3``. The ``lax.scan`` becomes a Python step loop; the
@@ -26,7 +27,7 @@ from ..repellency.methods import RepellencyConfig, apply_repellency
 @dataclasses.dataclass(frozen=True)
 class GuidanceConfig:
     guidance_scale: float = 7.5
-    mode: str = "cfg"               # 'cfg' | 'sld' (lra waits for SAFREE)
+    mode: str = "cfg"               # 'cfg' | 'lra' | 'sld'
     sld_guidance_scale: float = 2000.0
     sld_threshold: float = 0.025
     sld_momentum_scale: float = 0.5
@@ -64,7 +65,8 @@ def _combine_guidance(noise_pred: torch.Tensor, i: int,
     g = guidance.guidance_scale if guidance_scale is None else guidance_scale
     if torch.is_tensor(g) and g.dim() == 1:
         g = g.reshape(-1, *([1] * (uncond.dim() - 1)))
-    if guidance.mode == "cfg":
+    if guidance.mode in ("cfg", "lra"):
+        # lra's third branch only feeds the SafeGuard filters
         return uncond + g * (text - uncond), momentum
     if guidance.mode != "sld":
         raise NotImplementedError(f"guidance mode {guidance.mode}")
@@ -106,13 +108,22 @@ def sample_sd(unet_fn: Callable[..., torch.Tensor],
               repellency: Optional[RepellencyConfig] = None,
               refs: Optional[torch.Tensor] = None,
               window: RepellencyWindow = RepellencyWindow(),
-              guidance_scale=None):
+              guidance_scale=None,
+              text_embeds_alt: Optional[torch.Tensor] = None,
+              use_alt_per_step: Optional[torch.Tensor] = None,
+              freeu=None):
     """Run the reverse diffusion for SD-v1.x.
 
-    unet_fn: ``(latents [B', C, H, W], t, context [B', S, D]) -> eps``.
-    text_embeds: [branches, B, S, D], branch order [uncond, cond, extra].
+    unet_fn: ``(latents [B', C, H, W], t, context [B', S, D], freeu=)
+    -> eps``, the UNet's signature.
+    text_embeds: [branches, B, S, D], branch order [uncond, cond, extra]
+    (extra: the original cond for 'lra', the safety concept for 'sld').
     latents: [B, C, H, W] initial noise, scaled by init_noise_sigma.
     noise_fn: ``(step index, salt) -> [B, C, H, W]`` noise.
+    text_embeds_alt / use_alt_per_step: SAFREE's adaptive window; at step i
+    a sample takes its context from ``text_embeds_alt`` where
+    ``use_alt_per_step[i]`` ([steps] or [steps, B] bool) holds.
+    freeu: a ``FreeUConfig`` for the UNet.
     Returns (final latents [B, C, H, W], rep_applied [steps, B] bool).
     """
     timesteps = scheduler.timesteps(num_inference_steps)
@@ -121,13 +132,23 @@ def sample_sd(unet_fn: Callable[..., torch.Tensor],
         raise ValueError(f"{n_br} text branches for guidance mode "
                          f"{guidance.mode}")
     ctx = text_embeds.reshape(n_br * b, *text_embeds.shape[2:])
+    swap = None
+    if text_embeds_alt is not None and use_alt_per_step is not None:
+        use = torch.as_tensor(use_alt_per_step, dtype=torch.bool)
+        if use.dim() == 1:
+            use = use[:, None].expand(num_inference_steps, b)
+        swap = (text_embeds_alt.reshape(ctx.shape), use.cpu())
     momentum = torch.zeros_like(latents)
     applied = torch.zeros((num_inference_steps, b), dtype=torch.bool,
                           device=latents.device)
     for i, t in enumerate(int(t) for t in timesteps):
         latent_in = scheduler.scale_model_input(
             torch.cat([latents] * n_br, dim=0), t)
-        eps = unet_fn(latent_in, t, ctx)
+        step_ctx = ctx
+        if swap is not None and bool(swap[1][i].any()):
+            rows = swap[1][i].repeat(n_br).to(ctx.device)
+            step_ctx = torch.where(rows[:, None, None], swap[0], ctx)
+        eps = unet_fn(latent_in, t, step_ctx, freeu=freeu)
         eps = eps.reshape(n_br, b, *eps.shape[1:])
         eps, momentum = _combine_guidance(eps, i, guidance, momentum,
                                           guidance_scale)

@@ -4,8 +4,8 @@ assembly, the online gate, detect_dict aggregation.
 Counterpart of ``safe_denoiser_tpu/runners/common.py`` for the nudity
 runners (SD-v1.4 and SD3). The flags and their defaults are the JAX
 package's, except ``--device`` (``cuda``; tests pass ``cpu``). Flags that
-ask for what is not ported yet raise ``NotImplementedError`` naming it
-(``check_ported``).
+ask for what is not ported yet (``--shard_bank``, ``--category all``)
+raise ``NotImplementedError`` naming it (``check_ported``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from ..data import get_dataset, get_transform, shard_cases, write_png
-from ..pipeline.diffusion import ERASE_SPECS, SafeDiffusionPipeline
+from ..pipeline.diffusion import SafeDiffusionPipeline
+from ..pipeline.safree import NUDITY_NEGATIVE_PROMPT_SPACE  # noqa: F401
 from ..repellency import get_repellency_method
 from ..utils.config import load_yaml, read_json, save_combined_config
 from ..utils.logging import Logger
@@ -131,18 +132,8 @@ def check_ported(args) -> None:
     """Raise NotImplementedError for any flag whose feature the port lacks,
     before anything is loaded."""
     missing = []
-    if args.erase_id not in ERASE_SPECS:
-        missing.append(f"--erase_id {args.erase_id} (SLD/SAFREE/RECE text "
-                       f"methods; ported: {sorted(ERASE_SPECS)})")
-    for flag, on in (("--safree (SAFREE)", args.safree),
-                     ("-svf (SAFREE's self-validation filter)",
-                      args.self_validation_filter),
-                     ("-lra (latent re-attention / FreeU)",
-                      args.latent_re_attention),
-                     ("--shard_bank (bank sharding over devices)",
-                      args.shard_bank)):
-        if on:
-            missing.append(flag)
+    if args.shard_bank:
+        missing.append("--shard_bank (bank sharding over devices)")
     if args.category == "all":
         missing.append("--category all (the Q16 gate)")
     if missing:

@@ -10,8 +10,10 @@ Counterpart of ``safe_denoiser_tpu/runners/nudity.py``:
 writes ``logs.txt``, ``config.yaml``, ``detect_dict.json`` and each case's
 PNG under ``all/`` and one of ``safe/`` or ``unsafe/`` (artist runs:
 ``all/<case>.png`` only). The loop overlaps cases (``common.run_cases``).
-The negative prompt (space) the JAX runner derives serves SAFREE only,
-which ``check_ported`` refuses, so every case here runs with the empty one.
+Every erase id of ``ERASE_SPECS`` runs, with SAFREE (``--safree``, its
+self-validation filter ``-svf``), latent re-attention (``-lra``, with
+``--safree`` also the SafeGuard filters from ``--freeu_hyp``) and SLD's
+``--safe_level``, as in the JAX package's runner.
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ from __future__ import annotations
 import os
 
 from ..data import iter_prompt_cases, read_csv
-from ..pipeline.diffusion import ERASE_SPECS
+from ..models import FreeUConfig
+from ..pipeline.diffusion import ERASE_SPECS, SLD_CONFIGS
 from ..utils.logging import Logger
 from .common import (
+    NUDITY_NEGATIVE_PROMPT_SPACE,
     base_parser,
     build_eval,
     build_pipeline,
@@ -33,11 +37,34 @@ from .common import (
 )
 
 
+def resolve_negative_space(args) -> tuple[list[str], str | None]:
+    """(negative prompt space, negative prompt) of the category and erase
+    id: the nudity space for SAFREE ids, the artist's name for artist
+    runs, else one blank; the joined space as the negative prompt for the
+    safree_neg_prompt ids."""
+    if args.category in ("nudity", "all"):
+        space = (list(NUDITY_NEGATIVE_PROMPT_SPACE)
+                 if "safree" in args.erase_id else [" "])
+    elif "artists-" in args.category:
+        name = args.category.split("-")[-1]
+        space = [{"VanGogh": "Van Gogh",
+                  "KellyMcKernan": "Kelly McKernan"}.get(name, name)]
+    else:
+        space = [" "]
+    negative = (", ".join(space)
+                if "safree_neg_prompt" in args.erase_id and len(space) > 1
+                else None)
+    return space, negative
+
+
 def main(argv=None):
     parser, _ = base_parser("Safe-Denoiser nudity benchmark (PyTorch port)",
                             argv)
     args = parser.parse_args(argv)
     check_ported(args)
+    if args.erase_id not in ERASE_SPECS:
+        raise ValueError(f"unknown --erase_id {args.erase_id}: one of "
+                         f"{sorted(ERASE_SPECS)}")
 
     dirs = make_save_dirs(args.save_dir)
     logger = Logger(os.path.join(args.save_dir, "logs.txt"))
@@ -57,15 +84,35 @@ def main(argv=None):
     repellency_processor, task_config = build_repellency(args, pipe, logger)
     erase_spec = ERASE_SPECS[args.erase_id]
 
+    freeu = None
+    if args.safree and args.latent_re_attention:
+        b1, b2, s1, s2 = (float(v) for v in args.freeu_hyp.split("-"))
+        freeu = FreeUConfig(b1=b1, b2=b2, s1=s1, s2=s2, mode="all")
+    safe_config = None
+    if "sld" in args.erase_id:
+        safe_config = SLD_CONFIGS[args.safe_level]
+        logger.log(f"SLD safe level: {args.safe_level}")
+        logger.log(f"SLD safe config: {safe_config}")
+    negative_prompt_space, negative_prompt = resolve_negative_space(args)
+    safree_dict = {
+        "re_attn_t": [int(t) for t in args.re_attn_t.split(",")],
+        "alpha": args.sf_alpha, "safree": args.safree,
+        "svf": args.self_validation_filter,
+        "lra": args.latent_re_attention, "up_t": args.up_t,
+        "category": args.category}
+
     def dispatch(case):
         return pipe.dispatch(
             case.prompt,
             num_inference_steps=args.num_inference_steps,
             guidance_scale=case.guidance,
+            negative_prompt=negative_prompt,
+            negative_prompt_space=negative_prompt_space,
             height=args.image_length, width=args.image_length,
             seed=case.seed,
             repellency_processor=repellency_processor,
-            erase_spec=erase_spec)
+            erase_spec=erase_spec, safe_config=safe_config, freeu=freeu,
+            safree_dict=safree_dict)
 
     cases = shard_iter(args, iter_prompt_cases(
         dataset, default_guidance=args.guidance_scale,

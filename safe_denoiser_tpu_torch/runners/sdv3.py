@@ -29,7 +29,7 @@ from ..repellency import get_repellency_method
 from ..utils.config import load_yaml
 from ..utils.logging import Logger
 from .common import (base_parser, build_eval, check_bank_matches_image_length,
-                     make_save_dirs, run_cases, shard_iter)
+                     check_ported, make_save_dirs, run_cases, shard_iter)
 
 
 def build_sd3_repellency(args, pipe: SafeDiffusion3Pipeline, logger: Logger):
@@ -89,23 +89,11 @@ def sd3_parser(description: str, argv=None):
     return parser
 
 
-def check_sd3_ported(args) -> None:
-    """Raise NotImplementedError for what the SD3 runner's port lacks,
-    before anything loads."""
-    missing = []
-    if args.shard_bank:
-        missing.append("--shard_bank (bank sharding over devices)")
-    if args.category == "all":
-        missing.append("--category all (the Q16 gate)")
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-
-
 def main_nudity(argv=None):
     parser = sd3_parser("Safe-Denoiser SD3 nudity benchmark (PyTorch port)",
                         argv)
     args = parser.parse_args(argv)
-    check_sd3_ported(args)
+    check_ported(args)
 
     dirs = make_save_dirs(args.save_dir)
     logger = Logger(os.path.join(args.save_dir, "logs.txt"))

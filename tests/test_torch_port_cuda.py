@@ -3,7 +3,9 @@ and layouts the main path of chip_smoke.py does not reach: sequence tails,
 other head dims, strided and unaligned rows, the f32 attention path, the
 int8-QK^T kernel's rounding ties and zero rows, the layout kernels (nt,
 bshd, the head repacks) and their switches, small and odd banks, odd
-image sizes, channel counts that are not a tile's.
+image sizes, channel counts that are not a tile's, the fused GroupNorm at
+group widths that are not powers of two, the interleaved upsample conv
+against the planar one.
 
 Every test is marked ``cuda`` and skips where no GPU is visible. On a GPU
 machine (which need not have JAX; ``--noconftest`` skips the suite's JAX
@@ -498,6 +500,72 @@ def test_upsample_module_with_packed_weights_matches_the_wrapper(dev):
                             for k, v in up.state_dict().items()})
 
 
+@pytest.mark.parametrize("b,h2,w2,ci,co,bias", [
+    (3, 5, 7, 64, 128, True), (1, 8, 8, 32, 64, False),
+    (2, 16, 16, 128, 128, True), (1, 33, 17, 96, 192, True),
+    (1, 6, 48, 256, 128, False)])
+def test_conv3x3_up_interleave_kernel_matches_plain_and_planar(
+        dev, b, h2, w2, ci, co, bias):
+    """The interleaved upsample conv (B7) against the plain version in f32
+    on the same bf16 values and against the planar kernel (B3), within
+    B3's bound (the bf16 output and weights): (3, 5, 7) is all border, a
+    partial 4 x 16 tile in both directions; Ci = 32 is one K step;
+    (1, 33, 17) and (1, 6, 48) leave partial tiles with interior rows."""
+    g = _gen(12)
+    h = torch.randn(b, h2, w2, ci, device=dev, generator=g).bfloat16()
+    w = (torch.randn(co, ci, 3, 3, device=dev, generator=g)
+         / (9 * ci) ** 0.5).bfloat16()
+    bb = torch.randn(co, device=dev, generator=g).bfloat16() if bias else None
+    ops.reset_launch_counts()
+    got = conv3x3.conv3x3_up(h, w, bb, form="interleave")
+    planar = conv3x3.conv3x3_up(h, w, bb)
+    want = conv3x3.conv3x3_up_ref(h.float(), w.float(),
+                                  None if bb is None else bb.float())
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["conv3x3_up_interleave"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, 2 * h2, 2 * w2,
+                                                         co)
+    torch.testing.assert_close(got.float(), want, atol=5e-2, rtol=2e-2)
+    torch.testing.assert_close(got.float(), planar.float(), atol=5e-2,
+                               rtol=2e-2)
+
+
+def test_conv3x3_up_interleave_wrapper_rejects_what_the_kernel_does_not_take(
+        dev):
+    ops.reset_launch_counts()
+    h = torch.randn(1, 8, 8, 64, device=dev).bfloat16()
+    w = torch.randn(64, 64, 3, 3, device=dev).bfloat16()
+    for hh, ww in ((h.float(), w), (h[..., :48], w[:, :48]),
+                   (h.transpose(1, 2), w), (h, w[:32]), (h, w[:, :32]),
+                   (h, w.cpu())):
+        with pytest.raises(ValueError):
+            conv3x3.conv3x3_up(hh, ww, form="interleave")
+    wrong = conv3x3.pack_weights(torch.randn(128, 64, 3, 3, device=dev))
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_up(h, w, packed=wrong, form="interleave")
+    assert ops.launch_counts()["conv3x3_up_interleave"] == 0
+
+
+def test_vae_upsample_under_the_up_form_switch(dev, monkeypatch):
+    """SDT_UP_FORM=interleave: the VAE's upsample launches B7 with its
+    packed weights, bit-equal to the wrapper; the UNet's stays on B3."""
+    from safe_denoiser_tpu_torch.models.unet import Upsample2D as UNetUp
+    from safe_denoiser_tpu_torch.models.vae import Upsample2D as VAEUp
+    monkeypatch.setenv("SDT_UP_FORM", "interleave")
+    g = _gen(13)
+    x = torch.randn(2, 128, 16, 16, device=dev, generator=g).bfloat16()
+    vae_up = VAEUp(128).to(dev, torch.bfloat16)
+    ops.reset_launch_counts()
+    got = vae_up(x)
+    UNetUp(128).to(dev, torch.bfloat16)(x)
+    want = conv3x3.conv3x3_up(x.permute(0, 2, 3, 1).contiguous(),
+                              vae_up.conv.weight, vae_up.conv.bias,
+                              form="interleave")
+    torch.testing.assert_close(got.permute(0, 2, 3, 1), want, atol=0, rtol=0)
+    counts = ops.launch_counts()
+    assert (counts["conv3x3_up_interleave"], counts["conv3x3_up"]) == (2, 1)
+
+
 # ----------------------------------------------------------------- conv3x3
 def _conv3x3_case(b, h, w, ci, co, seed):
     """NHWC bf16 x and residual, bf16 weights, f32 bias and GN affine."""
@@ -635,10 +703,76 @@ def test_gn_stats_wrapper_rejects_what_the_kernel_does_not_take(dev):
     assert ops.launch_counts()["gn_stats"] == 0
 
 
+# ---------------------------------------------------------------- gn_fused
+def _bf16_ulp(m: float) -> float:
+    return 2.0 ** (torch.tensor(m).log2().floor().item() - 7)
+
+
+@pytest.mark.parametrize("b,s,c,groups", [
+    (2, 64, 2560, 32), (2, 300, 320, 32), (1, 4096, 320, 32),
+    (3, 33, 96, 8), (2, 1024, 1280, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_fused_kernel_matches_plain(dev, b, s, c, groups, dtype,
+                                               act):
+    """The fused GroupNorm (B6) against its plain version on the same
+    values: S = 64 with C = 2560 (group width 80), group widths 10 and 12
+    (not powers of two), rows that are no multiple of the block, the UNet's
+    two largest admitted shapes. x ~ N(5, 2^2), where the one-pass
+    variance cancels most. f32 within 5e-5 + 1e-5 |plain| (sums in another
+    order); bf16 within one bf16 ulp of max|y| (the same f32 values may
+    round to neighbouring bf16 values)."""
+    gen = _gen(14)
+    x = (torch.randn(b, s, c, device=dev, generator=gen) * 2 + 5).to(dtype)
+    sc = 1 + 0.5 * torch.randn(c, device=dev, generator=gen)
+    bi = 0.5 * torch.randn(c, device=dev, generator=gen)
+    ops.reset_launch_counts()
+    got = group_norm.group_norm_fused(x, sc, bi, groups, act=act)
+    want = group_norm.group_norm_fused_ref(x, sc, bi, groups, act=act)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gn_fused"] == 1
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-5)
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _bf16_ulp(want.float().abs().max().item()), err
+
+
+def test_group_norm_fused_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    ops.reset_launch_counts()
+    x = torch.randn(2, 64, 128, device=dev)
+    sc, bi = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+    for args, kw in (((x.double(), sc, bi, 32), {}),
+                     ((x.transpose(1, 2), sc, bi, 32), {}),
+                     ((x[0], sc, bi, 32), {}), ((x, sc, bi, 48), {}),
+                     ((x, sc[:64], bi, 32), {}), ((x, sc.cpu(), bi, 32), {}),
+                     ((x, sc, bi, 32), {"act": "gelu"})):
+        with pytest.raises(ValueError):
+            group_norm.group_norm_fused(*args, **kw)
+    assert ops.launch_counts()["gn_fused"] == 0
+
+
+def test_group_norm_dispatch_under_the_fused_switch(dev, monkeypatch):
+    """SDT_FUSED_GN=1: the UNet's GroupNorm module launches B6 where the
+    gate admits the shape (C 320 at 64^2) and the plain form with B5's
+    statistics where it does not (C 640 at 64^2)."""
+    from safe_denoiser_tpu_torch.models.layers import GroupNorm32
+    monkeypatch.setenv("SDT_FUSED_GN", "1")
+    for c, want in ((320, (1, 0)), (640, (0, 1))):
+        gn = GroupNorm32(c, 32, 1e-5, act="silu").to(dev, torch.bfloat16)
+        x = torch.randn(2, c, 64, 64, device=dev).bfloat16().contiguous(
+            memory_format=torch.channels_last)
+        ops.reset_launch_counts()
+        gn(x)
+        counts = ops.launch_counts()
+        assert (counts["gn_fused"], counts["gn_stats"]) == want, c
+
+
 # ----------------------------------------------------------------- counts
 def test_each_wrapper_call_counts_one_launch(dev):
-    """One count per wrapper call, though rbf and gn_stats each run two
-    device kernels."""
+    """One count per wrapper call, though rbf, gn_stats and
+    group_norm_fused each run two device kernels."""
     ops.reset_launch_counts()
     x = torch.randn(1, 512, 2, 40, device=dev).bfloat16()
     attention.self_attention(x, x, x, 0.1)
@@ -646,11 +780,16 @@ def test_each_wrapper_call_counts_one_launch(dev):
     repellency_kernels.rbf_negative_score(torch.randn(2, 128, device=dev),
                                           torch.randn(5, 128, device=dev),
                                           3.0)
-    conv3x3.conv3x3_up(torch.randn(1, 16, 16, 128, device=dev).bfloat16(),
-                       torch.randn(128, 128, 3, 3, device=dev).bfloat16())
+    for form in conv3x3.UP_FORMS:
+        conv3x3.conv3x3_up(
+            torch.randn(1, 16, 16, 128, device=dev).bfloat16(),
+            torch.randn(128, 128, 3, 3, device=dev).bfloat16(), form=form)
     conv3x3.conv3x3(torch.randn(1, 8, 16, 128, device=dev).bfloat16(),
                     torch.randn(128, 128, 3, 3, device=dev).bfloat16())
     group_norm.gn_stats(torch.randn(1, 16384, 128, device=dev))
+    group_norm.group_norm_fused(torch.randn(1, 4096, 320, device=dev),
+                                torch.randn(320, device=dev),
+                                torch.randn(320, device=dev), 32)
     y = x.reshape(2, 512, 40).contiguous()
     attention.attention_nt(y, y, y, 0.1)
     attention.attention_bshd(x, x, x, 0.1)

@@ -242,13 +242,19 @@ def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
                       torch.randn(128, 128, 3, 3).bfloat16())
     t_conv.conv3x3(torch.randn(1, 8, 16, 128).bfloat16(),
                    torch.randn(128, 128, 3, 3).bfloat16())
+    t_conv.conv3x3_up(torch.randn(1, 16, 16, 128).bfloat16(),
+                      torch.randn(128, 128, 3, 3).bfloat16(),
+                      form="interleave")
     t_gn.gn_stats(torch.randn(1, 16384, 128))
+    t_gn.group_norm_fused(torch.randn(1, 4096, 320).bfloat16(),
+                          torch.randn(320), torch.randn(320), 32, act="silu")
     assert ops.launch_counts() == {"attention": 0, "attention_i8": 0,
                                    "attention_nt": 0, "attention_bshd": 0,
                                    "repack_to_heads": 0,
                                    "repack_from_heads": 0, "rbf": 0,
-                                   "conv3x3_up": 0, "conv3x3": 0,
-                                   "gn_stats": 0}
+                                   "conv3x3_up": 0,
+                                   "conv3x3_up_interleave": 0, "conv3x3": 0,
+                                   "gn_stats": 0, "gn_fused": 0}
 
 
 @pytest.mark.parametrize("call", [
@@ -265,10 +271,14 @@ def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
     lambda x: t_rep.rbf_negative_score(x((2, 128)), x((5, 128)), 3.0),
     lambda x: t_conv.conv3x3_up(x((1, 16, 16, 128)), x((128, 128, 3, 3))),
     lambda x: t_conv.conv3x3(x((1, 8, 16, 128)), x((128, 128, 3, 3))),
-    lambda x: t_gn.gn_stats(x((1, 16384, 128)))],
+    lambda x: t_gn.gn_stats(x((1, 16384, 128))),
+    lambda x: t_conv.conv3x3_up(x((1, 16, 16, 128)), x((128, 128, 3, 3)),
+                                form="interleave"),
+    lambda x: t_gn.group_norm_fused(x((1, 4096, 320)), x((320,)),
+                                    x((320,)), 32)],
     ids=["attention", "attention_i8", "attention_nt", "attention_bshd",
          "repack_to_heads", "repack_from_heads", "rbf", "conv3x3_up",
-         "conv3x3", "gn_stats"])
+         "conv3x3", "gn_stats", "conv3x3_up_interleave", "gn_fused"])
 def test_non_cpu_tensors_never_take_the_plain_version(call):
     """No fallback: only a CPU tensor takes the plain version. A tensor on
     any other device goes to the kernel's wrapper, which raises here (no

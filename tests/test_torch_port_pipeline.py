@@ -212,9 +212,9 @@ def test_from_pretrained_and_generate_batch(tmp_path, vocab_dir):
     np.testing.assert_allclose(alone.latents[0].numpy(),
                                pending.latents[1].numpy(), atol=1e-3,
                                rtol=1e-4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="text method"):
         pipe.dispatch_batch(PROMPTS, [1, 2], [7.5, 7.5],
-                            erase_spec=EraseSpec(text_method="sld"))
+                            erase_spec=EraseSpec(text_method="esd"))
 
 
 def test_entry_points_raise_without_gpu(tmp_path, vocab_dir):

@@ -363,13 +363,18 @@ def test_runner_artist_resume_and_shards(assets):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--erase_id", "safree_neg_prompt_rep"], ["--erase_id", "sld"],
-    ["--safree"], ["-lra"], ["--shard_bank"], ["--category", "all"]],
-    ids=["safree", "sld", "safree_flag", "lra", "shard_bank", "q16"])
+    ["--shard_bank"], ["--category", "all"]], ids=["shard_bank", "q16"])
 def test_runner_raises_on_what_is_not_ported(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         t_nudity.main(["--data", "x.csv", "--save-dir", str(tmp_path / "o"),
                        "--device", "cpu", *extra])
+    assert not (tmp_path / "o").exists()
+
+
+def test_runner_refuses_an_unknown_erase_id(tmp_path):
+    with pytest.raises(ValueError, match="unknown --erase_id"):
+        t_nudity.main(["--data", "x.csv", "--save-dir", str(tmp_path / "o"),
+                       "--device", "cpu", "--erase_id", "sld_rep_typo"])
     assert not (tmp_path / "o").exists()
 
 
@@ -494,13 +499,16 @@ def test_sd3_runner_artist_branch_and_what_is_not_ported(sd3_assets,
 
 
 def test_pipeline_keywords_for_unported_features_raise():
-    from safe_denoiser_tpu_torch.pipeline import SafeDiffusionPipeline
-    pipe = SafeDiffusionPipeline.__new__(SafeDiffusionPipeline)
-    for kw in (dict(safree_dict={"safree": True}),
-               dict(safree_dict={"lra": True}), dict(safe_config={}),
-               dict(freeu=object())):
+    """Every SD-v1 erasure keyword runs now; what stays unported is on the
+    SD3 pipeline: LoRA, the data mesh, bank sharding."""
+    from safe_denoiser_tpu_torch.pipeline.diffusion_sd3 import \
+        SafeDiffusion3Pipeline
+    pipe = SafeDiffusion3Pipeline.__new__(SafeDiffusion3Pipeline)
+    for call in (lambda: pipe.load_lora("x.safetensors"),
+                 lambda: pipe.enable_data_mesh(2),
+                 lambda: pipe.enable_bank_sharding(None)):
         with pytest.raises(NotImplementedError, match="not ported"):
-            pipe.dispatch_batch(["p"], [0], [7.5], **kw)
+            call()
 
 
 def test_pipeline_swaps_in_an_esd_unet(assets, tmp_path):
