@@ -2,24 +2,32 @@
 
     python3 chip_smoke.py            # every phase, needs one CUDA GPU
     python3 chip_smoke.py --profile  # every phase, plus profiled batches
+    python3 chip_smoke.py --parent DIR  # every phase, plus phase 3b
 
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. environment: torch/CUDA versions, the card's name and power limit, the
      TF32 switches (turned off for the f32 checks);
   2. build: nvcc builds the CUDA kernels from csrc/ (Triton compiles its
      kernel at first launch);
-  3. kernel checks: each kernel at the main path's shapes (and B4/B5 also
-     at the runner's bank-encode shapes; B9/B10 also in f32; B7 beside B3)
-     against its plain PyTorch version, with its time, the plain
-     version's, a library call's where one exists, and the bound the card
-     could reach;
+  3. kernel checks: ptxas' registers, spills and static shared memory of
+     every kernel in csrc/ (and the dynamic shared memory of every template
+     of B1, attention.cu, and of B4, conv3x3.cu, the two wgmma kernels);
+     then each kernel at the main path's shapes (and B4/B5 also at the
+     runner's bank-encode shapes; B9/B10 also in f32; B7 beside B3) against
+     its plain PyTorch version, with its time, the plain version's, a
+     library call's where one exists, and the bound the card could reach;
+  3b. with --parent DIR (the root of an earlier checkout, unpacked with
+     ``git archive``): its attention.cu and conv3x3.cu built with the same
+     flags, and B1 and B4 of both timed in turns (parent, this, this,
+     parent) at the main path's three shapes each;
   4. main path: the tiny f32 slice on cuda against the CPU, at 8^2 latents
      and at 32^2 (S = 1024) under each attention layout (bhsd, nt, nt with
      the head repacks, bshd: SDT_FLASH2_LAYOUT / SDT_ATTN_REPACK), then
      SafeDiffusionPipeline on cuda at full SD-v1.4 width with seeded random
      weights -- 4 prompts, 512x512, 50 DDPM steps, CFG 7.5, kernel_fast
      repellency against a [515,4,64,64] bank in the window [1000, 780], VAE
-     decode -- and the launch count of every kernel;
+     decode -- and the launch count of every kernel; every main path
+     checks that B1's wrapper copied no q/k/v for its tensor maps;
   5. gate check: the same pipeline for 5 steps with a bank built from the
      run's own x0, so the beta gate opens at full width and B2's score
      must reach the latents;
@@ -219,8 +227,14 @@ def count_self_attention():
 
 
 def check_launches(counts: dict, want: dict, what: str) -> None:
+    from safe_denoiser_tpu_torch.ops import attention
+
     print(f"{what} launches: {json.dumps(counts)} expected "
           f"{json.dumps(want)}")
+    # B1's tensor maps take every main path's q/k/v without a copy
+    if attention.staging_copies:
+        fail(f"{what}: B1's wrapper copied q/k/v {attention.staging_copies} "
+             "times")
     for name, n in want.items():
         if counts[name] != n:
             fail(f"{what}: kernel {name} launched {counts[name]} times, "
@@ -398,14 +412,75 @@ def phase_env() -> str:
     return card
 
 
+def ptxas_entries(log: str) -> list:
+    """(kernel function, registers, spill store bytes, spill load bytes,
+    static shared bytes) per entry function of an ``nvcc -Xptxas -v`` log;
+    the function is its mangled name (template arguments included)."""
+    import re
+
+    rows, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            sm = re.search(r"(\d+) bytes smem", line)
+            rows.append((fn, int(m.group(1)), *spill,
+                         int(sm.group(1)) if sm else 0))
+            fn, spill = None, (0, 0)
+    return rows
+
+
 def phase_build() -> None:
     from safe_denoiser_tpu_torch.ops import _build
     secs = _build.build_all()
     print(f"build: nvcc {len(_build.SOURCES)} sources in {secs:.1f} s "
           f"into {_build.BUILD_DIR}")
-    for name, log in _build.ptxas_log.items():
+
+
+def dynamic_smem(name: str, fn: str):
+    """The dynamic shared memory (bytes) that the C side gives kernel
+    function ``fn`` of ``csrc/<name>.cu``: every template of B1's bf16
+    kernel and B4; None for the rest."""
+    import re
+
+    from safe_denoiser_tpu_torch.ops import _build
+
+    m = re.search(r"attn_kernelILi(\d+)E", fn)
+    if name == "attention" and m:
+        return _build.library(name).sdt_self_attention_bf16_smem(
+            int(m.group(1)))
+    if name == "conv3x3" and "conv3x3_kernel" in fn:
+        return _build.library(name).sdt_conv3x3_bf16_smem()
+    return None
+
+
+def print_ptxas() -> None:
+    """ptxas' registers, spills and static shared memory of every kernel of
+    every source (from the report kept beside its library), its warnings
+    (C7512/C7513: wgmma serialized), and the dynamic shared memory of B1's
+    templates and B4."""
+    from safe_denoiser_tpu_torch.ops import _build
+
+    for name in _build.SOURCES:
+        log = _build.ptxas_report(name)
+        entries = ptxas_entries(log)
+        if not entries:
+            fail(f"no ptxas report for {name}.cu")
+        for fn, regs, st, ld, smem in entries:
+            dyn = dynamic_smem(name, fn)
+            extra = "" if dyn is None else \
+                f", {dyn} bytes dynamic shared memory"
+            print(f"  ptxas {name} {fn}: {regs} registers, {st} bytes "
+                  f"spill stores, {ld} bytes spill loads, {smem} bytes "
+                  f"static shared memory{extra}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "warning" in line or "(C75" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
 
@@ -466,6 +541,7 @@ def phase_kernels() -> dict:
     from safe_denoiser_tpu_torch.ops import (
         attention, conv3x3, group_norm, repellency_kernels)
 
+    print_ptxas()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -906,6 +982,110 @@ def phase_kernels() -> dict:
         if dtype == torch.bfloat16:
             results["gn_fused"]["err"] = max(results["gn_fused"]["err"], err)
     return results
+
+
+# phase 3b's shapes: B1 (B, S, H, D) at SD-v1's two self-attentions (batch
+# 4 with CFG) and SD3's joint attention; B4 (B, H, W, Ci, Co, residual) at
+# the SD-v1 decoder's three largest convs
+PARENT_B1 = ((8, 4096, 8, 40), (8, 1024, 8, 80), (2, 4429, 24, 64))
+PARENT_B4 = ((4, 64, 64, 512, 512, False), (4, 256, 256, 512, 256, False),
+             (4, 512, 512, 128, 128, True))
+PARENT_ENTRIES = {"attention": "sdt_self_attention_bf16",
+                  "conv3x3": "sdt_conv3x3_bf16"}
+
+
+def build_parent(root: str) -> dict:
+    """B1's and B4's bf16 C entry points from the checkout at ``root``,
+    built (both sources at once) with this checkout's nvcc flags into
+    build/torch_kernels_parent/; they take the arguments of this
+    checkout's."""
+    import ctypes
+
+    from safe_denoiser_tpu_torch.ops import _build
+
+    out_dir = _build.BUILD_DIR.parent / "torch_kernels_parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in PARENT_ENTRIES:
+        src = os.path.join(root, "safe_denoiser_tpu_torch", "csrc",
+                           f"{name}.cu")
+        lib = str(out_dir / f"lib{name}.so")
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), lib)
+    fns = {}
+    for name, (proc, lib) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            fail(f"nvcc failed for the parent's {name}.cu:\n{err}")
+        entry = PARENT_ENTRIES[name]
+        fn = getattr(ctypes.CDLL(lib), entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _build.SIGNATURES[name][entry]
+        fns[name] = fn
+    return fns
+
+
+def phase_parent(root: str) -> None:
+    """Phase 3b: B1 and B4 of the checkout at ``root`` against this
+    checkout's on the same seeded inputs, timed in turns (parent, this,
+    this, parent), with the largest difference of their outputs."""
+    from safe_denoiser_tpu_torch.ops import _build, conv3x3
+
+    parent = build_parent(root)
+    this = {name: getattr(_build.library(name), entry)
+            for name, entry in PARENT_ENTRIES.items()}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def turns(name, call, shape):
+        fns = {"parent": parent[name], "this": this[name]}
+        diff = (call(fns["this"]).float()
+                - call(fns["parent"]).float()).abs().max().item()
+        ms = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            ms[who].append(cuda_ms(lambda: call(fns[who]), reps=20))
+        print(f"parent {name} {shape}: parent_ms="
+              f"{ms['parent'][0]:.4f}/{ms['parent'][1]:.4f} this_ms="
+              f"{ms['this'][0]:.4f}/{ms['this'][1]:.4f} "
+              f"max|this-parent|={diff:.3e}")
+
+    for b, s, h, d in PARENT_B1:
+        q, k, v = (torch.randn(b, s, h, d, device=dev, generator=g)
+                   .bfloat16() for _ in range(3))
+
+        def attn(fn):
+            out = torch.empty_like(q)
+            _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), b, s, h, d, *q.stride()[:3],
+                            d ** -0.5, _build.stream_ptr(dev)),
+                         "sdt_self_attention_bf16")
+            return out
+
+        turns("attention", attn, [b, s, h, d])
+    for b, h, w, ci, co, with_res in PARENT_B4:
+        x = torch.randn(b, h, w, ci, device=dev, generator=g).bfloat16()
+        wt, bias = conv3x3.pack_weights_3x3(
+            torch.randn(co, ci, 3, 3, device=dev, generator=g)
+            / (9 * ci) ** 0.5,
+            0.1 * torch.randn(co, device=dev, generator=g))
+        a = (1.0 + 0.2 * torch.randn(b, ci, device=dev, generator=g)
+             ).bfloat16()
+        sh = (0.5 * torch.randn(b, ci, device=dev, generator=g)).bfloat16()
+        res = (torch.randn(b, h, w, co, device=dev, generator=g).bfloat16()
+               if with_res else None)
+
+        def conv(fn):
+            out = torch.empty((b, h, w, co), dtype=x.dtype, device=dev)
+            _build.check(fn(x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                            a.data_ptr(), sh.data_ptr(),
+                            None if res is None else res.data_ptr(),
+                            out.data_ptr(), b, h, w, ci, co, 1,
+                            _build.stream_ptr(dev)), "sdt_conv3x3_bf16")
+            return out
+
+        turns("conv3x3", conv, [b, h, w, ci, co] + (["+res"] if with_res
+                                                     else []))
 
 
 KERNEL_META = {
@@ -2066,6 +2246,9 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, profile a 10-step batch; "
                          "after each SD3 run, a 5-step image")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="an earlier checkout whose B1 and B4 phase 3b "
+                         "times against this one's")
     args = ap.parse_args()
     try:
         import safe_denoiser_tpu_torch  # noqa: F401
@@ -2074,6 +2257,8 @@ def main() -> None:
     card = phase_env()
     phase_build()
     results = phase_kernels()
+    if args.parent:
+        phase_parent(args.parent)
     counts, pipe, kw = phase_main_path()
     phase_gate_open(pipe)
     phase_runner(pipe)

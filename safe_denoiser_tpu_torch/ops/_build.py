@@ -36,17 +36,20 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _ATTN = [_P] * 4 + [_I] * 4 + [_L] * 3 + [_F, _P]
 _LAYOUT = [_P] * 4 + [_I] * 4 + [_F, _P]       # nt and bshd attention
 _REPACK = [_P] * 2 + [_I] * 5 + [_P]
-# argument types of each C entry point (all return a cudaError_t as int),
+# argument types of each C entry point (all return an int: a cudaError_t,
+# or for the *_smem entries a kernel's dynamic shared memory in bytes),
 # bound once when its library is loaded
 SIGNATURES = {
     "attention": {"sdt_self_attention_bf16": _ATTN,
-                  "sdt_self_attention_f32": _ATTN},
+                  "sdt_self_attention_f32": _ATTN,
+                  "sdt_self_attention_bf16_smem": [_I]},
     "attention_i8": {"sdt_self_attention_i8_bf16": _ATTN[:-1] + [_F, _P]},
     "rbf": {"sdt_rbf_score_f32": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P]},
     "conv3x3_up": {"sdt_conv3x3_up_bf16": [_P] * 4 + [_I] * 5 + [_P]},
     "conv3x3_up_interleave": {
         "sdt_conv3x3_up_interleave_bf16": [_P] * 4 + [_I] * 5 + [_P]},
-    "conv3x3": {"sdt_conv3x3_bf16": [_P] * 7 + [_I] * 6 + [_P]},
+    "conv3x3": {"sdt_conv3x3_bf16": [_P] * 7 + [_I] * 6 + [_P],
+                "sdt_conv3x3_bf16_smem": []},
     "attention_nt": {"sdt_attention_nt_bf16": _LAYOUT,
                      "sdt_attention_nt_f32": _LAYOUT},
     "attention_bshd": {"sdt_attention_bshd_bf16": _LAYOUT,
@@ -57,7 +60,6 @@ SIGNATURES = {
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-ptxas_log: dict[str, str] = {}       # nvcc's stderr (-Xptxas -v) per source
 
 
 def _nvcc() -> str:
@@ -99,14 +101,21 @@ def build_all() -> float:
     errors = []
     for name, (proc, tmp, out) in procs.items():
         stdout, stderr = proc.communicate()
-        ptxas_log[name] = stderr
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{stdout}{stderr}")
         else:
+            out.with_suffix(".ptxas").write_text(stderr)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's -Xptxas -v report of ``csrc/<name>.cu``, kept beside its
+    library by the build that made it ("" if it is not built)."""
+    kept = _lib_path(name).with_suffix(".ptxas")
+    return kept.read_text() if kept.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

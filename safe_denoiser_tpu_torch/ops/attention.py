@@ -30,6 +30,10 @@ import torch.nn.functional as F
 from . import _build
 
 launches = 0        # kernel launches of the bf16/f32 kernel on CUDA tensors
+# bf16 calls whose q/k/v the wrapper first copied into contiguous tensors,
+# because the kernel's tensor maps cannot take their strides (0 on every
+# main path)
+staging_copies = 0
 i8_launches = 0     # kernel launches of the int8-QK^T kernel
 nt_launches = 0     # ... of the head-major kernel
 bshd_launches = 0   # ... of the natural-layout kernel
@@ -117,6 +121,35 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def tensor_map_ready(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> bool:
+    """Whether the bf16 kernel's TMA tensor maps over (D, H, S, B) take
+    q/k/v as they are: D % 8 == 0, 16-byte aligned bases, strides that are
+    multiples of 8 elements (16 bytes) and nest as the dims do (head
+    stride >= D, row stride >= H x head stride, batch stride >= S x row
+    stride). ``sdt_self_attention_bf16`` checks the first three."""
+    b, s, h, d = q.shape
+    sb, ss, sh = q.stride()[:3]
+    return (d % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+            and sb % 8 == 0 and ss % 8 == 0 and sh % 8 == 0
+            and sh >= d and ss >= h * sh and sb >= s * ss)
+
+
+def _staged(q, k, v):
+    """q/k/v as B1's tensor maps take them: unchanged when
+    ``tensor_map_ready``, else contiguous copies with D zero-padded to a
+    multiple of 8 (counted in ``staging_copies``); the padded columns add
+    0 to every logit and give output columns that are dropped."""
+    global staging_copies
+    if tensor_map_ready(q, k, v):
+        return q, k, v
+    d8 = -(-q.shape[3] // 8) * 8
+    staging_copies += 1
+    return tuple(F.pad(t, (0, d8 - t.shape[3])).contiguous()
+                 for t in (q, k, v))
+
+
 _ENTRY = {torch.bfloat16: "sdt_self_attention_bf16",
           torch.float32: "sdt_self_attention_f32"}
 
@@ -140,6 +173,9 @@ def _check_qkv(q, k, v, dtypes) -> None:
 def _self_attention_cuda(q, k, v, sm_scale: float) -> torch.Tensor:
     global launches
     _check_qkv(q, k, v, tuple(_ENTRY))
+    d_out = q.shape[3]
+    if q.dtype == torch.bfloat16:
+        q, k, v = _staged(q, k, v)
     b, s, h, d = q.shape
     fn = getattr(_build.library("attention"), _ENTRY[q.dtype])
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -148,7 +184,7 @@ def _self_attention_cuda(q, k, v, sm_scale: float) -> torch.Tensor:
              float(sm_scale), _build.stream_ptr(q.device))
     _build.check(err, _ENTRY[q.dtype])
     launches += 1
-    return out
+    return out if d == d_out else out[..., :d_out].contiguous()
 
 
 def _self_attention_i8_cuda(q, k, v, sm_scale: float) -> torch.Tensor:

@@ -276,6 +276,9 @@ def _conv3x3_cuda(x, w_oihw, b, pre_scale, pre_shift, act, residual, packed):
             and bias.device == x.device):
         raise ValueError("packed weights are not pack_weights_3x3(w, b) of "
                          "this weight on this GPU")
+    if bias.data_ptr() % 16 or not bias.is_contiguous():
+        raise ValueError("the packed bias must be contiguous and 16-byte "
+                         "aligned")
     out = torch.empty((bsz, h, w, co), dtype=x.dtype, device=x.device)
     fn = _build.library("conv3x3").sdt_conv3x3_bf16
     err = fn(x.data_ptr(), wt.data_ptr(), bias.data_ptr(),

@@ -86,9 +86,21 @@ def _combine_guidance(noise_pred: torch.Tensor, i: int,
     return uncond + g * noise_guidance, momentum
 
 
+def _check_hook_method(rep_cfg: RepellencyConfig) -> None:
+    """The loops' repellency steps pass no generator, so ``random_noise``
+    would draw from torch's global RNG: refused, as the JAX package's hooks
+    refuse it (they pass no ``rng``). ``apply_repellency`` with an explicit
+    ``generator=`` still takes it."""
+    if rep_cfg.method == "random_noise":
+        raise ValueError("repellency method 'random_noise' needs a generator"
+                         " and the sampling loops pass none; call "
+                         "apply_repellency(..., generator=) directly")
+
+
 def _repellency_hook(scheduler, eps, t: int, latents, refs, rep_cfg,
                      noise):
     """Tweedie x0 -> repellency -> renoise -> replace where negated."""
+    _check_hook_method(rep_cfg)
     x0 = scheduler.pred_original_sample(eps, t, latents)
     if isinstance(x0, tuple):       # DDIM returns (x0, eps)
         x0 = x0[0]
@@ -209,6 +221,7 @@ def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
             continue
         x0 = latents - float(sigma) * v
         x1 = latents + float(f32(1.0) - sigma) * v
+        _check_hook_method(repellency)
         x0_rep, is_neg = apply_repellency(x0, refs, repellency)
         noise = (float(np.sqrt(sigma_next)) * x1
                  + float(np.sqrt(f32(1.0) - sigma_next)) * noise_fn(i, 1))

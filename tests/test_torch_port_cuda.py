@@ -131,6 +131,63 @@ def test_attention_kernel_at_the_sd3_joint_shape(dev):
     torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("b,s,h,d", [(1, 4096, 2, 40), (1, 4429, 2, 64),
+                                     (2, 1024, 4, 80)])
+def test_attention_kernel_at_full_main_path_s(dev, b, s, h, d):
+    """B1 at the main path's head dims and full sequence lengths (SD-v1's
+    4096 at D = 40 and 1024 at 80, SD3's joint 4429 at 64), fewer heads."""
+    g = _gen(11)
+    q, k, v = (torch.randn(b, s, h, d, device=dev, generator=g).bfloat16()
+               for _ in range(3))
+    got = attention.self_attention(q, k, v, d ** -0.5)
+    want = attention.attention_ref(q.float(), k.float(), v.float(),
+                                   d ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
+
+
+def test_attention_copies_only_views_its_tensor_maps_cannot_take(dev):
+    """B1 reads q/k/v through TMA tensor maps: the main path's views (three
+    projections, SD3's concatenation, one packed projection) go in as
+    they are; rows padded to D+4 are copied first, one count a call."""
+    g = _gen(14)
+    b, s, h, d = 2, 600, 2, 40
+    qkv = torch.randn(b, s, 3, h, d, device=dev, generator=g).bfloat16()
+    padded = [torch.randn(b, s, h, d + 4, device=dev, generator=g)
+              .bfloat16()[..., :d] for _ in range(3)]
+    before = attention.staging_copies
+    for q, k, v in (qkv.unbind(2), torch.cat([qkv, qkv], 1).unbind(2)):
+        attention.self_attention(q, k, v, d ** -0.5)
+    assert attention.staging_copies == before
+    got = attention.self_attention(*padded, d ** -0.5)
+    assert attention.staging_copies == before + 1
+    want = attention.attention_ref(*(t.float() for t in padded), d ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("logits", ["normal", "negative"])
+@pytest.mark.parametrize("s", [600, 4429])
+@pytest.mark.parametrize("d", [40, 64, 80])
+def test_attention_kernel_partial_query_block_and_key_tail(dev, s, d, logits):
+    """S = 600 (4 x 128 + 88) and 4429 (34 x 128 + 77) leave a partial
+    128-row query block and a partial 64-key tile. With "negative" every
+    real logit is below zero (q >= 0, k <= 0), so a zero-filled key past S
+    that kept its logit 0 would outweigh the real keys."""
+    g = _gen(12)
+    shape = (1, s, 2, d)
+    q, k, v = (torch.randn(shape, device=dev, generator=g) for _ in range(3))
+    if logits == "negative":
+        q, k = q.abs(), -k.abs()
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = attention.self_attention(q, k, v, d ** -0.5)
+    want = attention.attention_ref(q.float(), k.float(), v.float(),
+                                   d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
+
+
 # ------------------------------------------------------------ attention_i8
 def _i8(q, k, v, scale):
     return attention._self_attention_i8_cuda(q, k, v, scale)
@@ -607,6 +664,25 @@ def test_conv3x3_kernel_matches_plain(dev, b, h, w, ci, co, pre, act,
     want = conv3x3.conv3x3_ref(x, wt, bias, **kw)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, co)
+    _assert_b4_close(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,with_res", [
+    (4, 64, 64, 512, 512, False), (4, 256, 256, 512, 256, False),
+    (4, 512, 512, 128, 128, True), (16, 512, 512, 128, 128, True),
+    (16, 256, 256, 128, 256, False), (16, 256, 256, 256, 256, True),
+    (16, 128, 128, 256, 512, False), (16, 128, 128, 512, 512, True),
+    (16, 64, 64, 512, 512, True)])
+def test_conv3x3_kernel_at_the_vae_shapes(dev, b, h, w, ci, co, with_res):
+    """B4 at the SD-v1 decoder's three timed shapes (batch 4: the first
+    resnet conv at 64^2 x 512, the 512 -> 256 conv at 256^2, a 128-channel
+    conv2 with the residual at 512^2) and at the bank encoder's batch-16
+    shapes, with the GroupNorm affine and the SiLU in the prologue."""
+    x, wt, bias, a, s, res = _conv3x3_case(b, h, w, ci, co, seed=13)
+    r = res if with_res else None
+    got = conv3x3.conv3x3(x, wt, bias, a, s, "silu", r)
+    want = conv3x3.conv3x3_ref(x, wt, bias, a, s, "silu", r)
+    torch.cuda.synchronize()
     _assert_b4_close(got, want)
 
 
