@@ -11,15 +11,17 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      kernel at first launch);
   3. kernel checks: ptxas' registers, spills and static shared memory of
      every kernel in csrc/ (and the dynamic shared memory of every template
-     of B1, attention.cu, and of B4, conv3x3.cu, the two wgmma kernels);
+     of the attention core that B1, B9 and B10 share, attention_hopper.cuh,
+     and of B4, conv3x3.cu, the wgmma kernels);
      then each kernel at the main path's shapes (and B4/B5 also at the
      runner's bank-encode shapes; B9/B10 also in f32; B7 beside B3) against
      its plain PyTorch version, with its time, the plain version's, a
      library call's where one exists, and the bound the card could reach;
   3b. with --parent DIR (the root of an earlier checkout, unpacked with
-     ``git archive``): its attention.cu and conv3x3.cu built with the same
-     flags, and B1 and B4 of both timed in turns (parent, this, this,
-     parent) at the main path's three shapes each;
+     ``git archive``): its attention.cu, attention_nt.cu, attention_bshd.cu
+     and conv3x3.cu built with the same flags, and B1, B9, B10 and B4 of
+     both timed in turns (parent, this, this, parent) at the main path's
+     shapes;
   4. main path: the tiny f32 slice on cuda against the CPU, at 8^2 latents
      and at 32^2 (S = 1024) under each attention layout (bhsd, nt, nt with
      the head repacks, bshd: SDT_FLASH2_LAYOUT / SDT_ATTN_REPACK), then
@@ -27,7 +29,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      weights -- 4 prompts, 512x512, 50 DDPM steps, CFG 7.5, kernel_fast
      repellency against a [515,4,64,64] bank in the window [1000, 780], VAE
      decode -- and the launch count of every kernel; every main path
-     checks that B1's wrapper copied no q/k/v for its tensor maps;
+     checks that the attention wrappers copied no q/k/v for their tensor
+     maps;
   5. gate check: the same pipeline for 5 steps with a bank built from the
      run's own x0, so the beta gate opens at full width and B2's score
      must reach the latents;
@@ -231,10 +234,11 @@ def check_launches(counts: dict, want: dict, what: str) -> None:
 
     print(f"{what} launches: {json.dumps(counts)} expected "
           f"{json.dumps(want)}")
-    # B1's tensor maps take every main path's q/k/v without a copy
+    # B1's, B9's and B10's tensor maps take every main path's q/k/v
+    # without a copy
     if attention.staging_copies:
-        fail(f"{what}: B1's wrapper copied q/k/v {attention.staging_copies} "
-             "times")
+        fail(f"{what}: the attention wrappers copied q/k/v "
+             f"{attention.staging_copies} times")
     for name, n in want.items():
         if counts[name] != n:
             fail(f"{what}: kernel {name} launched {counts[name]} times, "
@@ -445,15 +449,16 @@ def phase_build() -> None:
 
 def dynamic_smem(name: str, fn: str):
     """The dynamic shared memory (bytes) that the C side gives kernel
-    function ``fn`` of ``csrc/<name>.cu``: every template of B1's bf16
-    kernel and B4; None for the rest."""
+    function ``fn`` of ``csrc/<name>.cu``: every template of the bf16
+    attention core (B1, B9, B10 share csrc/attention_hopper.cuh, whose
+    size B1's library reports) and B4; None for the rest."""
     import re
 
     from safe_denoiser_tpu_torch.ops import _build
 
     m = re.search(r"attn_kernelILi(\d+)E", fn)
-    if name == "attention" and m:
-        return _build.library(name).sdt_self_attention_bf16_smem(
+    if name in ("attention", "attention_nt", "attention_bshd") and m:
+        return _build.library("attention").sdt_self_attention_bf16_smem(
             int(m.group(1)))
     if name == "conv3x3" and "conv3x3_kernel" in fn:
         return _build.library(name).sdt_conv3x3_bf16_smem()
@@ -463,8 +468,8 @@ def dynamic_smem(name: str, fn: str):
 def print_ptxas() -> None:
     """ptxas' registers, spills and static shared memory of every kernel of
     every source (from the report kept beside its library), its warnings
-    (C7512/C7513: wgmma serialized), and the dynamic shared memory of B1's
-    templates and B4."""
+    (C7512/C7513: wgmma serialized), and the dynamic shared memory of the
+    attention core's templates and B4."""
     from safe_denoiser_tpu_torch.ops import _build
 
     for name in _build.SOURCES:
@@ -985,18 +990,24 @@ def phase_kernels() -> dict:
 
 
 # phase 3b's shapes: B1 (B, S, H, D) at SD-v1's two self-attentions (batch
-# 4 with CFG) and SD3's joint attention; B4 (B, H, W, Ci, Co, residual) at
-# the SD-v1 decoder's three largest convs
+# 4 with CFG) and SD3's joint attention; B9 (BH, S, D, valid_kv) at the
+# same work in the nt layout (SD3 padded to the 512 grid); B10 (B, S, H, D)
+# at SD-v1's two; B4 (B, H, W, Ci, Co, residual) at the SD-v1 decoder's
+# three largest convs
 PARENT_B1 = ((8, 4096, 8, 40), (8, 1024, 8, 80), (2, 4429, 24, 64))
+PARENT_B9 = ((48, 4608, 64, 4429), (64, 4096, 40, 4096), (64, 1024, 80, 1024))
+PARENT_B10 = ((8, 4096, 8, 40), (8, 1024, 8, 80))
 PARENT_B4 = ((4, 64, 64, 512, 512, False), (4, 256, 256, 512, 256, False),
              (4, 512, 512, 128, 128, True))
 PARENT_ENTRIES = {"attention": "sdt_self_attention_bf16",
+                  "attention_nt": "sdt_attention_nt_bf16",
+                  "attention_bshd": "sdt_attention_bshd_bf16",
                   "conv3x3": "sdt_conv3x3_bf16"}
 
 
 def build_parent(root: str) -> dict:
-    """B1's and B4's bf16 C entry points from the checkout at ``root``,
-    built (both sources at once) with this checkout's nvcc flags into
+    """The bf16 C entry points of PARENT_ENTRIES from the checkout at
+    ``root``, built (all sources at once) with this checkout's nvcc flags into
     build/torch_kernels_parent/; they take the arguments of this
     checkout's."""
     import ctypes
@@ -1027,9 +1038,9 @@ def build_parent(root: str) -> dict:
 
 
 def phase_parent(root: str) -> None:
-    """Phase 3b: B1 and B4 of the checkout at ``root`` against this
-    checkout's on the same seeded inputs, timed in turns (parent, this,
-    this, parent), with the largest difference of their outputs."""
+    """Phase 3b: B1, B9, B10 and B4 of the checkout at ``root`` against
+    this checkout's on the same seeded inputs, timed in turns (parent,
+    this, this, parent), with the largest difference of their outputs."""
     from safe_denoiser_tpu_torch.ops import _build, conv3x3
 
     parent = build_parent(root)
@@ -1063,6 +1074,34 @@ def phase_parent(root: str) -> None:
             return out
 
         turns("attention", attn, [b, s, h, d])
+    for bh, s, d, valid in PARENT_B9:
+        q, k, v = (torch.randn(bh, s, d, device=dev, generator=g)
+                   for _ in range(3))
+        k[:, valid:] = 0
+        v[:, valid:] = 0
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+        def attn_nt(fn):
+            out = torch.empty_like(q)
+            _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), bh, s, d, valid, d ** -0.5,
+                            _build.stream_ptr(dev)), "sdt_attention_nt_bf16")
+            return out
+
+        turns("attention_nt", attn_nt, [bh, s, d, f"valid_kv={valid}"])
+    for b, s, h, d in PARENT_B10:
+        q, k, v = (torch.randn(b, s, h, d, device=dev, generator=g)
+                   .bfloat16() for _ in range(3))
+
+        def attn_bshd(fn):
+            out = torch.empty_like(q)
+            _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), b, s, h, d, d ** -0.5,
+                            _build.stream_ptr(dev)),
+                         "sdt_attention_bshd_bf16")
+            return out
+
+        turns("attention_bshd", attn_bshd, [b, s, h, d])
     for b, h, w, ci, co, with_res in PARENT_B4:
         x = torch.randn(b, h, w, ci, device=dev, generator=g).bfloat16()
         wt, bias = conv3x3.pack_weights_3x3(
@@ -2216,8 +2255,10 @@ def profile_call(fn, label: str) -> None:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    ours = {"attn_kernel": 0.0, "attn_i8_kernel": 0.0, "attn_nt_kernel": 0.0,
-            "attn_bshd_kernel": 0.0, "repack_kernel": 0.0, "rbf_": 0.0,
+    # attn_kernel: the attention core of B1, B9 and B10 (one kernel name;
+    # the layout switches say which ran)
+    ours = {"attn_kernel": 0.0, "attn_i8_kernel": 0.0,
+            "repack_kernel": 0.0, "rbf_": 0.0,
             "up_conv_kernel": 0.0, "up_interleave_kernel": 0.0,
             "conv3x3_kernel": 0.0, "_partial_sums": 0.0, "_finish": 0.0,
             "_gn_apply": 0.0}
@@ -2247,8 +2288,8 @@ def main() -> None:
                     help="after the main path, profile a 10-step batch; "
                          "after each SD3 run, a 5-step image")
     ap.add_argument("--parent", metavar="DIR",
-                    help="an earlier checkout whose B1 and B4 phase 3b "
-                         "times against this one's")
+                    help="an earlier checkout whose B1, B9, B10 and B4 "
+                         "phase 3b times against this one's")
     args = ap.parse_args()
     try:
         import safe_denoiser_tpu_torch  # noqa: F401

@@ -30,9 +30,9 @@ import torch.nn.functional as F
 from . import _build
 
 launches = 0        # kernel launches of the bf16/f32 kernel on CUDA tensors
-# bf16 calls whose q/k/v the wrapper first copied into contiguous tensors,
-# because the kernel's tensor maps cannot take their strides (0 on every
-# main path)
+# bf16 calls (B1, B9, B10) whose q/k/v the wrapper first copied into
+# contiguous tensors, because the kernels' tensor maps cannot take their
+# strides, head dim or alignment (0 on every main path)
 staging_copies = 0
 i8_launches = 0     # kernel launches of the int8-QK^T kernel
 nt_launches = 0     # ... of the head-major kernel
@@ -137,7 +137,7 @@ def tensor_map_ready(q: torch.Tensor, k: torch.Tensor,
 
 
 def _staged(q, k, v):
-    """q/k/v as B1's tensor maps take them: unchanged when
+    """q/k/v as the tensor maps of B1, B9 and B10 take them: unchanged when
     ``tensor_map_ready``, else contiguous copies with D zero-padded to a
     multiple of 8 (counted in ``staging_copies``); the padded columns add
     0 to every logit and give output columns that are dropped."""
@@ -269,14 +269,18 @@ def _attention_nt_cuda(q, k, v, sm_scale: float, valid_kv: int | None):
     if d > 256 or not 1 <= valid <= s:
         raise ValueError(f"attention_nt: head dim {d} (<= 256) and valid_kv "
                          f"{valid} (1..{s})")
+    if q.dtype == torch.bfloat16:     # as B1's [B, S, H, D] with H = 1
+        q, k, v = (t[:, :, 0] for t in _staged(*(t[:, :, None]
+                                                   for t in (q, k, v))))
+    d_map = q.shape[2]
     entry = f"sdt_attention_nt_{_SUFFIX[q.dtype]}"
     out = torch.empty_like(q)
     err = getattr(_build.library("attention_nt"), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
-        valid, float(sm_scale), _build.stream_ptr(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
+        d_map, valid, float(sm_scale), _build.stream_ptr(q.device))
     _build.check(err, entry)
     nt_launches += 1
-    return out
+    return out if d_map == d else out[..., :d].contiguous()
 
 
 def attention_nt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -296,14 +300,17 @@ def _attention_bshd_cuda(q, k, v, sm_scale: float):
     if s % BLOCK or d > 256:
         raise ValueError(f"attention_bshd takes S % {BLOCK} == 0 and D <= "
                          f"256, got S={s}, D={d}")
+    if q.dtype == torch.bfloat16:
+        q, k, v = _staged(q, k, v)
+    d_map = q.shape[3]
     entry = f"sdt_attention_bshd_{_SUFFIX[q.dtype]}"
     out = torch.empty_like(q)           # the kernel's [B, S, H*D] rows
     err = getattr(_build.library("attention_bshd"), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
-        float(sm_scale), _build.stream_ptr(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+        d_map, float(sm_scale), _build.stream_ptr(q.device))
     _build.check(err, entry)
     bshd_launches += 1
-    return out
+    return out if d_map == d else out[..., :d].contiguous()
 
 
 def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

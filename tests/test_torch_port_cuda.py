@@ -326,8 +326,8 @@ def _close(got, want, dtype):
 def test_attention_nt_kernel_matches_plain(dev, bh, s, d, valid, dtype):
     """B9 on head-major [BH, S, D] against its plain version on the same
     values: keys past valid_kv are the zero rows of a padded sequence (and
-    masked), S=520 ends in a partial key tile, D=20 takes the 2-byte
-    loads."""
+    masked), S=520 ends in a partial key tile, D=20 is copied with its head
+    dim zero-padded to 24 (bf16) before the tensor maps."""
     g = _gen(20)
     q, k, v = (torch.randn(bh, s, d, device=dev, generator=g).to(dtype)
                for _ in range(3))
@@ -369,9 +369,9 @@ def test_attention_nt_kernel_masks_the_key_tail(dev, monkeypatch, s, d):
     (1, 512, 1, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_bshd_kernel_matches_plain(dev, b, s, h, d, dtype):
-    """B10 on natural [B, S, H, D] against its plain version: head groups
-    of 4 (H=8), 3 (H=6), 1 (H=5, a prime above the group size), the wide
-    heads one at a time, D=24 with its zero-padded slice."""
+    """B10 on natural [B, S, H, D] against its plain version: 8, 6 and 5
+    heads interleaved in each row, the wide heads, D=24 and D=48 (the
+    tensor maps zero-fill the columns up to the 64-column box)."""
     g = _gen(22)
     q, k, v = (torch.randn(b, s, h, d, device=dev, generator=g).to(dtype)
                for _ in range(3))
@@ -381,6 +381,126 @@ def test_attention_bshd_kernel_matches_plain(dev, b, s, h, d, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, s, h, d)
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("valid", [1, 77, 127, 128, 129, 383])
+@pytest.mark.parametrize("s", [512, 600, 1000])
+@pytest.mark.parametrize("d", [64, 80])
+def test_attention_nt_kernel_key_counts_around_the_tiles(dev, s, valid, d):
+    """B9's key count against the core's key tiles (128 keys at D=64, 64 at
+    D=80): one key, inside the first tile, one short of, at and one past
+    its end, inside the fourth; S=600 and 1000 end in a partial query
+    block. The rows past valid_kv hold random values, which no read may
+    reach and no weight may touch."""
+    g = _gen(25)
+    q, k, v = (torch.randn(2, s, d, device=dev, generator=g).bfloat16()
+               for _ in range(3))
+    got = attention.attention_nt(q, k, v, d ** -0.5, valid)
+    want = attention.attention_nt_ref(q.float(), k.float(), v.float(),
+                                      d ** -0.5, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("valid", [77, 600, 1000])
+@pytest.mark.parametrize("d", [40, 64])
+def test_attention_nt_kernel_negative_logits_and_a_tail_inside_a_tile(
+        dev, valid, d):
+    """Every real logit negative (q >= 0, k <= 0) and the keys past
+    valid_kv zero rows, whose logit 0 would outweigh every real key if the
+    kernel weighed them; valid_kv falls inside a 128-key tile."""
+    g = _gen(26)
+    shape = (3, 1024, d)
+    q = torch.randn(shape, device=dev, generator=g).abs()
+    k = -torch.randn(shape, device=dev, generator=g).abs()
+    v = torch.randn(shape, device=dev, generator=g)
+    k[:, valid:] = 0
+    v[:, valid:] = 0
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = attention.attention_nt(q, k, v, d ** -0.5, valid)
+    want = attention.attention_nt_ref(q.float(), k.float(), v.float(),
+                                      d ** -0.5, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
+
+
+def _unaligned(shape, dev, g, off):
+    """A contiguous bf16 tensor of ``shape`` starting ``off`` elements into
+    a buffer (8 bytes off a 16-byte boundary for off = 4)."""
+    n = torch.Size(shape).numel()
+    buf = torch.randn(n + off, device=dev, generator=g).bfloat16()
+    return buf[off:].view(shape)
+
+
+@pytest.mark.parametrize("layout", ["nt", "bshd"])
+@pytest.mark.parametrize("case", ["head_dim_20", "offset_4"])
+def test_layout_kernels_copy_what_their_tensor_maps_cannot_take(
+        dev, layout, case):
+    """B9 and B10 read q/k/v through TMA tensor maps: a head dim of 20 and
+    a base 4 elements past an aligned one (D=24) are copied first (one
+    count a call), then launched; the aligned inputs are not copied."""
+    g = _gen(27)
+    shape = (2, 600, 20) if layout == "nt" else (1, 512, 3, 20)
+    if case == "offset_4":
+        shape = shape[:-1] + (24,)
+    d = shape[-1]
+    if case == "offset_4":
+        q, k, v = (_unaligned(shape, dev, g, 4) for _ in range(3))
+    else:
+        q, k, v = (torch.randn(shape, device=dev, generator=g).bfloat16()
+                   for _ in range(3))
+    aligned = [torch.randn(shape[:-1] + (24,), device=dev, generator=g)
+               .bfloat16() for _ in range(3)]
+    if layout == "nt":
+        run = lambda *t: attention.attention_nt(*t, d ** -0.5, 450)
+        plain = lambda *t: attention.attention_nt_ref(*t, d ** -0.5, 450)
+    else:
+        run = lambda *t: attention.attention_bshd(*t, d ** -0.5)
+        plain = lambda *t: attention.attention_bshd_ref(*t, d ** -0.5)
+    ops.reset_launch_counts()
+    before = attention.staging_copies
+    run(*aligned)
+    assert attention.staging_copies == before
+    got = run(q, k, v)
+    want = plain(*(t.float() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert attention.staging_copies == before + 1
+    assert ops.launch_counts()[f"attention_{layout}"] == 2
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("h,s,d", [(1, 1024, 64), (3, 512, 40),
+                                   (24, 512, 64)])
+def test_attention_bshd_kernel_head_counts(dev, h, s, d):
+    """B10 with one head (the map's head dim of extent 1), three, and
+    SD3's 24 interleaved in each row."""
+    g = _gen(28)
+    q, k, v = (torch.randn(2, s, h, d, device=dev, generator=g).bfloat16()
+               for _ in range(3))
+    got = attention.attention_bshd(q, k, v, d ** -0.5)
+    want = attention.attention_ref(q.float(), k.float(), v.float(),
+                                   d ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=ATTN_BF16_TOL, rtol=0)
+
+
+def test_attention_core_refuses_a_grid_it_cannot_launch(dev):
+    """B*H above 65535 blocks along gridDim.y: the C entries return
+    cudaErrorInvalidValue (1) before touching memory rather than launching
+    a grid that would leave heads unwritten."""
+    from safe_denoiser_tpu_torch.ops import _build
+
+    x = torch.zeros(1, 512, 64, device=dev).bfloat16()
+    st = _build.stream_ptr(dev)
+    p = x.data_ptr()
+    nt = _build.library("attention_nt").sdt_attention_nt_bf16
+    bshd = _build.library("attention_bshd").sdt_attention_bshd_bf16
+    assert nt(p, p, p, p, 65536, 512, 64, 512, 0.1, st) == 1
+    assert bshd(p, p, p, p, 2, 512, 32768, 64, 0.1, st) == 1
+    assert nt(p, p, p, p, 1, 512, 64, 0, 0.1, st) == 1      # valid_kv < 1
+    assert nt(p, p, p, p, 1, 512, 64, 513, 0.1, st) == 1    # > S
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("b,s,h,d,dtype", [

@@ -58,12 +58,15 @@ def _close(got: torch.Tensor, want, dtype: str) -> None:
 
 
 # ------------------------------------------------------- the plain versions
-@pytest.mark.parametrize("s,valid", [(512, None), (1024, 600)],
-                         ids=["unmasked", "valid_kv_600"])
+@pytest.mark.parametrize("s,valid", [(512, None), (1024, 600), (512, 129),
+                                     (1024, 1)],
+                         ids=["unmasked", "valid_kv_600", "valid_kv_129",
+                              "valid_kv_1"])
 def test_attention_nt_ref_matches_jax_kernel(s, valid):
     """Head-major [BH, S, D] at D=64; with valid_kv the keys past it are
-    zero rows (a sequence of 600 padded to the 512 grid), which must get
-    no weight."""
+    zero rows (a sequence of 600 padded to the 512 grid; one key past a
+    128-key tile; a single key, whose second 512-key block the TPU kernel
+    masks whole), which must get no weight."""
     (jq, _, _), (tq, tk, tv) = _inputs((2, s, 64), 0, "float32")
     if valid is not None:
         tk[:, valid:] = 0.0
