@@ -12,16 +12,20 @@ Phases, each of which ends the run with a non-zero exit code on failure:
   3. kernel checks: ptxas' registers, spills and static shared memory of
      every kernel in csrc/ (and the dynamic shared memory of every template
      of the attention core that B1, B9 and B10 share, attention_hopper.cuh,
-     and of B4, conv3x3.cu, the wgmma kernels);
+     and of both forms of the conv core that B4 and B3 share,
+     conv_hopper.cuh: the wgmma kernels);
      then each kernel at the main path's shapes (and B4/B5 also at the
      runner's bank-encode shapes; B9/B10 also in f32; B7 beside B3) against
-     its plain PyTorch version, with its time, the plain version's, a
-     library call's where one exists, and the bound the card could reach;
+     its plain PyTorch version, with its device time and a library call's
+     where one exists (``device_ms``: calls captured into a CUDA graph and
+     replayed), the bound the card could reach, and the wrapper-paced
+     times of the kernel, the library call and the plain version
+     (``cuda_ms``: events around Python calls);
   3b. with --parent DIR (the root of an earlier checkout, unpacked with
-     ``git archive``): its attention.cu, attention_nt.cu, attention_bshd.cu
-     and conv3x3.cu built with the same flags, and B1, B9, B10 and B4 of
-     both timed in turns (parent, this, this, parent) at the main path's
-     shapes;
+     ``git archive``): its attention.cu, attention_nt.cu, attention_bshd.cu,
+     conv3x3.cu and conv3x3_up.cu built with the same flags, and B1, B9,
+     B10, B4 and B3 of both timed in turns (parent, this, this, parent;
+     device times) at the main path's shapes;
   4. main path: the tiny f32 slice on cuda against the CPU, at 8^2 latents
      and at 32^2 (S = 1024) under each attention layout (bhsd, nt, nt with
      the head repacks, bshd: SDT_FLASH2_LAYOUT / SDT_ATTN_REPACK), then
@@ -251,6 +255,9 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Events around ``reps`` Python calls of ``fn``: where a call's host
+    work (checks, allocation, the launch) outlasts its kernels, this is the
+    host's pace, not the device's (wrapper-paced; see ``device_ms``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -262,6 +269,43 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Device time of one call of ``fn``: after a warm-up (which builds and
+    compiles what the call needs), ``reps`` calls are captured into one
+    CUDA graph and its replay is timed with CUDA events, so no host work
+    sits between the launches. The graph (and the outputs in its private
+    pool) is freed before returning. A capture that fails ends the run."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()                      # first replay uploads the graph
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    except Exception as e:  # any failure of capture or replay ends the run
+        fail(f"device_ms: CUDA graph capture or replay failed: "
+             f"{type(e).__name__}: {e}")
+    ms = start.elapsed_time(end) / reps
+    del graph
+    torch.cuda.empty_cache()
+    if not (math.isfinite(ms) and ms > 0):
+        fail(f"device_ms: no device time ({ms})")
+    return ms
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
@@ -451,7 +495,8 @@ def dynamic_smem(name: str, fn: str):
     """The dynamic shared memory (bytes) that the C side gives kernel
     function ``fn`` of ``csrc/<name>.cu``: every template of the bf16
     attention core (B1, B9, B10 share csrc/attention_hopper.cuh, whose
-    size B1's library reports) and B4; None for the rest."""
+    size B1's library reports) and both forms of the conv core (B4 and B3,
+    csrc/conv_hopper.cuh); None for the rest."""
     import re
 
     from safe_denoiser_tpu_torch.ops import _build
@@ -460,8 +505,8 @@ def dynamic_smem(name: str, fn: str):
     if name in ("attention", "attention_nt", "attention_bshd") and m:
         return _build.library("attention").sdt_self_attention_bf16_smem(
             int(m.group(1)))
-    if name == "conv3x3" and "conv3x3_kernel" in fn:
-        return _build.library(name).sdt_conv3x3_bf16_smem()
+    if name in ("conv3x3", "conv3x3_up") and "conv_kernel" in fn:
+        return getattr(_build.library(name), f"sdt_{name}_bf16_smem")()
     return None
 
 
@@ -469,7 +514,7 @@ def print_ptxas() -> None:
     """ptxas' registers, spills and static shared memory of every kernel of
     every source (from the report kept beside its library), its warnings
     (C7512/C7513: wgmma serialized), and the dynamic shared memory of the
-    attention core's templates and B4."""
+    attention core's templates and of B4 and B3."""
     from safe_denoiser_tpu_torch.ops import _build
 
     for name in _build.SOURCES:
@@ -490,13 +535,21 @@ def print_ptxas() -> None:
 
 
 def _report(name, shape, err, tol, ms, plain_ms, lib_ms, bnd, lib_label,
-            metric="max|d|"):
-    lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+            dev, metric="max|d|"):
+    """One phase-3 row. ``dev``: (the kernel's device_ms, the library
+    call's device_ms or None where no PyTorch call computes the function);
+    ``ms``/``lib_ms`` are cuda_ms, wrapper-paced."""
+    def f(v):
+        return "null" if v is None else f"{v:.4f}"
+
     print(f"kernel {name} {shape}: {metric}={err:.3e} tol={tol:.1e} "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
-          f"({lib_label}) bound_ms={bnd[0]:.4f} ({bnd[1]})")
+          f"kernel_device_ms={f(dev[0])} library_device_ms={f(dev[1])} "
+          f"bound_ms={bnd[0]:.4f} ({bnd[1]}) ({lib_label}); wrapper-paced: "
+          f"kernel_ms={ms:.4f} library_ms={f(lib_ms)} plain_ms={plain_ms:.4f}")
     if not err <= tol:
         fail(f"{name} {shape}: {metric} {err:.3e} above tolerance {tol:.1e}")
+    if dev[0] is None or (lib_ms is None) != (dev[1] is None):
+        fail(f"{name} {shape}: a device time is missing")
 
 
 def _attn_err(out, want, dtype):
@@ -574,14 +627,16 @@ def phase_kernels() -> dict:
                         reps=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        dtm = (device_ms(lambda: attention.self_attention(q, k, v, scale)),
+               device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)))
         bnd = bound_ms(4 * b * s * h * d * 2, attention.flops(b, s, h, d),
                        PEAK_BF16)
         _report("attention", [b, s, h, d], err, attention.BF16_ATOL, ms,
-                plain, lib, bnd, "F.scaled_dot_product_attention")
+                plain, lib, bnd, "F.scaled_dot_product_attention", dtm)
         del want
         if "attention" not in results:
             results["attention"] = dict(err=err, ms=ms, plain=plain, lib=lib,
-                                        bound=bnd)
+                                        bound=bnd, dev=dtm)
         results["attention"]["err"] = max(results["attention"]["err"], err)
 
     # B8 int8-QK^T self-attention, bf16 [B,S,H,D]: against its plain
@@ -607,17 +662,21 @@ def phase_kernels() -> dict:
                         reps=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        dtm = (device_ms(lambda: attention._self_attention_i8_cuda(
+            q, k, v, scale)), None)
+        sdpa_dev = device_ms(lambda: F.scaled_dot_product_attention(qt, kt,
+                                                                    vt))
         half = attention.flops(b, s, h, d) / 2     # QK^T int8, P V bf16
         t_ops = (half / PEAK_INT8 + half / PEAK_BF16) * 1e3
         t_bytes = 4 * b * s * h * d * 2 / PEAK_BYTES * 1e3
         bnd = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
                                                                "bytes")
         _report("attention_i8", list(shape), err, tol, ms,
-                plain, None, bnd, f"none; SDPA bf16 {sdpa:.4f} ms as "
-                "context")
+                plain, None, bnd, f"none; SDPA bf16 device {sdpa_dev:.4f} "
+                f"ms, wrapper-paced {sdpa:.4f} ms, as context", dtm)
         if "attention_i8" not in results:
             results["attention_i8"] = dict(err=err, ms=ms, plain=plain,
-                                           lib=None, bound=bnd)
+                                           lib=None, bound=bnd, dev=dtm)
         results["attention_i8"]["err"] = max(results["attention_i8"]["err"],
                                              err)
 
@@ -655,17 +714,21 @@ def phase_kernels() -> dict:
                         reps=3, warmup=1)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None, :, :n], v[None, :, :n]))
+        dtm = (device_ms(lambda: attention.attention_nt(q, k, v, scale,
+                                                        valid)),
+               device_ms(lambda: F.scaled_dot_product_attention(
+                   q[None], k[None, :, :n], v[None, :, :n])))
         bnd = bound_ms(4 * bh * s * d * q.element_size(),
                        4 * bh * n * n * d,
                        PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
         _report("attention_nt", [bh, s, d, f"valid_kv={n}", str(dtype)[6:]],
                 err, tol, ms, plain, lib, bnd,
-                "F.scaled_dot_product_attention over the valid keys",
+                "F.scaled_dot_product_attention over the valid keys", dtm,
                 metric=metric)
         del want
         if "attention_nt" not in results:
             results["attention_nt"] = dict(err=err, ms=ms, plain=plain,
-                                           lib=lib, bound=bnd)
+                                           lib=lib, bound=bnd, dev=dtm)
         if dtype == torch.bfloat16:
             results["attention_nt"]["err"] = max(
                 results["attention_nt"]["err"], err)
@@ -688,16 +751,18 @@ def phase_kernels() -> dict:
                         reps=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        dtm = (device_ms(lambda: attention.attention_bshd(q, k, v, scale)),
+               device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)))
         bnd = bound_ms(4 * b * s * h * d * q.element_size(),
                        attention.flops(b, s, h, d),
                        PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
         _report("attention_bshd", [b, s, h, d, str(dtype)[6:]], err, tol,
-                ms, plain, lib, bnd, "F.scaled_dot_product_attention",
+                ms, plain, lib, bnd, "F.scaled_dot_product_attention", dtm,
                 metric=metric)
         del want
         if "attention_bshd" not in results:
             results["attention_bshd"] = dict(err=err, ms=ms, plain=plain,
-                                             lib=lib, bound=bnd)
+                                             lib=lib, bound=bnd, dev=dtm)
         if dtype == torch.bfloat16:
             results["attention_bshd"]["err"] = max(
                 results["attention_bshd"]["err"], err)
@@ -723,13 +788,15 @@ def phase_kernels() -> dict:
             ms = cuda_ms(lambda: fn(arg), reps=20)
             plain = cuda_ms(lambda: plain_fn(arg), reps=20)
             lib = cuda_ms(lambda: lib_fn(arg), reps=20)
+            dtm = (device_ms(lambda: fn(arg), reps=20),
+                   device_ms(lambda: lib_fn(arg), reps=20))
             bnd = bound_ms(2 * arg.nbytes, 0, PEAK_BF16)
             _report(name, [b, s, h, d], err, 0.0, ms, plain, lib, bnd,
-                    "transpose(1, 2) + contiguous copy",
+                    "transpose(1, 2) + contiguous copy", dtm,
                     metric="max|d| (0: bit-exact)")
             if name not in results:
                 results[name] = dict(err=err, ms=ms, plain=plain, lib=lib,
-                                     bound=bnd)
+                                     bound=bnd, dev=dtm)
             results[name]["err"] = max(results[name]["err"], err)
         if not torch.equal(attention.repack_from_heads(heads), x):
             fail(f"repack_from_heads(repack_to_heads(x)) != x at "
@@ -757,19 +824,21 @@ def phase_kernels() -> dict:
             err = max((num - wn).abs().max().item(),
                       ((beta - wb).abs() / wb.abs()).max().item())
             ms, plain = cuda_ms(kernel), cuda_ms(plain_fn)
+            dtm = (device_ms(kernel), None)
             bnd = bound_ms((m * dd + 2 * n * dd + n) * 4, 4 * n * m * dd,
                            PEAK_F32)
             _report("rbf", [n, dd, m, f"normalize={normalize}"], err, 1e-4,
-                    ms, plain, None, bnd, "no single PyTorch call")
+                    ms, plain, None, bnd, "no single PyTorch call", dtm)
             if normalize and "rbf" not in results:
                 results["rbf"] = dict(err=err, ms=ms, plain=plain, lib=None,
-                                      bound=bnd)
+                                      bound=bnd, dev=dtm)
             results["rbf"]["err"] = max(results["rbf"]["err"], err)
 
     # B3 upsample-fused conv, bf16 NHWC; plain version in f32 (TF32 off) on
     # the same bf16 values. Tolerance: outputs ~ N(0, 2) rounded to bf16
     # (half an ulp is 1.6e-2 at |y| = 8) plus the bf16 rounding of the
-    # kernel's pre-summed weights
+    # kernel's pre-summed weights. Timed with the weights packed once, as
+    # the main path's modules call it
     for b, h2, w2, ci, co in ((8, 32, 32, 640, 640), (4, 64, 64, 512, 512),
                               (4, 128, 128, 512, 512),
                               (4, 256, 256, 256, 256),
@@ -786,22 +855,32 @@ def phase_kernels() -> dict:
         want = conv3x3.conv3x3_up_ref(hh.float(), w.float(), bias.float())
         torch.cuda.synchronize()
         err = (out.float() - want).abs().max().item()
-        ms = cuda_ms(lambda: conv3x3.conv3x3_up(hh, w, bias))
-        plain = cuda_ms(lambda: conv3x3.conv3x3_up_ref(hh, w, bias), reps=3)
+        del out, want
+        packed = conv3x3.pack_weights(w, bias)
+
+        def kernel():
+            return conv3x3.conv3x3_up(hh, w, bias, packed)
+
         hn = hh.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        lib = cuda_ms(lambda: F.conv2d(
-            F.interpolate(hn, scale_factor=2, mode="nearest"), w, bias,
-            padding=1))
+
+        def library():
+            return F.conv2d(F.interpolate(hn, scale_factor=2,
+                                          mode="nearest"), w, bias, padding=1)
+
+        ms = cuda_ms(kernel)
+        plain = cuda_ms(lambda: conv3x3.conv3x3_up_ref(hh, w, bias), reps=3)
+        lib = cuda_ms(library)
+        dtm = (device_ms(kernel), device_ms(library))
         bnd = bound_ms((b * h2 * w2 * ci + co * ci * 9 + co
                         + b * 4 * h2 * w2 * co) * 2,
                        conv3x3.flops(b, h2, w2, ci, co), PEAK_BF16)
         _report("conv3x3_up", [b, h2, w2, ci, co], err, 5e-2, ms, plain, lib,
-                bnd, "F.interpolate + F.conv2d, two calls")
-        del want
+                bnd, "F.interpolate + F.conv2d, two calls", dtm)
+        del hn
         if "conv3x3_up" not in results:
             results["conv3x3_up"] = dict(err=err, ms=ms, plain=plain,
-                                         lib=lib, bound=bnd)
+                                         lib=lib, bound=bnd, dev=dtm)
         results["conv3x3_up"]["err"] = max(results["conv3x3_up"]["err"], err)
 
     # B4 fused conv, bf16 NHWC, at each VAE resnet shape with the main
@@ -864,6 +943,7 @@ def phase_kernels() -> dict:
                                                         "silu", r),
                             reps=1 if b == 16 else 3, warmup=1)
             lib = cuda_ms(library)
+            dtm = (device_ms(kernel), device_ms(library))
             n_io = b * h * w * (ci + co * (1 if r is None else 2))
             bnd = bound_ms((n_io + 9 * ci * co) * 2 + (co + 2 * b * ci) * 4,
                            conv3x3.flops_3x3(b, h, w, ci, co), PEAK_BF16)
@@ -871,11 +951,11 @@ def phase_kernels() -> dict:
             print(f"  conv3x3 {mix} max|d|={err:.3e}")
             _report("conv3x3", [b, h, w, ci, co, mix], excess,
                     conv3x3.BF16_ATOL, ms, plain, lib, bnd,
-                    "affine+SiLU, F.conv2d, +residual",
+                    "affine+SiLU, F.conv2d, +residual", dtm,
                     metric=f"max(|d|-{conv3x3.BF16_RTOL}*|plain|)")
             if "conv3x3" not in results:
                 results["conv3x3"] = dict(err=err, ms=ms, plain=plain,
-                                          lib=lib, bound=bnd)
+                                          lib=lib, bound=bnd, dev=dtm)
             results["conv3x3"]["err"] = max(results["conv3x3"]["err"], err)
         del x, mixes
 
@@ -901,12 +981,15 @@ def phase_kernels() -> dict:
         ms = cuda_ms(lambda: group_norm.gn_stats(xx))
         plain = cuda_ms(lambda: group_norm.gn_stats_ref(xx))
         lib = cuda_ms(lambda: (xx.float().sum(1), (xx.float() ** 2).sum(1)))
+        dtm = (device_ms(lambda: group_norm.gn_stats(xx)),
+               device_ms(lambda: (xx.float().sum(1),
+                                  (xx.float() ** 2).sum(1))))
         bnd = bound_ms(b * s * c * 2 + 2 * b * c * 4, 3 * b * s * c, PEAK_F32)
         _report("gn_stats", [b, s, c], err, 1e-5, ms, plain, lib, bnd,
-                "x.float().sum(1), (x.float()**2).sum(1)")
+                "x.float().sum(1), (x.float()**2).sum(1)", dtm)
         if "gn_stats" not in results:
             results["gn_stats"] = dict(err=err, ms=ms, plain=plain, lib=lib,
-                                       bound=bnd)
+                                       bound=bnd, dev=dtm)
         results["gn_stats"]["err"] = max(results["gn_stats"]["err"], err)
 
     # B7 interleaved upsample conv at the VAE decoders' upsamples (SD-v1 at
@@ -928,24 +1011,30 @@ def phase_kernels() -> dict:
         del out, want
         ms = cuda_ms(lambda: conv3x3.conv3x3_up(hh, w, bias, packed,
                                                 form="interleave"))
-        b3 = cuda_ms(lambda: conv3x3.conv3x3_up(hh, w, bias, packed))
         plain = cuda_ms(lambda: conv3x3.conv3x3_up_ref(hh, w, bias), reps=3)
         hn = hh.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        lib = cuda_ms(lambda: F.conv2d(
-            F.interpolate(hn, scale_factor=2, mode="nearest"), w, bias,
-            padding=1))
+
+        def library():
+            return F.conv2d(F.interpolate(hn, scale_factor=2,
+                                          mode="nearest"), w, bias, padding=1)
+
+        lib = cuda_ms(library)
+        dtm = (device_ms(lambda: conv3x3.conv3x3_up(hh, w, bias, packed,
+                                                    form="interleave")),
+               device_ms(library))
+        b3 = device_ms(lambda: conv3x3.conv3x3_up(hh, w, bias, packed))
         bnd = bound_ms((b * h2 * w2 * c + c * c * 9 + c
                         + b * 4 * h2 * w2 * c) * 2,
                        conv3x3.flops(b, h2, w2, c, c), PEAK_BF16)
         _report("conv3x3_up_interleave", [b, h2, w2, c, c], err, 5e-2, ms,
                 plain, lib, bnd, f"F.interpolate + F.conv2d, two calls; B3 "
-                f"{b3:.4f} ms, B7/B3 {ms / b3:.3f}")
+                f"device {b3:.4f} ms, B7/B3 {dtm[0] / b3:.3f}", dtm)
         del hn
         if "conv3x3_up_interleave" not in results:
             results["conv3x3_up_interleave"] = dict(err=err, ms=ms,
                                                     plain=plain, lib=lib,
-                                                    bound=bnd)
+                                                    bound=bnd, dev=dtm)
         results["conv3x3_up_interleave"]["err"] = max(
             results["conv3x3_up_interleave"]["err"], err)
 
@@ -978,12 +1067,16 @@ def phase_kernels() -> dict:
         xn = xx.view(b, side, side, c).permute(0, 3, 1, 2)
         scd, bid = sc.to(dtype), bi.to(dtype)
         lib = cuda_ms(lambda: F.silu(F.group_norm(xn, 32, scd, bid, 1e-5)))
+        dtm = (device_ms(lambda: group_norm.group_norm_fused(
+                   xx, sc, bi, 32, 1e-5, "silu")),
+               device_ms(lambda: F.silu(F.group_norm(xn, 32, scd, bid,
+                                                     1e-5))))
         bnd = bound_ms(2 * xx.nbytes + 2 * c * 4, 0, PEAK_F32)
         _report("gn_fused", [b, s, c, str(dtype)[6:]], err, tol, ms, plain,
-                lib, bnd, "F.silu(F.group_norm) on the NCHW view")
+                lib, bnd, "F.silu(F.group_norm) on the NCHW view", dtm)
         if "gn_fused" not in results:
             results["gn_fused"] = dict(err=err, ms=ms, plain=plain, lib=lib,
-                                       bound=bnd)
+                                       bound=bnd, dev=dtm)
         if dtype == torch.bfloat16:
             results["gn_fused"]["err"] = max(results["gn_fused"]["err"], err)
     return results
@@ -993,16 +1086,20 @@ def phase_kernels() -> dict:
 # 4 with CFG) and SD3's joint attention; B9 (BH, S, D, valid_kv) at the
 # same work in the nt layout (SD3 padded to the 512 grid); B10 (B, S, H, D)
 # at SD-v1's two; B4 (B, H, W, Ci, Co, residual) at the SD-v1 decoder's
-# three largest convs
+# three largest convs; B3 (B, H2, W2, Ci, Co) at the UNet's upsample and the
+# SD-v1 decoder's two largest
 PARENT_B1 = ((8, 4096, 8, 40), (8, 1024, 8, 80), (2, 4429, 24, 64))
 PARENT_B9 = ((48, 4608, 64, 4429), (64, 4096, 40, 4096), (64, 1024, 80, 1024))
 PARENT_B10 = ((8, 4096, 8, 40), (8, 1024, 8, 80))
 PARENT_B4 = ((4, 64, 64, 512, 512, False), (4, 256, 256, 512, 256, False),
              (4, 512, 512, 128, 128, True))
+PARENT_B3 = ((8, 32, 32, 640, 640), (4, 128, 128, 512, 512),
+             (4, 256, 256, 256, 256))
 PARENT_ENTRIES = {"attention": "sdt_self_attention_bf16",
                   "attention_nt": "sdt_attention_nt_bf16",
                   "attention_bshd": "sdt_attention_bshd_bf16",
-                  "conv3x3": "sdt_conv3x3_bf16"}
+                  "conv3x3": "sdt_conv3x3_bf16",
+                  "conv3x3_up": "sdt_conv3x3_up_bf16"}
 
 
 def build_parent(root: str) -> dict:
@@ -1038,9 +1135,10 @@ def build_parent(root: str) -> dict:
 
 
 def phase_parent(root: str) -> None:
-    """Phase 3b: B1, B9, B10 and B4 of the checkout at ``root`` against
-    this checkout's on the same seeded inputs, timed in turns (parent,
-    this, this, parent), with the largest difference of their outputs."""
+    """Phase 3b: B1, B9, B10, B4 and B3 of the checkout at ``root``
+    against this checkout's on the same seeded inputs, device times
+    (``device_ms``) in turns (parent, this, this, parent), with the largest
+    difference of their outputs."""
     from safe_denoiser_tpu_torch.ops import _build, conv3x3
 
     parent = build_parent(root)
@@ -1055,7 +1153,7 @@ def phase_parent(root: str) -> None:
                 - call(fns["parent"]).float()).abs().max().item()
         ms = {"parent": [], "this": []}
         for who in ("parent", "this", "this", "parent"):
-            ms[who].append(cuda_ms(lambda: call(fns[who]), reps=20))
+            ms[who].append(device_ms(lambda: call(fns[who]), reps=20))
         print(f"parent {name} {shape}: parent_ms="
               f"{ms['parent'][0]:.4f}/{ms['parent'][1]:.4f} this_ms="
               f"{ms['this'][0]:.4f}/{ms['this'][1]:.4f} "
@@ -1125,6 +1223,22 @@ def phase_parent(root: str) -> None:
 
         turns("conv3x3", conv, [b, h, w, ci, co] + (["+res"] if with_res
                                                      else []))
+    for b, h2, w2, ci, co in PARENT_B3:
+        hh = torch.randn(b, h2, w2, ci, device=dev, generator=g).bfloat16()
+        wt, bias = conv3x3.pack_weights(
+            torch.randn(co, ci, 3, 3, device=dev, generator=g)
+            / (9 * ci) ** 0.5, torch.randn(co, device=dev, generator=g))
+
+        def up(fn):
+            out = torch.empty((b, 2 * h2, 2 * w2, co), dtype=hh.dtype,
+                              device=dev)
+            _build.check(fn(hh.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                            out.data_ptr(), b, h2, w2, ci, co,
+                            _build.stream_ptr(dev)), "sdt_conv3x3_up_bf16")
+            return out
+
+        turns("conv3x3_up", up, [b, h2, w2, ci, co])
+        del hh
 
 
 KERNEL_META = {
@@ -1168,7 +1282,8 @@ def kernels_line(results: dict, counts: dict) -> str:
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["lib"]})
+            "library_ms": r["lib"], "device_ms": r["dev"][0],
+            "library_device_ms": r["dev"][1]})
     return json.dumps({"kernels": rows})
 
 
@@ -2256,15 +2371,21 @@ def profile_call(fn, label: str) -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     # attn_kernel: the attention core of B1, B9 and B10 (one kernel name;
-    # the layout switches say which ran)
-    ours = {"attn_kernel": 0.0, "attn_i8_kernel": 0.0,
-            "repack_kernel": 0.0, "rbf_": 0.0,
-            "up_conv_kernel": 0.0, "up_interleave_kernel": 0.0,
-            "conv3x3_kernel": 0.0, "_partial_sums": 0.0, "_finish": 0.0,
-            "_gn_apply": 0.0}
+    # the layout switches say which ran); conv_kernel: the conv core, B3 in
+    # its upsample form (<true>), B4 in its nine-tap form (<false>), matched
+    # demangled or mangled
+    names = {"attn_kernel": ("attn_kernel",),
+             "attn_i8_kernel": ("attn_i8_kernel",),
+             "repack_kernel": ("repack_kernel",), "rbf_": ("rbf_",),
+             "conv_kernel<true>": ("conv_kernel<true>", "conv_kernelILb1E"),
+             "up_interleave_kernel": ("up_interleave_kernel",),
+             "conv_kernel<false>": ("conv_kernel<false>", "conv_kernelILb0E"),
+             "_partial_sums": ("_partial_sums",), "_finish": ("_finish",),
+             "_gn_apply": ("_gn_apply",)}
+    ours = dict.fromkeys(names, 0.0)
     for ms, _, key in rows:
-        for k in ours:
-            if k in key:
+        for k, pats in names.items():
+            if any(pat in key for pat in pats):
                 ours[k] += ms
     print(f"profile ({label}): wall_ms={wall_ms:.1f} "
           f"device_busy_ms={busy:.1f} busy_share={busy / wall_ms:.3f} "
@@ -2288,7 +2409,7 @@ def main() -> None:
                     help="after the main path, profile a 10-step batch; "
                          "after each SD3 run, a 5-step image")
     ap.add_argument("--parent", metavar="DIR",
-                    help="an earlier checkout whose B1, B9, B10 and B4 "
+                    help="an earlier checkout whose B1, B9, B10, B4 and B3 "
                          "phase 3b times against this one's")
     args = ap.parse_args()
     try:

@@ -1,7 +1,9 @@
 // out = residual + conv3x3_SAME(act(x * a + b), w) + bias for NHWC bf16 x:
 // the VAE resnets' GroupNorm-affine + SiLU prologue and residual epilogue
 // fused around one 3x3 conv, on Hopper's warpgroup tensor-core
-// instructions (wgmma).
+// instructions (wgmma). The kernel is the conv core of conv_hopper.cuh
+// (its nine-tap form, which holds the design notes); this file is its C
+// entry.
 //
 // Replaces: safe_denoiser_tpu/ops/conv3x3.py::_kernel (via conv3x3 <-
 // vae.Conv3x3 <- vae.ResnetBlock): the VAE encoder's and decoder's resnet
@@ -10,304 +12,8 @@
 // Bound on an H100: operations, 2 * B*H*W * 9*Ci * Co FLOP at 989 TFLOP/s
 // bf16 (309 GFLOP, ~0.31 ms, at the decoder's [4,512,512,128] -> 128); the
 // bytes (x, residual and output once each) take a quarter of that or less.
-//
-// Design: a block of two warpgroups computes a patch of 8 x 16 output
-// pixels (warpgroup w: patch rows 4w..4w+3, warp i of it one row of 16
-// pixels) for 128 output channels, so M = 128 pixels and N = 128 of the
-// implicit GEMM whose K index is (3*dy + dx)*Ci + ci; two blocks a SM.
-//   Halo band: Ci is walked in chunks of 64 channels. Each chunk's raw
-//   10 x 18-pixel band of x is copied once with 16-byte cp.async copies
-//   into one of two band buffers, and the prologue runs once per band
-//   element, in place: x*a and +b each rounded to bf16 (the TPU kernel's
-//   bf16 affine), then x/(1+exp(-x)) rounded once. Band positions outside
-//   the image keep the zeros the copies wrote: SAME padding comes after
-//   the prologue, never act(0*a+b). That is 180/128 ~ 1.4 prologue
-//   evaluations per input element and output-channel tile, where the
-//   mma.sync kernel before this one ran 9 per element and tile.
-//   The prologue is the costly part of the CUDA-core work (a chunk's band
-//   took about a third of the kernel's time when it ran between the
-//   products): chunk c+1's band is copied at chunk c's first tap and
-//   activated in seven parts while chunk c's taps 2..8 are on the tensor
-//   cores, so only chunk 0's runs alone.
-//   Weights: the slice of one (chunk, tap), [128 out channels x 64], is a
-//   K-major wgmma B operand in the 128-byte swizzle; slices stream through
-//   a ring of four stages, copied two slices ahead. One cp.async group and
-//   one block barrier per slice hand the stages (and, at a chunk's first
-//   tap, the next band) over.
-//   Products: per slice and warpgroup four wgmma m64n128k16 with A from
-//   registers. Tap (dy, dx) shifts a warp's 16 A rows by dy band rows and
-//   dx pixels; a one-pixel shift breaks the 8-row alignment that a
-//   shared-memory descriptor's swizzle atoms need, so each warp loads its
-//   rows with ldmatrix at the tap's offset and hands them to wgmma as
-//   register fragments. Band pixels are 128-byte rows in the XOR swizzle
-//   of the tiles (hopper.cuh), so the 8 rows of one 8x8 matrix fall in
-//   distinct banks at every shift. A slice's products are waited for
-//   before the next slice's ldmatrix: ptxas serializes wgmma whose A
-//   registers are written while earlier wgmma are in flight.
-//   A chunk holds 64 channels; with Ci % 64 == 32 the last chunk's upper
-//   32 channels are zeros in both the band and the weight slice.
-//   Epilogue: f32 accumulators staged in shared memory, then + bias (f32)
-//   + residual (bf16, read as 16-byte vectors), rounded once to bf16, and
-//   stored 16 bytes at a time; pixels outside the image (ragged patches
-//   at the right and bottom edges) are not stored.
-// Tried and dropped (PERF.md): a TMA producer warp with mbarriers at 8 x
-// 16 and 16 x 16 pixels a block; at 288 or 384 threads a block ptxas
-// leaves 96 or 168 registers a thread, and the accumulators then spill.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "hopper.cuh"
-
-namespace {
-
-using namespace sdt_hopper;
-
-constexpr int TH = 8, TW = 16;          // output patch: 8 rows x 16 columns
-constexpr int TM = TH * TW;             // 128 pixels
-constexpr int TN = 128;                 // output channels per block
-constexpr int CK = 64;                  // input channels per chunk
-constexpr int BH = TH + 2, BW = TW + 2, BPIX = BH * BW;  // halo band
-constexpr int BUNITS = BPIX * (CK / 8);  // 16-byte pieces of a band
-constexpr int NPARTS = 7;               // band activated over taps 2..8
-constexpr int PART = (BUNITS + NPARTS - 1) / NPARTS;
-constexpr int NSTAGE = 4;               // weight-slice ring
-constexpr int NTHREADS = 256;
-constexpr int SLICE_BYTES = TN * CK * 2;                  // 16 KB
-constexpr int RING_BYTES = NSTAGE * SLICE_BYTES;
-constexpr int BAND_BYTES = BPIX * CK * 2;                 // 23,040
-constexpr int EPI_PITCH = TN + 4;       // f32 staging row pitch
-constexpr int EPI_BYTES = TM * EPI_PITCH * 4;
-constexpr int MAIN_BYTES = RING_BYTES + 2 * BAND_BYTES;
-constexpr int SMEM_BYTES =
-    (MAIN_BYTES > EPI_BYTES ? MAIN_BYTES : EPI_BYTES) + 1024;  // + align
-// two blocks a SM: each takes SMEM_BYTES and 1 KB for the system of an
-// H100 SM's 228 KB
-static_assert(2 * (SMEM_BYTES + 1024) <= 233472,
-              "two blocks of B4 exceed an SM's shared memory");
-
-__device__ __forceinline__ float rbf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// act(x * a + b) on 8 bf16 values, rounded as the TPU kernel rounds: x*a
-// and +b each rounded to bf16, then the SiLU in f32 (a fast divide; the
-// result is rounded to bf16), rounded once
-__device__ __forceinline__ uint4 prologue(uint4 xv, uint4 av, uint4 bv,
-                                          bool has_pre, bool silu) {
-  const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&xv);
-  const __nv_bfloat162* as = reinterpret_cast<const __nv_bfloat162*>(&av);
-  const __nv_bfloat162* bs = reinterpret_cast<const __nv_bfloat162*>(&bv);
-  uint4 out;
-  __nv_bfloat162* os = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 v = __bfloat1622float2(xs[i]);
-    if (has_pre) {
-      const float2 a = __bfloat1622float2(as[i]);
-      const float2 b = __bfloat1622float2(bs[i]);
-      v.x = rbf16(rbf16(v.x * a.x) + b.x);
-      v.y = rbf16(rbf16(v.y * a.y) + b.y);
-    }
-    if (silu) {
-      v.x = __fdividef(v.x, 1.f + __expf(-v.x));
-      v.y = __fdividef(v.y, 1.f + __expf(-v.y));
-    }
-    os[i] = __floats2bfloat162_rn(v.x, v.y);
-  }
-  return out;
-}
-
-__global__ void __launch_bounds__(NTHREADS, 2)
-conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ wt,
-               const float* __restrict__ bias,
-               const __nv_bfloat16* __restrict__ pre_a,
-               const __nv_bfloat16* __restrict__ pre_b,
-               const __nv_bfloat16* __restrict__ res,
-               __nv_bfloat16* __restrict__ out, int H, int W, int Ci, int Co,
-               int silu, int tiles_x, int tiles_y) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t sbase = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
-  unsigned char* sp = smem_raw + (sbase - raw);
-  const uint32_t ring = sbase;
-  const uint32_t band0 = sbase + RING_BYTES;
-
-  const int tid = threadIdx.x;
-  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  int tile = blockIdx.x;
-  const int tx = tile % tiles_x;
-  tile /= tiles_x;
-  const int ty = tile % tiles_y;
-  const int img = tile / tiles_y;
-  const int y0 = ty * TH, x0 = tx * TW;
-  const int n0 = blockIdx.y * TN;
-  const long long K = 9LL * Ci;
-  const int nchunks = (Ci + CK - 1) / CK;
-  const int nslices = 9 * nchunks;
-  const bool has_pre = pre_a != nullptr;
-  const bool act = silu != 0;
-
-  // raw x of chunk `chunk` into band buffer `buf`; zeros outside the image
-  // and past Ci
-  auto load_band = [&](int chunk, int buf) {
-    const int c0 = chunk * CK;
-    const uint32_t dst = band0 + buf * BAND_BYTES;
-    for (int i = tid; i < BUNITS; i += NTHREADS) {
-      const int p = i >> 3, qc = i & 7;
-      const int yy = y0 - 1 + p / BW, xx = x0 - 1 + p % BW;
-      const int c = c0 + qc * 8;
-      const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W && c < Ci;
-      cp_async16(dst + swz(p, qc),
-                 ok ? x + (((long long)img * H + yy) * W + xx) * Ci + c : x,
-                 ok ? 16 : 0);
-    }
-  };
-  // weight slice `sl` = (chunk, tap) into ring stage `stage`:
-  // rows n0..n0+127, columns tap*Ci + chunk*64 .. +63 (zeros past Ci)
-  auto load_slice = [&](int sl, int stage) {
-    const int chunk = sl / 9, tap = sl - chunk * 9;
-    const int qc = tid & 7, c = chunk * CK + qc * 8;
-    const bool ok = c < Ci;
-    const __nv_bfloat16* src =
-        wt + (long long)(n0 + (tid >> 3)) * K + tap * Ci + c;
-    const uint32_t dst = ring + stage * SLICE_BYTES;
-#pragma unroll
-    for (int j = 0; j < TN * (CK / 8) / NTHREADS; ++j) {
-      const int n = (tid >> 3) + j * (NTHREADS / 8);
-      cp_async16(dst + swz(n, qc), ok ? src + j * (NTHREADS / 8) * K : wt,
-                 ok ? 16 : 0);
-    }
-  };
-  // the prologue on band pieces [u0, u1) of chunk `chunk` in buffer
-  // `buf`, once per piece inside the image (in place)
-  auto activate = [&](int chunk, int buf, int u0, int u1) {
-    const int c0 = chunk * CK;
-    unsigned char* bp = sp + RING_BYTES + buf * BAND_BYTES;
-    for (int i = u0 + tid; i < u1; i += NTHREADS) {
-      const int p = i >> 3, qc = i & 7;
-      const int yy = y0 - 1 + p / BW, xx = x0 - 1 + p % BW;
-      const int c = c0 + qc * 8;
-      if (yy >= 0 && yy < H && xx >= 0 && xx < W && c < Ci) {
-        uint4* e = reinterpret_cast<uint4*>(bp + swz(p, qc));
-        uint4 av = make_uint4(0u, 0u, 0u, 0u), bv = av;
-        if (has_pre) {
-          av = *reinterpret_cast<const uint4*>(pre_a + (long long)img * Ci + c);
-          bv = *reinterpret_cast<const uint4*>(pre_b + (long long)img * Ci + c);
-        }
-        *e = prologue(*e, av, bv, has_pre, act);
-      }
-    }
-  };
-
-  // chunk 0's band and the first two slices; chunk 0 is activated alone
-  load_band(0, 0);
-  load_slice(0, 0);
-  cp_async_commit();
-  if (1 < nslices) load_slice(1, 1);
-  cp_async_commit();
-  if (has_pre || act) {
-    cp_async_wait<1>();
-    __syncthreads();
-    activate(0, 0, 0, BUNITS);
-  }
-
-  float acc[TN / 2];
-#pragma unroll
-  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
-  const int py = wg * 4 + warp;  // this warp's patch row
-  uint32_t a[4][4];
-
-  for (int sl = 0; sl < nslices; ++sl) {
-    const int chunk = sl / 9, tap = sl - chunk * 9;
-    cp_async_wait<1>();   // slice sl (and from tap 2 the next band) landed
-    fence_async_smem();   // copies -> wgmma operand reads
-    __syncthreads();      // ... for every thread; stage (sl+2)%4 is free
-    if (sl + 2 < nslices) load_slice(sl + 2, (sl + 2) % NSTAGE);
-    if (tap == 0 && chunk + 1 < nchunks) load_band(chunk + 1, (chunk + 1) & 1);
-    cp_async_commit();
-
-    const int dy = tap / 3, dx = tap - dy * 3;
-    const uint32_t band = band0 + (chunk & 1) * BAND_BYTES;
-    // lane l: pixel l % 16 of the warp's row shifted by the tap, channels
-    // 8 * (l / 16) .. +7 of each 16-channel step (swizzled band rows)
-    const int prow = (py + dy) * BW + dx + (lane & 15);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      ldmatrix_x4(a[kk], band + swz(prow, kk * 2 + (lane >> 4)));
-    const uint32_t wst = ring + (sl % NSTAGE) * SLICE_BYTES;
-    fence_regs(acc);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_m64n128k16<0>(acc, a[kk], desc_sw128(wst + kk * 32, 16, 1024),
-                             1);
-    wgmma_commit();
-    // while the products run: a seventh of the next chunk's band
-    if (tap >= 2 && chunk + 1 < nchunks && (has_pre || act)) {
-      const int u0 = (tap - 2) * PART;
-      activate(chunk + 1, (chunk + 1) & 1, u0, min(u0 + PART, BUNITS));
-    }
-    wgmma_wait<0>();
-    fence_regs(acc);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // ring and bands no longer read: reuse for the staging
-
-  // acc[4j + e]: pixel row g (e < 2) or g + 8 of the warp's 16, channel
-  // 8j + 2*t4 + (e & 1)
-  float* stg = reinterpret_cast<float*>(sp);
-  const int m0 = wg * 64 + warp * 16 + g;
-#pragma unroll
-  for (int j = 0; j < TN / 8; ++j) {
-    const int c = j * 8 + t4 * 2;
-    *reinterpret_cast<float2*>(stg + m0 * EPI_PITCH + c) =
-        make_float2(acc[4 * j + 0], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(stg + (m0 + 8) * EPI_PITCH + c) =
-        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-  __syncthreads();
-  for (int i = tid; i < TM * (TN / 8); i += NTHREADS) {
-    const int m = i / (TN / 8), qc = i % (TN / 8);
-    const int yy = y0 + m / TW, xx = x0 + m % TW;
-    if (yy >= H || xx >= W) continue;
-    const int n = n0 + qc * 8;
-    const float4 s0 =
-        *reinterpret_cast<const float4*>(stg + m * EPI_PITCH + qc * 8);
-    const float4 s1 =
-        *reinterpret_cast<const float4*>(stg + m * EPI_PITCH + qc * 8 + 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(bias + n);
-    const float4 b1 = *reinterpret_cast<const float4*>(bias + n + 4);
-    float v[8] = {s0.x + b0.x, s0.y + b0.y, s0.z + b0.z, s0.w + b0.w,
-                  s1.x + b1.x, s1.y + b1.y, s1.z + b1.z, s1.w + b1.w};
-    const long long off = (((long long)img * H + yy) * W + xx) * Co + n;
-    if (res != nullptr) {
-      const uint4 rv = *reinterpret_cast<const uint4*>(res + off);
-      const __nv_bfloat162* rs = reinterpret_cast<const __nv_bfloat162*>(&rv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 r = __bfloat1622float2(rs[e]);
-        v[2 * e] += r.x;
-        v[2 * e + 1] += r.y;
-      }
-    }
-    uint4 ov;
-    __nv_bfloat162* os = reinterpret_cast<__nv_bfloat162*>(&ov);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      os[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-    *reinterpret_cast<uint4*>(out + off) = ov;
-  }
-}
-
-}  // namespace
+#include "conv_hopper.cuh"
 
 // x [B, H, W, Ci] bf16 contiguous, 16-byte aligned; wt [Co, 9*Ci] bf16
 // (K index = (3*dy + dx)*Ci + ci); bias [Co] f32, 16-byte aligned; pre_a,
@@ -319,28 +25,12 @@ extern "C" int sdt_conv3x3_bf16(const void* x, const void* wt,
                                 const void* pre_b, const void* res, void* out,
                                 int B, int H, int W, int Ci, int Co, int silu,
                                 void* stream) {
-  if (Ci % 32 != 0 || Ci < 32 || Co % TN != 0 || B < 1 || H < 1 || W < 1 ||
-      (pre_a == nullptr) != (pre_b == nullptr))
+  if (Ci % 32 != 0 || Ci < 32 || Co % sdt_conv::TN != 0 || B < 1 || H < 1 ||
+      W < 1 || (pre_a == nullptr) != (pre_b == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  const long long tiles = (long long)B * tiles_x * tiles_y;
-  if (tiles >= (1LL << 31) || (long long)B * H * W >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)tiles, Co / TN);
-  conv3x3_kernel<<<grid, NTHREADS, SMEM_BYTES,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(wt), bias,
-      static_cast<const __nv_bfloat16*>(pre_a),
-      static_cast<const __nv_bfloat16*>(pre_b),
-      static_cast<const __nv_bfloat16*>(res),
-      static_cast<__nv_bfloat16*>(out), H, W, Ci, Co, silu, tiles_x, tiles_y);
-  return (int)cudaGetLastError();
+  return sdt_conv::launch<false>(x, wt, bias, pre_a, pre_b, res, out, B, H, W,
+                                 Ci, Co, silu, stream);
 }
 
 // The dynamic shared memory of a block of sdt_conv3x3_bf16's kernel.
-extern "C" int sdt_conv3x3_bf16_smem() { return SMEM_BYTES; }
+extern "C" int sdt_conv3x3_bf16_smem() { return sdt_conv::SMEM_BYTES; }

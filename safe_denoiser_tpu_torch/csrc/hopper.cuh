@@ -1,5 +1,5 @@
-// Helpers of the Hopper kernels (attention.cu, conv3x3.cu): shared
-// addresses, 16-byte cp.async copies, ldmatrix, mbarriers, TMA tensor
+// Helpers of the Hopper kernels (attention_hopper.cuh, conv_hopper.cuh):
+// shared addresses, 16-byte cp.async copies, ldmatrix, mbarriers, TMA tensor
 // copies and named barriers, the 128-byte swizzle of a shared-memory tile,
 // wgmma shared-memory descriptors and the wgmma instructions the kernels
 // issue (bf16 in, f32 accumulate); on the host, TMA tensor maps.

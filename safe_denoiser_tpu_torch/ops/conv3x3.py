@@ -124,6 +124,9 @@ def _conv3x3_up_cuda(h, w_oihw, b, packed, form):
             and bias.device == h.device):
         raise ValueError("packed weights are not pack_weights(w, b) of this "
                          "weight on this GPU")
+    if wt.data_ptr() % 16 or bias.data_ptr() % 16 or not bias.is_contiguous():
+        raise ValueError("the packed weights and bias must be contiguous and "
+                         "16-byte aligned")
     out = torch.empty((bsz, 2 * h2, 2 * w2, co), dtype=h.dtype,
                       device=h.device)
     name = "conv3x3_up" if form == "planar" else "conv3x3_up_interleave"

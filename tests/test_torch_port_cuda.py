@@ -624,12 +624,16 @@ def test_rbf_wrapper_rejects_what_the_kernel_does_not_take(dev):
 # -------------------------------------------------------------- conv3x3_up
 @pytest.mark.parametrize("b,h2,w2,ci,co,bias", [
     (2, 16, 16, 128, 128, True), (1, 8, 8, 32, 64, False),
-    (3, 5, 7, 64, 128, True), (1, 33, 17, 96, 192, True)])
+    (3, 5, 7, 64, 128, True), (1, 33, 17, 96, 192, True),
+    (2, 6, 10, 96, 64, True), (1, 12, 20, 96, 192, False),
+    (2, 3, 8, 64, 128, True), (8, 32, 32, 640, 640, True)])
 def test_conv3x3_up_kernel_matches_plain(dev, b, h2, w2, ci, co, bias):
     """Against the plain version in f32 on the same bf16 values; tolerance
     of the bf16 output (outputs ~ N(0, 2)) and the kernel's bf16
-    pre-summed weights. (3, 5, 7) and (1, 33, 17) leave a partial pixel
-    tile."""
+    pre-summed weights. (3, 5, 7) and (1, 33, 17) leave a partial 8 x 16
+    pixel patch; Co = 64 and 192 a half 128-channel tile (masked), Ci = 32
+    and 96 a half 64-channel chunk; (2, 3, 8) is less than one patch; the
+    last is the UNet's 640-channel upsample."""
     g = _gen(2)
     h = torch.randn(b, h2, w2, ci, device=dev, generator=g).bfloat16()
     w = (torch.randn(co, ci, 3, 3, device=dev, generator=g)
@@ -641,6 +645,35 @@ def test_conv3x3_up_kernel_matches_plain(dev, b, h2, w2, ci, co, bias):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (b, 2 * h2, 2 * w2,
                                                          co)
+    torch.testing.assert_close(got.float(), want, atol=5e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,h2,w2,ci,co", [
+    (3, 8, 16, 128, 128), (3, 5, 20, 96, 192)])
+def test_conv3x3_up_kernel_reads_no_neighbouring_pixels(dev, b, h2, w2, ci,
+                                                        co):
+    """Every image's outer rows and columns hold +-30: a kernel that reads
+    a neighbouring image's row, wraps a column, or pads with anything but
+    zeros is off by tens on the border outputs, far outside the bound.
+    (3, 8, 16) fills whole patches, so the halo lies wholly outside. The
+    weights are multiples of 2^-8 whose pre-summed parity sums are exact in
+    bf16: with random bf16 weights the kernel's rounding of those sums
+    alone reads up to 0.18 next to inputs of 30 (the plain version sums in
+    f32), so only the bf16 output's rounding is left for the bound."""
+    g = _gen(21)
+    h = torch.randn(b, h2, w2, ci, device=dev, generator=g)
+    sign = torch.where(torch.rand(h.shape, device=dev, generator=g) < 0.5,
+                       -30.0, 30.0)
+    edge = torch.zeros(h2, w2, dtype=torch.bool, device=dev)
+    edge[[0, -1], :] = True
+    edge[:, [0, -1]] = True
+    h = torch.where(edge[None, :, :, None], sign, h).bfloat16()
+    w = (torch.randint(-8, 9, (co, ci, 3, 3), device=dev, generator=g)
+         / 256.0).bfloat16()
+    bb = torch.randn(co, device=dev, generator=g).bfloat16()
+    got = conv3x3.conv3x3_up(h, w, bb)
+    want = conv3x3.conv3x3_up_ref(h.float(), w.float(), bb.float())
+    torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want, atol=5e-2, rtol=2e-2)
 
 
@@ -656,6 +689,10 @@ def test_conv3x3_up_wrapper_rejects_what_the_kernel_does_not_take(dev):
     wrong = conv3x3.pack_weights(torch.randn(128, 64, 3, 3, device=dev))
     with pytest.raises(ValueError):
         conv3x3.conv3x3_up(h, w, packed=wrong)
+    # the kernel reads the bias as 16-byte vectors
+    wt, _ = conv3x3.pack_weights(w)
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_up(h, w, packed=(wt, torch.zeros(65, device=dev)[1:]))
     assert ops.launch_counts()["conv3x3_up"] == 0
 
 
