@@ -12,8 +12,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
   3. kernel checks: ptxas' registers, spills and static shared memory of
      every kernel in csrc/ (and the dynamic shared memory of every template
      of the attention core that B1, B9 and B10 share, attention_hopper.cuh,
-     and of both forms of the conv core that B4 and B3 share,
-     conv_hopper.cuh: the wgmma kernels);
+     and of its int8 form, B8's, and of the three forms of the conv core
+     that B4, B3 and B7 share, conv_hopper.cuh: the wgmma kernels);
      then each kernel at the main path's shapes (and B4/B5 also at the
      runner's bank-encode shapes; B9/B10 also in f32; B7 beside B3) against
      its plain PyTorch version, with its device time and a library call's
@@ -23,9 +23,10 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      (``cuda_ms``: events around Python calls);
   3b. with --parent DIR (the root of an earlier checkout, unpacked with
      ``git archive``): its attention.cu, attention_nt.cu, attention_bshd.cu,
-     conv3x3.cu and conv3x3_up.cu built with the same flags, and B1, B9,
-     B10, B4 and B3 of both timed in turns (parent, this, this, parent;
-     device times) at the main path's shapes;
+     conv3x3.cu, conv3x3_up.cu, attention_i8.cu and
+     conv3x3_up_interleave.cu built with the same flags, and B1, B9, B10,
+     B4, B3, B8 and B7 of both timed in turns (parent, this, this, parent;
+     device times) at the main path's shapes (B8 and B7 at phase 3's);
   4. main path: the tiny f32 slice on cuda against the CPU, at 8^2 latents
      and at 32^2 (S = 1024) under each attention layout (bhsd, nt, nt with
      the head repacks, bshd: SDT_FLASH2_LAYOUT / SDT_ATTN_REPACK), then
@@ -81,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -495,8 +497,9 @@ def dynamic_smem(name: str, fn: str):
     """The dynamic shared memory (bytes) that the C side gives kernel
     function ``fn`` of ``csrc/<name>.cu``: every template of the bf16
     attention core (B1, B9, B10 share csrc/attention_hopper.cuh, whose
-    size B1's library reports) and both forms of the conv core (B4 and B3,
-    csrc/conv_hopper.cuh); None for the rest."""
+    size B1's library reports) and of its int8 form (B8), and the three
+    forms of the conv core (B4, B3 and B7, csrc/conv_hopper.cuh); None for
+    the rest."""
     import re
 
     from safe_denoiser_tpu_torch.ops import _build
@@ -505,7 +508,12 @@ def dynamic_smem(name: str, fn: str):
     if name in ("attention", "attention_nt", "attention_bshd") and m:
         return _build.library("attention").sdt_self_attention_bf16_smem(
             int(m.group(1)))
-    if name in ("conv3x3", "conv3x3_up") and "conv_kernel" in fn:
+    m = re.search(r"attn_i8_kernelILi(\d+)E", fn)
+    if name == "attention_i8" and m:
+        return _build.library(name).sdt_self_attention_i8_bf16_smem(
+            int(m.group(1)))
+    if (name in ("conv3x3", "conv3x3_up") and "conv_kernel" in fn
+            or name == "conv3x3_up_interleave" and "up4_kernel" in fn):
         return getattr(_build.library(name), f"sdt_{name}_bf16_smem")()
     return None
 
@@ -514,7 +522,7 @@ def print_ptxas() -> None:
     """ptxas' registers, spills and static shared memory of every kernel of
     every source (from the report kept beside its library), its warnings
     (C7512/C7513: wgmma serialized), and the dynamic shared memory of the
-    attention core's templates and of B4 and B3."""
+    attention core's templates (B1, B8) and of B4, B3 and B7."""
     from safe_denoiser_tpu_torch.ops import _build
 
     for name in _build.SOURCES:
@@ -588,6 +596,37 @@ def b8_errors(shape, seed: int):
     out = attention._self_attention_cuda(q, k, v, scale)
     ctrl = (out.float() - want).abs().max().item()
     return q, k, v, err, ctrl
+
+
+def b8_parts(q, k, v, scale):
+    """Device times of B8's two kernels alone on the wrapper's scratch:
+    (the quantize pass over q and k, the core's int8 form)."""
+    from safe_denoiser_tpu_torch.ops import _build, attention
+
+    lib = _build.library("attention_i8")
+    b, s, h, d = q.shape
+    qi = torch.empty(2, b * h * s * attention.i8_width(d), dtype=torch.int8,
+                     device=q.device)
+    deq = torch.empty(2 * b * h * attention.i8_pitch(s), dtype=torch.float32,
+                      device=q.device)
+    out = torch.empty_like(q)
+    cq, ck = attention.i8_dequant_scales(scale)
+
+    def quantize():
+        _build.check(lib.sdt_quantize_i8_bf16(
+            q.data_ptr(), k.data_ptr(), qi[0].data_ptr(), qi[1].data_ptr(),
+            deq.data_ptr(), b, s, h, d, *q.stride()[:3], cq, ck,
+            _build.stream_ptr(q.device)), "sdt_quantize_i8_bf16")
+
+    def attend():
+        _build.check(lib.sdt_attention_i8_quantized_bf16(
+            qi[0].data_ptr(), qi[1].data_ptr(), deq.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, s, h, d, *v.stride()[:3],
+            _build.stream_ptr(q.device)), "sdt_attention_i8_quantized_bf16")
+
+    quantize()
+    torch.cuda.synchronize()
+    return device_ms(quantize), device_ms(attend)
 
 
 def phase_kernels() -> dict:
@@ -671,6 +710,13 @@ def phase_kernels() -> dict:
         t_bytes = 4 * b * s * h * d * 2 / PEAK_BYTES * 1e3
         bnd = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
                                                                "bytes")
+        # its two kernels alone; the pass's bound: q, k read in bf16, the
+        # int8 rows (padded to i8_width) and the f32 factors written
+        quant_ms, attn_ms = b8_parts(q, k, v, scale)
+        quant_bytes = b * h * s * (4 * d + 2 * attention.i8_width(d) + 8)
+        print(f"  attention_i8 {list(shape)}: quantize pass device_ms="
+              f"{quant_ms:.4f} (bound {quant_bytes / PEAK_BYTES * 1e3:.4f} "
+              f"bytes), int8 attention device_ms={attn_ms:.4f}")
         _report("attention_i8", list(shape), err, tol, ms,
                 plain, None, bnd, f"none; SDPA bf16 device {sdpa_dev:.4f} "
                 f"ms, wrapper-paced {sdpa:.4f} ms, as context", dtm)
@@ -1099,16 +1145,23 @@ PARENT_ENTRIES = {"attention": "sdt_self_attention_bf16",
                   "attention_nt": "sdt_attention_nt_bf16",
                   "attention_bshd": "sdt_attention_bshd_bf16",
                   "conv3x3": "sdt_conv3x3_bf16",
-                  "conv3x3_up": "sdt_conv3x3_up_bf16"}
+                  "conv3x3_up": "sdt_conv3x3_up_bf16",
+                  "attention_i8": "sdt_self_attention_i8_bf16",
+                  "conv3x3_up_interleave": "sdt_conv3x3_up_interleave_bf16"}
+# entries whose arguments changed since the checkouts that 3b is run
+# against: the parent's argument list. B8's took no scratch before its
+# quantize pass became a kernel of its own (q, k, v, o, B, S, H, D, sb, ss,
+# sh, cq, ck, stream).
+PARENT_ARGTYPES = {"attention_i8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 3
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]}
 
 
 def build_parent(root: str) -> dict:
     """The bf16 C entry points of PARENT_ENTRIES from the checkout at
     ``root``, built (all sources at once) with this checkout's nvcc flags into
     build/torch_kernels_parent/; they take the arguments of this
-    checkout's."""
-    import ctypes
-
+    checkout's, or those of PARENT_ARGTYPES."""
     from safe_denoiser_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR.parent / "torch_kernels_parent"
@@ -1129,17 +1182,19 @@ def build_parent(root: str) -> dict:
         entry = PARENT_ENTRIES[name]
         fn = getattr(ctypes.CDLL(lib), entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = _build.SIGNATURES[name][entry]
+        fn.argtypes = PARENT_ARGTYPES.get(name,
+                                          _build.SIGNATURES[name][entry])
         fns[name] = fn
     return fns
 
 
 def phase_parent(root: str) -> None:
-    """Phase 3b: B1, B9, B10, B4 and B3 of the checkout at ``root``
-    against this checkout's on the same seeded inputs, device times
-    (``device_ms``) in turns (parent, this, this, parent), with the largest
-    difference of their outputs."""
-    from safe_denoiser_tpu_torch.ops import _build, conv3x3
+    """Phase 3b: B1, B9, B10, B4, B3, B8 and B7 of the checkout at
+    ``root`` against this checkout's on the same seeded inputs, device
+    times (``device_ms``) in turns (parent, this, this, parent), with the
+    largest difference of their outputs."""
+    from safe_denoiser_tpu_torch.models import SD3_VAE
+    from safe_denoiser_tpu_torch.ops import _build, attention, conv3x3
 
     parent = build_parent(root)
     this = {name: getattr(_build.library(name), entry)
@@ -1238,6 +1293,48 @@ def phase_parent(root: str) -> None:
             return out
 
         turns("conv3x3_up", up, [b, h2, w2, ci, co])
+        del hh
+    # B8 at its phase-3 shapes (the parent's entry without scratch)
+    for b, s, h, d in B8_ATOL:
+        q, k, v = (torch.randn(b, s, h, d, device=dev, generator=g)
+                   .bfloat16() for _ in range(3))
+        cq, ck = attention.i8_dequant_scales(d ** -0.5)
+        qi = torch.empty(2, b * h * s * attention.i8_width(d),
+                         dtype=torch.int8, device=dev)
+        deq = torch.empty(2 * b * h * attention.i8_pitch(s),
+                          dtype=torch.float32, device=dev)
+
+        def attn_i8(fn):
+            out = torch.empty_like(q)
+            scratch = ([] if fn is parent["attention_i8"] else
+                       [qi[0].data_ptr(), qi[1].data_ptr(), deq.data_ptr()])
+            _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), *scratch, b, s, h, d,
+                            *q.stride()[:3], cq, ck, _build.stream_ptr(dev)),
+                         "sdt_self_attention_i8_bf16")
+            return out
+
+        turns("attention_i8", attn_i8, [b, s, h, d])
+        del q, k, v, qi, deq
+    # B7 at its phase-3 shapes: the SD-v1 and SD3 decoders' upsamples
+    sd3 = vae_kernel_plan(SD3_VAE, 1, SD3_SIDE // 8, SD3_SIDE // 8)[1]
+    for b, h2, w2, c in ((4, 64, 64, 512), (4, 128, 128, 512),
+                         (4, 256, 256, 256), *sd3["conv3x3_up"]):
+        hh = torch.randn(b, h2, w2, c, device=dev, generator=g).bfloat16()
+        wt, bias = conv3x3.pack_weights(
+            torch.randn(c, c, 3, 3, device=dev, generator=g)
+            / (9 * c) ** 0.5, torch.randn(c, device=dev, generator=g))
+
+        def up_il(fn):
+            out = torch.empty((b, 2 * h2, 2 * w2, c), dtype=hh.dtype,
+                              device=dev)
+            _build.check(fn(hh.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                            out.data_ptr(), b, h2, w2, c, c,
+                            _build.stream_ptr(dev)),
+                         "sdt_conv3x3_up_interleave_bf16")
+            return out
+
+        turns("conv3x3_up_interleave", up_il, [b, h2, w2, c, c])
         del hh
 
 
@@ -2191,19 +2288,26 @@ def phase_sd3(profile: bool = False) -> dict:
     counts = {mode: v[0] for mode, v in out.items()}
     vc = pipe.vae.config
     z = out["bf16"][2] / vc.scaling_factor + vc.shift_factor
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     with torch.no_grad():
+        ev[0].record()
         planar = pipe.vae.decode(z).float()
+        ev[1].record()
         with switches({"SDT_UP_FORM": "interleave"}):
             want = vae_kernel_plan(vc, 1, z.shape[2], z.shape[3])[0]
             ops.reset_launch_counts()
+            ev[2].record()
             inter = pipe.vae.decode(z).float()
+            ev[3].record()
             torch.cuda.synchronize()
             counts["decode interleave"] = ops.launch_counts()
     if not bool(torch.isfinite(inter).all()):
         fail("sd3 decode under SDT_UP_FORM=interleave: non-finite image")
     print(f"sd3 decode under SDT_UP_FORM=interleave vs the default decode of "
           f"the bf16 latents: max|d| image (-1..1)="
-          f"{(inter - planar).abs().max().item():.4e}")
+          f"{(inter - planar).abs().max().item():.4e}; decode_ms default="
+          f"{ev[0].elapsed_time(ev[1]):.2f} interleave="
+          f"{ev[2].elapsed_time(ev[3]):.2f}")
     check_launches(counts["decode interleave"], want,
                    "sd3 decode under SDT_UP_FORM=interleave")
     del pipe
@@ -2371,14 +2475,17 @@ def profile_call(fn, label: str) -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     # attn_kernel: the attention core of B1, B9 and B10 (one kernel name;
-    # the layout switches say which ran); conv_kernel: the conv core, B3 in
-    # its upsample form (<true>), B4 in its nine-tap form (<false>), matched
-    # demangled or mangled
+    # the layout switches say which ran); attn_i8_kernel: its int8 form,
+    # and quantize_i8_kernel B8's quantize pass; conv_kernel: the conv
+    # core, B3 in its upsample form (<true>), B4 in its nine-tap form
+    # (<false>), matched demangled or mangled; up4_kernel: its interleave
+    # form (B7)
     names = {"attn_kernel": ("attn_kernel",),
              "attn_i8_kernel": ("attn_i8_kernel",),
+             "quantize_i8_kernel": ("quantize_i8_kernel",),
              "repack_kernel": ("repack_kernel",), "rbf_": ("rbf_",),
              "conv_kernel<true>": ("conv_kernel<true>", "conv_kernelILb1E"),
-             "up_interleave_kernel": ("up_interleave_kernel",),
+             "up4_kernel": ("up4_kernel",),
              "conv_kernel<false>": ("conv_kernel<false>", "conv_kernelILb0E"),
              "_partial_sums": ("_partial_sums",), "_finish": ("_finish",),
              "_gn_apply": ("_gn_apply",)}
@@ -2409,8 +2516,8 @@ def main() -> None:
                     help="after the main path, profile a 10-step batch; "
                          "after each SD3 run, a 5-step image")
     ap.add_argument("--parent", metavar="DIR",
-                    help="an earlier checkout whose B1, B9, B10, B4 and B3 "
-                         "phase 3b times against this one's")
+                    help="an earlier checkout whose B1, B9, B10, B4, B3, B8 "
+                         "and B7 phase 3b times against this one's")
     args = ap.parse_args()
     try:
         import safe_denoiser_tpu_torch  # noqa: F401

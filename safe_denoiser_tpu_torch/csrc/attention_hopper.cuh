@@ -1,9 +1,11 @@
 // The Hopper attention core: softmax(Q K^T * scale) V for bf16 q, k, v on
 // the warpgroup tensor-core instructions (wgmma) fed by the Tensor Memory
-// Accelerator (TMA), and the CUDA-core kernel for f32. Three entry points
+// Accelerator (TMA), and the CUDA-core kernel for f32. Four entry points
 // share it: B1 (attention.cu, [B, S, H, D] views), B9 (attention_nt.cu,
-// head-major [BH, S, D] as H = 1, keys past valid_kv masked) and B10
-// (attention_bshd.cu, contiguous [B, S, H, D]).
+// head-major [BH, S, D] as H = 1, keys past valid_kv masked), B10
+// (attention_bshd.cu, contiguous [B, S, H, D]) and, in an int8-QK^T form
+// of the bf16 kernel (attn_i8_kernel, below the bf16 one), B8
+// (attention_i8.cu).
 //
 // Queries and keys: S query rows, kv_len <= S key rows; keys at or past
 // kv_len get no weight (B1 and B10 pass kv_len = S).
@@ -163,10 +165,11 @@ __device__ __forceinline__ void issue_pv(float (&acc)[NV / 2],
 
 // The online softmax of one tile for a thread's two rows (g and g + 8):
 // s[4n + e] holds row g (e < 2) or g + 8, key k0 + 8n + 2*t4 + (e & 1).
-// Scales by c (sm_scale * log2 e), masks keys at or past kv_len to -inf,
+// Scales by c (sm_scale * log2 e; SCALE false: s is in the exp2 domain
+// already and c is not read), masks keys at or past kv_len to -inf,
 // updates the running max m and sum l, and leaves 2^(s - m) in s; returns
 // each row's factor for the accumulator in al.
-template <int BK>
+template <int BK, bool SCALE = true>
 __device__ __forceinline__ void online_softmax(float (&s)[BK / 2], int k0,
                                                int kv_len, float c, int t4,
                                                float& m0, float& m1,
@@ -178,8 +181,10 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2], int k0,
     for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        s[4 * n + e] *= c;
-        s[4 * n + 2 + e] *= c;
+        if (SCALE) {
+          s[4 * n + e] *= c;
+          s[4 * n + 2 + e] *= c;
+        }
         mx0 = fmaxf(mx0, s[4 * n + e]);
         mx1 = fmaxf(mx1, s[4 * n + 2 + e]);
       }
@@ -190,8 +195,11 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2], int k0,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool valid = k0 + n * 8 + t4 * 2 + e < kv_len;
-        const float a = valid ? s[4 * n + e] * c : -INFINITY;
-        const float b = valid ? s[4 * n + 2 + e] * c : -INFINITY;
+        const float a =
+            valid ? (SCALE ? s[4 * n + e] * c : s[4 * n + e]) : -INFINITY;
+        const float b = valid ? (SCALE ? s[4 * n + 2 + e] * c
+                                       : s[4 * n + 2 + e])
+                              : -INFINITY;
         s[4 * n + e] = a;
         s[4 * n + 2 + e] = b;
         mx0 = fmaxf(mx0, a);
@@ -400,6 +408,258 @@ attn_kernel(const __grid_constant__ CUtensorMap map_q,
     if (srow < S) {
       const uint4 val = *reinterpret_cast<const uint4*>(
           sp + (qq >> 3) * BQ * 128 + swz(r, qq & 7));
+      *reinterpret_cast<uint4*>(
+          o + (((long long)b * S + srow) * H + h) * D + qq * 8) = val;
+    }
+  }
+}
+
+// ---- the int8-QK^T form (B8, attention_i8.cu) ----
+// Q and K arrive quantized (attention_i8.cu's pass, once per call): int8
+// [B*H, S, NV] with the head dim zero-padded to NV (a multiple of 64, as
+// the TPU kernel pads its int8 contraction), and f32 dequant factors
+// qdeq [B*H, sp4] (q_amax * c/127) and kdeq [B*H, sp4] (k_amax / 127).
+// Per tile: S = Q K^T on wgmma m64nBKk32 s8 x s8 -> s32 (exact), both
+// operands K-major in the 64-byte swizzle (SW64, hopper.cuh), NV/32 steps;
+// the logit (float(s32) * q_deq) * k_deq in the TPU kernel's order, in the
+// exp2 domain already (c is in q_deq); then B1's softmax, P V and
+// epilogue. The tile's kdeq (BK floats) travels with its K and V tiles.
+// s32 -> f32 without the conversion unit: adding 0x4B400000 (1.5 * 2^23)
+// to the integer's bits gives the float 1.5 * 2^23 + s32 exactly while
+// -2^22 <= s32 < 2^22 (the mantissa holds 2^22 + s32), and subtracting
+// 1.5 * 2^23 leaves float(s32) exactly; |s32| <= 127^2 * 256 < 2^22 for
+// every padded head dim up to 256. An integer add and a float add run at
+// the full rate, where I2F shares the 16-a-clock path with exp2.
+template <int NV>
+struct CfgI8 {
+  static constexpr int NB = NV / 64;       // 64-column blocks per row
+  static constexpr int KSTEPS = NV / 32;   // int8 steps of 32 along D
+  static constexpr int BK = NV == 64 ? 128 : 64;
+  static constexpr int Q_BYTES = NB * BQ * 64;    // int8, SW64
+  static constexpr int K_BYTES = NB * BK * 64;    // int8, SW64
+  static constexpr int V_BYTES = NB * BK * 128;   // bf16, SW128
+  static constexpr int KD_BYTES = BK * 4;         // f32 k_deq of a tile
+  static constexpr int O_BYTES = NB * BQ * 128;   // bf16 output staging
+  static constexpr int STAGE = K_BYTES + V_BYTES + KD_BYTES;
+  static constexpr int NS =
+      Q_BYTES + O_BYTES + 4 * STAGE + 1024 <= SMEM_LIMIT   ? 4
+      : Q_BYTES + O_BYTES + 3 * STAGE + 1024 <= SMEM_LIMIT ? 3
+                                                           : 2;
+  static constexpr int SMEM = Q_BYTES + O_BYTES + NS * STAGE + 1024;
+  static_assert(SMEM <= SMEM_LIMIT,
+                "the int8 attention tiles exceed a block's shared memory");
+};
+
+__device__ __forceinline__ void qk_step_i8(uint32_t (&s)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  wgmma_ss_m64n64k32_s8(s, da, db, scale_d);
+}
+
+__device__ __forceinline__ void qk_step_i8(uint32_t (&s)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  wgmma_ss_m64n128k32_s8(s, da, db, scale_d);
+}
+
+// S = Q K^T in int8 for a warpgroup's 64 query rows (at qrows) and a tile
+// of BK keys (at kst): NV/32 wgmma, 32 values of D each
+template <int NV, int BK = CfgI8<NV>::BK>
+__device__ __forceinline__ void issue_qk_i8(uint32_t (&s)[BK / 2],
+                                            uint32_t qrows, uint32_t kst) {
+#pragma unroll
+  for (int kk = 0; kk < CfgI8<NV>::KSTEPS; ++kk) {
+    const uint32_t koff = (kk & 1) * 32;  // 32 values along D
+    const uint64_t da = desc_sw64(qrows + (kk >> 1) * BQ * 64 + koff, 512);
+    const uint64_t db = desc_sw64(kst + (kk >> 1) * BK * 64 + koff, 512);
+    qk_step_i8(s, da, db, kk > 0 ? 1 : 0);
+  }
+}
+
+// float(s32), exact for |s32| < 2^22 (see above)
+__device__ __forceinline__ float s32_to_f32(uint32_t v) {
+  return __uint_as_float(v + 0x4B400000u) - 12582912.f;
+}
+
+// the logits of a tile, (float(s32) * q_deq) * k_deq, for the thread's
+// rows g (qd0) and g + 8 (qd1); kd: the tile's k_deq in shared memory
+template <int BK>
+__device__ __forceinline__ void dequant(float (&f)[BK / 2],
+                                        const uint32_t (&si)[BK / 2],
+                                        const float* kd, int t4, float qd0,
+                                        float qd1) {
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+    const float2 k2 = *reinterpret_cast<const float2*>(kd + 8 * n + 2 * t4);
+    f[4 * n + 0] = (s32_to_f32(si[4 * n + 0]) * qd0) * k2.x;
+    f[4 * n + 1] = (s32_to_f32(si[4 * n + 1]) * qd0) * k2.y;
+    f[4 * n + 2] = (s32_to_f32(si[4 * n + 2]) * qd1) * k2.x;
+    f[4 * n + 3] = (s32_to_f32(si[4 * n + 3]) * qd1) * k2.y;
+  }
+}
+
+// B1's kernel with the first product in int8: maps over the quantized Q
+// and K ([B*H, S, NV] int8, boxes of 64 columns), over v (B1's), and over
+// kdeq ([B*H, S] f32, boxes of BK keys); qdeq read once per row
+template <int NV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+attn_i8_kernel(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_kd,
+               const float* __restrict__ qdeq, __nv_bfloat16* __restrict__ o,
+               int S, int H, int D, int sp4) {
+  using C = CfgI8<NV>;
+  constexpr int NB = C::NB, NS = C::NS, BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * NS + 1];  // full, empty, Q
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  unsigned char* sp = smem_raw + (sbase - raw);
+  const uint32_t sQ = sbase;
+  const uint32_t sK = sQ + C::Q_BYTES;        // NS K tiles
+  const uint32_t sV = sK + NS * C::K_BYTES;   // NS V tiles
+  const uint32_t sO = sV + NS * C::V_BYTES;   // output staging
+  const uint32_t sKD = sO + C::O_BYTES;       // NS k_deq tiles
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + NS * 8;
+  const uint32_t qbar = full0 + 2 * NS * 8;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int ntiles = (S + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full0 + st * 8, 1);
+      mbar_init(empty0 + st * 8, NCONSUMER / 32);  // one arrive a warp
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= NCONSUMER) {
+    // producer: one thread issues every copy of the block
+    if (tid == NCONSUMER) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+      for (int j = 0; j < NB; ++j)
+        tma_load_3d(sQ + j * BQ * 64, &map_q, qbar, j * 64, q0, bh);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % NS;
+        if (t >= NS) mbar_wait(empty0 + st * 8, ((t / NS) - 1) & 1);
+        const uint32_t fb = full0 + st * 8;
+        mbar_expect_tx(fb, C::STAGE);
+        for (int j = 0; j < NB; ++j) {
+          tma_load_3d(sK + st * C::K_BYTES + j * BK * 64, &map_k, fb, j * 64,
+                      t * BK, bh);
+          tma_load_4d(sV + st * C::V_BYTES + j * BK * 128, &map_v, fb,
+                      j * 64, h, t * BK, b);
+        }
+        tma_load_2d(sKD + st * C::KD_BYTES, &map_kd, fb, t * BK, bh);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint32_t qrows = sQ + wg * 64 * 64;  // this warpgroup's Q rows
+  const int row0 = q0 + wg * 64 + warp * 16 + g;
+  const float qd0 = row0 < S ? qdeq[(long long)bh * sp4 + row0] : 0.f;
+  const float qd1 = row0 + 8 < S ? qdeq[(long long)bh * sp4 + row0 + 8]
+                                 : 0.f;
+  const float* kd0 = reinterpret_cast<const float*>(sp + (sKD - sbase));
+  float acc[NV / 2];
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) acc[i] = 0.f;
+  uint32_t si[BK / 2];
+  float s[BK / 2];
+  uint32_t pa[BK / 16][4];
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0, al1;
+
+  // warpgroup 0 issues first
+  if (wg == 1) named_bar_arrive(BAR_TURN + 0, NCONSUMER);
+  mbar_wait(qbar, 0);
+  mbar_wait(full0, 0);
+  named_bar_sync(BAR_TURN + wg, NCONSUMER);
+  fence_regs(si);
+  wgmma_fence();
+  issue_qk_i8<NV>(si, qrows, sK);
+  wgmma_commit();
+  named_bar_arrive(BAR_TURN + (wg ^ 1), NCONSUMER);
+  wgmma_wait<0>();
+  fence_regs(si);
+  dequant<BK>(s, si, kd0, t4, qd0, qd1);
+  online_softmax<BK, false>(s, 0, S, 0.f, t4, m0, m1, l0, l1, al0, al1);
+  pack_p<BK>(pa, s);
+
+  for (int kt = 1; kt < ntiles; ++kt) {
+    const int st = kt % NS, pst = (kt - 1) % NS;
+    mbar_wait(full0 + st * 8, (kt / NS) & 1);  // tile kt landed
+    named_bar_sync(BAR_TURN + wg, NCONSUMER);  // this warpgroup's turn
+    fence_all<NV, BK>(acc, pa);
+    fence_regs(si);
+    wgmma_fence();
+    issue_qk_i8<NV>(si, qrows, sK + st * C::K_BYTES);
+    wgmma_commit();
+    issue_pv<NV, BK>(acc, pa, sV + pst * C::V_BYTES);
+    wgmma_commit();
+    named_bar_arrive(BAR_TURN + (wg ^ 1), NCONSUMER);
+    wgmma_wait<1>();  // S_kt landed; P V still in flight
+    fence_regs(si);
+    dequant<BK>(s, si, kd0 + st * BK, t4, qd0, qd1);
+    online_softmax<BK, false>(s, kt * BK, S, 0.f, t4, m0, m1, l0, l1, al0,
+                              al1);
+    wgmma_wait<0>();
+    fence_all<NV, BK>(acc, pa);
+    if (lane == 0) mbar_arrive(empty0 + pst * 8);  // tile kt-1 consumed
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j) {
+      acc[4 * j + 0] *= al0;
+      acc[4 * j + 1] *= al0;
+      acc[4 * j + 2] *= al1;
+      acc[4 * j + 3] *= al1;
+    }
+    pack_p<BK>(pa, s);
+  }
+  // balance the turn barriers: warpgroup 1 arrived once more than
+  // warpgroup 0 waited
+  if (wg == 0) named_bar_sync(BAR_TURN + 0, NCONSUMER);
+  fence_all<NV, BK>(acc, pa);
+  wgmma_fence();
+  issue_pv<NV, BK>(acc, pa, sV + ((ntiles - 1) % NS) * C::V_BYTES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_all<NV, BK>(acc, pa);
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  // stage the bf16 output in this warpgroup's rows of the staging tile,
+  // then store whole rows
+  unsigned char* so = sp + (sO - sbase);
+  const int r0 = wg * 64 + warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < NV / 8; ++j) {
+    const int c = j * 8 + t4 * 2;
+    unsigned char* blk = so + (c >> 6) * BQ * 128;
+    const int qc = (c & 63) >> 3;
+    *reinterpret_cast<uint32_t*>(blk + swz(r0, qc) + (c & 7) * 2) =
+        pack_bf16(acc[4 * j + 0] * inv0, acc[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(blk + swz(r0 + 8, qc) + (c & 7) * 2) =
+        pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+  }
+  named_bar_sync(BAR_EPI + wg, 128);
+  const int wt = tid % 128;
+  const int cpr = D / 8;  // D % 8 == 0 (launch_i8 checks)
+  for (int i = wt; i < 64 * cpr; i += 128) {
+    const int rl = i / cpr, qq = i - rl * cpr;
+    const int r = wg * 64 + rl, srow = q0 + r;
+    if (srow < S) {
+      const uint4 val = *reinterpret_cast<const uint4*>(
+          so + (qq >> 3) * BQ * 128 + swz(r, qq & 7));
       *reinterpret_cast<uint4*>(
           o + (((long long)b * S + srow) * H + h) * D + qq * 8) = val;
     }

@@ -1,6 +1,10 @@
-// The 3x3 conv core of B4 (conv3x3.cu) and B3 (conv3x3_up.cu): an implicit
-// GEMM on Hopper's warpgroup tensor-core instructions (wgmma) over NHWC
-// bf16 activations, f32 accumulation, one bf16 rounding at the end.
+// The 3x3 conv core of B4 (conv3x3.cu), B3 (conv3x3_up.cu) and B7
+// (conv3x3_up_interleave.cu): an implicit GEMM on Hopper's warpgroup
+// tensor-core instructions (wgmma) over NHWC bf16 activations, f32
+// accumulation, one bf16 rounding at the end. B7's interleave form
+// (up4_kernel, at the end of this file) reuses the core's band, ring and
+// epilogue scheme in a kernel of its own, so that B4's and B3's code does
+// not move.
 //
 // Two forms of one kernel (template argument UP):
 // - UP = false (B4): out = residual + conv3x3_SAME(act(x * a + b), w) +
@@ -357,6 +361,212 @@ inline int launch(const void* x, const void* wt, const float* bias,
       static_cast<const __nv_bfloat16*>(res),
       static_cast<__nv_bfloat16*>(out), H, W, Ci, Co, silu, tiles_x, tiles_y);
   return (int)cudaGetLastError();
+}
+
+// ---- the interleave form (B7, conv3x3_up_interleave.cu) ----
+// out = conv3x3_SAME(nearest_2x(x), w) + bias as B3 computes it, but one
+// block owns a half-res patch and all four output parities of it, so the
+// patch's halo band is copied once per chunk for all 16 (parity, tap)
+// products, and each half-res pixel's full-res 2x2 quad leaves the block
+// together. A block of two warpgroups takes a patch of 4 x 16 half-res
+// pixels (warp i of a warpgroup: patch row i) and 64 output channels:
+// warpgroup w computes the parities (py = w, px = 0 and 1) as two m64n64
+// accumulators (64 floats a thread, as B3's one m64n128), so the core's
+// two blocks a SM and its 128 registers a thread hold.
+//   Chunks of 64 input channels as B3; each chunk's 6 x 18-pixel band
+//   (origin (y0 - 1, x0 - 1), zeros outside the image) is copied once with
+//   cp.async into one of two band buffers. A ring stage (the core's 16 KB
+//   slice) holds, for one (px, j, k), the [64 x 64] weight slices of
+//   parities (0, px) and (1, px) one above the other, so warpgroup w reads
+//   the half at w * 64 rows; 8 stages a chunk (px major), copied two
+//   ahead. Warp i of warpgroup w reads its A rows at band offset
+//   (i + j + w, k + px) with ldmatrix and issues four wgmma m64n64k16 into
+//   the accumulator of px. Each half of a chunk's stages has its own code,
+//   bound to one accumulator: a branch between the two made ptxas
+//   serialize the wgmma (C7520).
+//   Epilogue: the accumulators staged in f32 as the 8 x 32 full-res tile
+//   (half-res pixel (y, x) of parity (py, px) at (2y + py, 2x + px)), then
+//   + bias, one bf16 rounding, 16-byte stores; pixels outside the image
+//   are not stored.
+namespace up4 {
+constexpr int PH = 4, PW = 16;               // half-res patch
+constexpr int TN4 = 64;                      // output channels a block
+constexpr int SLICES = 8;                    // ring stages a chunk
+constexpr int BW4 = PW + 2, BPIX4 = (PH + 2) * BW4;  // 6 x 18 band
+constexpr int BUNITS4 = BPIX4 * (CK / 8);
+constexpr int BAND4_BYTES = BPIX4 * CK * 2;  // 13,824
+constexpr int OUT_H = 2 * PH, OUT_W = 2 * PW;  // 8 x 32 full-res pixels
+constexpr int EPI4_PITCH = TN4 + 4;
+constexpr int EPI4_BYTES = OUT_H * OUT_W * EPI4_PITCH * 4;
+constexpr int MAIN4_BYTES = RING_BYTES + 2 * BAND4_BYTES;
+constexpr int SMEM4_BYTES =
+    (MAIN4_BYTES > EPI4_BYTES ? MAIN4_BYTES : EPI4_BYTES) + 1024;
+static_assert(2 * (SMEM4_BYTES + 1024) <= 233472,
+              "two blocks of the interleave form exceed an SM's shared "
+              "memory");
+}  // namespace up4
+
+// H, W: x's (half-res) rows and columns; wt [4, Co, 4*Ci] (parity p = 2*py
+// + px, K index (2*j + k)*Ci + ci); out [B, 2H, 2W, Co]; Co % CT == 0 (CT:
+// the output channels a block). A template (CT = up4::TN4 only) so that it
+// is compiled only where it is launched, never into B4's or B3's library.
+template <int CT>
+__global__ void __launch_bounds__(NTHREADS, 2)
+up4_kernel(const __nv_bfloat16* __restrict__ x,
+           const __nv_bfloat16* __restrict__ wt,
+           const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+           int H, int W, int Ci, int Co, int tiles_x, int tiles_y) {
+  using namespace up4;
+  static_assert(CT == TN4, "the products are m64n64");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* sp = smem_raw + (sbase - raw);
+  const uint32_t ring = sbase;
+  const uint32_t band0 = sbase + RING_BYTES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  int tile = blockIdx.x;
+  const int tx = tile % tiles_x;
+  tile /= tiles_x;
+  const int ty = tile % tiles_y;
+  const int img = tile / tiles_y;
+  const int y0 = ty * PH, x0 = tx * PW;
+  const int n0 = blockIdx.y * CT;
+  const long long K = 4LL * Ci;
+  const int nchunks = (Ci + CK - 1) / CK;
+  const int nslices = SLICES * nchunks;
+
+  // raw x of chunk `chunk` into band buffer `buf`; zeros outside the image
+  // and past Ci
+  auto load_band = [&](int chunk, int buf) {
+    const int c0 = chunk * CK;
+    const uint32_t dst = band0 + buf * BAND4_BYTES;
+    for (int i = tid; i < BUNITS4; i += NTHREADS) {
+      const int p = i >> 3, qc = i & 7;
+      const int yy = y0 - 1 + p / BW4, xx = x0 - 1 + p % BW4;
+      const int c = c0 + qc * 8;
+      const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W && c < Ci;
+      cp_async16(dst + swz(p, qc),
+                 ok ? x + (((long long)img * H + yy) * W + xx) * Ci + c : x,
+                 ok ? 16 : 0);
+    }
+  };
+  // stage `sl` = (chunk, px, tap) into ring stage `stage`: rows 0..63 the
+  // slice of parity (0, px), rows 64..127 that of (1, px), channels
+  // n0..n0+63, columns tap*Ci + chunk*64 .. +63 (zeros past Ci)
+  auto load_slice = [&](int sl, int stage) {
+    const int chunk = sl / SLICES, r = sl - chunk * SLICES;
+    const int px = r >> 2, tap = r & 3;
+    const int qc = tid & 7, c = chunk * CK + qc * 8;
+    const bool ok = c < Ci;
+    const uint32_t dst = ring + stage * SLICE_BYTES;
+#pragma unroll
+    for (int j = 0; j < 2 * CT * (CK / 8) / NTHREADS; ++j) {
+      const int n = (tid >> 3) + j * (NTHREADS / 8);
+      const int par = 2 * (n / CT) + px;
+      const __nv_bfloat16* src =
+          wt + ((long long)par * Co + n0 + n % CT) * K + tap * Ci + c;
+      cp_async16(dst + swz(n, qc), ok ? src : wt, ok ? 16 : 0);
+    }
+  };
+
+  load_band(0, 0);
+  load_slice(0, 0);
+  cp_async_commit();
+  if (1 < nslices) load_slice(1, 1);
+  cp_async_commit();
+
+  float acc0[CT / 2], acc1[CT / 2];  // px = 0, px = 1
+#pragma unroll
+  for (int i = 0; i < CT / 2; ++i) acc0[i] = acc1[i] = 0.f;
+  uint32_t a[4][4];
+
+  // stage sl = (chunk, px, tap) into acc, the accumulator of px
+  auto step = [&](int sl, int chunk, int tap, int px, float(&acc)[CT / 2]) {
+    cp_async_wait<1>();   // stage sl (and from its third the next band)
+    fence_async_smem();   // copies -> wgmma operand reads
+    __syncthreads();      // ... for every thread; stage (sl+2)%4 is free
+    if (sl + 2 < nslices) load_slice(sl + 2, (sl + 2) % NSTAGE);
+    if (px == 0 && tap == 0 && chunk + 1 < nchunks)
+      load_band(chunk + 1, (chunk + 1) & 1);
+    cp_async_commit();
+
+    // band offset (j + py, k + px), py = wg; lane l: pixel l % 16 of the
+    // warp's patch row, channels 8 * (l / 16) .. +7 of each 16-channel step
+    const int dy = (tap >> 1) + wg, dx = (tap & 1) + px;
+    const uint32_t band = band0 + (chunk & 1) * BAND4_BYTES;
+    const int prow = (warp + dy) * BW4 + dx + (lane & 15);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ldmatrix_x4(a[kk], band + swz(prow, kk * 2 + (lane >> 4)));
+    const uint32_t wst = ring + (sl % NSTAGE) * SLICE_BYTES + wg * CT * 128;
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_m64n64k16<0>(acc, a[kk], desc_sw128(wst + kk * 32, 16, 1024),
+                            1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
+  };
+  for (int chunk = 0; chunk < nchunks; ++chunk) {
+    const int sl0 = chunk * SLICES;
+#pragma unroll 1
+    for (int tap = 0; tap < 4; ++tap) step(sl0 + tap, chunk, tap, 0, acc0);
+#pragma unroll 1
+    for (int tap = 0; tap < 4; ++tap) step(sl0 + 4 + tap, chunk, tap, 1, acc1);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // ring and bands no longer read: reuse for the staging
+
+  // acc_px[4j + e]: pixel column g (e < 2) or g + 8 of the warp's patch
+  // row, channel 8j + 2*t4 + (e & 1); full-res row 2*warp + wg, column
+  // 2 * pixel + px of the staged tile
+  float* stg = reinterpret_cast<float*>(sp);
+  const int fr = 2 * warp + wg;
+#pragma unroll
+  for (int j = 0; j < CT / 8; ++j) {
+    const int c = j * 8 + t4 * 2;
+    float* r0 = stg + (fr * OUT_W + 2 * g) * EPI4_PITCH + c;
+    float* r1 = stg + (fr * OUT_W + 2 * (g + 8)) * EPI4_PITCH + c;
+    *reinterpret_cast<float2*>(r0) = make_float2(acc0[4 * j], acc0[4 * j + 1]);
+    *reinterpret_cast<float2*>(r1) =
+        make_float2(acc0[4 * j + 2], acc0[4 * j + 3]);
+    *reinterpret_cast<float2*>(r0 + EPI4_PITCH) =
+        make_float2(acc1[4 * j], acc1[4 * j + 1]);
+    *reinterpret_cast<float2*>(r1 + EPI4_PITCH) =
+        make_float2(acc1[4 * j + 2], acc1[4 * j + 3]);
+  }
+  __syncthreads();
+  const int H2 = 2 * H, W2 = 2 * W;
+  for (int i = tid; i < OUT_H * OUT_W * (CT / 8); i += NTHREADS) {
+    const int m = i / (CT / 8), qc = i % (CT / 8);
+    const int yy = 2 * y0 + m / OUT_W, xx = 2 * x0 + m % OUT_W;
+    if (yy >= H2 || xx >= W2) continue;
+    const int n = n0 + qc * 8;
+    const float4 s0 =
+        *reinterpret_cast<const float4*>(stg + m * EPI4_PITCH + qc * 8);
+    const float4 s1 =
+        *reinterpret_cast<const float4*>(stg + m * EPI4_PITCH + qc * 8 + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(bias + n);
+    const float4 b1 = *reinterpret_cast<const float4*>(bias + n + 4);
+    uint4 ov;
+    __nv_bfloat162* os = reinterpret_cast<__nv_bfloat162*>(&ov);
+    os[0] = __floats2bfloat162_rn(s0.x + b0.x, s0.y + b0.y);
+    os[1] = __floats2bfloat162_rn(s0.z + b0.z, s0.w + b0.w);
+    os[2] = __floats2bfloat162_rn(s1.x + b1.x, s1.y + b1.y);
+    os[3] = __floats2bfloat162_rn(s1.z + b1.z, s1.w + b1.w);
+    *reinterpret_cast<uint4*>(
+        out + (((long long)img * H2 + yy) * W2 + xx) * Co + n) = ov;
+  }
 }
 
 }  // namespace sdt_conv

@@ -2,7 +2,8 @@
 // shared addresses, 16-byte cp.async copies, ldmatrix, mbarriers, TMA tensor
 // copies and named barriers, the 128-byte swizzle of a shared-memory tile,
 // wgmma shared-memory descriptors and the wgmma instructions the kernels
-// issue (bf16 in, f32 accumulate); on the host, TMA tensor maps.
+// issue (bf16 in, f32 accumulate; s8 in, s32 accumulate); on the host, TMA
+// tensor maps.
 //
 // Tile layout ("SW128"): a tile of R rows whose rows hold 64 bf16 values
 // (128 bytes) each; 16-byte chunk q of row r sits at chunk position
@@ -20,6 +21,13 @@
 // read. An MN-major operand (B with the transpose bit: rows along K, 64
 // N values per row) steps 8-row K groups by the stride offset (1024) and
 // 64-column N blocks by the leading offset (R * 128).
+//
+// int8 tiles ("SW64", the int8 attention's Q and K): rows of 64 int8 values
+// (64 bytes); 16-byte chunk q of row r sits at q ^ ((r / 2) % 4), the
+// 64-byte swizzle that TMA writes and wgmma reads (layout 2), in 512-byte
+// atoms of 8 rows; a K-major operand steps 8-row groups by 512 bytes and
+// moves 32 values along K by adding 32 bytes to the start address. Wider
+// rows are split into 64-column blocks (block j at j * R * 64 bytes).
 
 #pragma once
 
@@ -132,6 +140,28 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// one box of a 3-D or 2-D tensor map into shared memory, completing on
+// `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
 // named barriers of part of a block (ids 1..15; 0 is __syncthreads)
 __device__ __forceinline__ void named_bar_sync(int id, int nthreads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
@@ -146,6 +176,12 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
   return (uint64_t)((addr & 0x3FFFFu) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+// the same for a K-major int8 operand in 64-byte swizzled rows (SW64)
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -435,6 +471,82 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128],
         "r"(scale_d), "n"(TRANS_B));
 }
 
+// D[64 x 64] (+)= A[64 x 32] * B[32 x 64] in int8 (s8 x s8, s32
+// accumulate, exact), A and B from shared memory (descriptors), both
+// K-major; s32 accumulators in d, laid out as the f32 ones. scale_d 0
+// overwrites d, 1 adds to it.
+__device__ __forceinline__ void wgmma_ss_m64n64k32_s8(uint32_t (&d)[32],
+                                                      uint64_t da,
+                                                      uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "},"
+      " %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 32] * B[32 x 128] in int8 (s8 x s8, s32
+// accumulate, exact), A and B from shared memory (descriptors), both
+// K-major; s32 accumulators in d, laid out as the f32 ones. scale_d 0
+// overwrites d, 1 adds to it.
+__device__ __forceinline__ void wgmma_ss_m64n128k32_s8(uint32_t (&d)[64],
+                                                      uint64_t da,
+                                                      uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "},"
+      " %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // ---- host: TMA tensor maps ----
 // cuTensorMapEncodeTiled is not in the CUDA runtime library; its address
 // is looked up through the runtime at first use, so the libraries need no
@@ -459,20 +571,30 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 map of `rank` dims (innermost first; strides in bytes of dims 1..)
-// read in boxes whose 64-element rows land in the 128-byte swizzle; reads
+// a map of `rank` dims (innermost first; strides in bytes of dims 1..) of
+// elements of `type`, read in boxes `box` written in the `swizzle`; reads
 // outside the tensor give zeros. False if the encoding is refused.
-inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int rank,
-                          const cuuint64_t* dims, const cuuint64_t* strides,
-                          const cuuint32_t* box) {
+inline bool make_map_tiled(CUtensorMap* map, CUtensorMapDataType type,
+                           const void* ptr, int rank,
+                           const cuuint64_t* dims,
+                           const cuuint64_t* strides,
+                           const cuuint32_t* box,
+                           CUtensorMapSwizzle swizzle) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                const_cast<void*>(ptr), dims, strides, box, estr,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims,
+                strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a bf16 map whose boxes' 64-element rows land in the 128-byte swizzle
+inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int rank,
+                          const cuuint64_t* dims, const cuuint64_t* strides,
+                          const cuuint32_t* box) {
+  return make_map_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank,
+                        dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sdt_hopper

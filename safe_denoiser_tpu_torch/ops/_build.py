@@ -43,12 +43,19 @@ SIGNATURES = {
     "attention": {"sdt_self_attention_bf16": _ATTN,
                   "sdt_self_attention_f32": _ATTN,
                   "sdt_self_attention_bf16_smem": [_I]},
-    "attention_i8": {"sdt_self_attention_i8_bf16": _ATTN[:-1] + [_F, _P]},
+    "attention_i8": {
+        "sdt_self_attention_i8_bf16":
+            [_P] * 7 + [_I] * 4 + [_L] * 3 + [_F, _F, _P],
+        "sdt_quantize_i8_bf16": [_P] * 5 + [_I] * 4 + [_L] * 3 + [_F, _F, _P],
+        "sdt_attention_i8_quantized_bf16": [_P] * 5 + [_I] * 4 + [_L] * 3
+        + [_P],
+        "sdt_self_attention_i8_bf16_smem": [_I]},
     "rbf": {"sdt_rbf_score_f32": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P]},
     "conv3x3_up": {"sdt_conv3x3_up_bf16": [_P] * 4 + [_I] * 5 + [_P],
                    "sdt_conv3x3_up_bf16_smem": []},
     "conv3x3_up_interleave": {
-        "sdt_conv3x3_up_interleave_bf16": [_P] * 4 + [_I] * 5 + [_P]},
+        "sdt_conv3x3_up_interleave_bf16": [_P] * 4 + [_I] * 5 + [_P],
+        "sdt_conv3x3_up_interleave_bf16_smem": []},
     "conv3x3": {"sdt_conv3x3_bf16": [_P] * 7 + [_I] * 6 + [_P],
                 "sdt_conv3x3_bf16_smem": []},
     "attention_nt": {"sdt_attention_nt_bf16": _LAYOUT,

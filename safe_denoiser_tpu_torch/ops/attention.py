@@ -94,21 +94,6 @@ def quantize_rows_i8(x: torch.Tensor):
     return torch.clamp(torch.round(xf * r), -127.0, 127.0), amax
 
 
-def attention_i8_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     sm_scale: float) -> torch.Tensor:
-    """Plain version of the int8-QK^T attention: q quantized per query row
-    and k per key token (over D), exact integer logits (f32 sums of
-    products of integers up to 127^2 stay exact below 2^24, i.e. for
-    D <= 1040), dequantized with (amax_q / 127) * (amax_k / 127) * sm_scale,
-    then ``attention_ref``'s softmax and P V."""
-    qi, q_amax = quantize_rows_i8(q)                  # [B, S, H, D], [.., 1]
-    ki, k_amax = quantize_rows_i8(k)
-    s32 = torch.einsum("bqhd,bkhd->bhqk", qi, ki)
-    q_deq = (q_amax * (sm_scale / 127.0)).permute(0, 2, 1, 3)  # [B,H,Sq,1]
-    k_deq = (k_amax * (1.0 / 127.0)).permute(0, 2, 3, 1)       # [B,H,1,Sk]
-    return _softmax_pv(s32 * q_deq * k_deq, v)
-
-
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       sm_scale: float, chunk_q: int = 512) -> torch.Tensor:
     """Wide-head attention in q-chunks (the VAE mid-block's one head at
@@ -187,21 +172,97 @@ def _self_attention_cuda(q, k, v, sm_scale: float) -> torch.Tensor:
     return out if d == d_out else out[..., :d_out].contiguous()
 
 
+def i8_width(d: int) -> int:
+    """The int8 tiles' padded head dim: D rounded up to 64, as the TPU
+    kernel pads its int8 contraction (40 -> 64, 80 -> 128)."""
+    return -(-d // 64) * 64
+
+
+def i8_pitch(s: int) -> int:
+    """The row pitch of the dequant factors: S rounded up to 4."""
+    return -(-s // 4) * 4
+
+
+def i8_dequant_scales(sm_scale: float) -> tuple[float, float]:
+    """The TPU kernel's dequant constants as f32: c / 127 with c = sm_scale
+    * log2(e) (taken to f32 from double, as JAX's weak-typed constant) for
+    the query amax, 1/127 for the key amax."""
+    return (torch.tensor(sm_scale * LOG2E / 127.0).item(),
+            torch.tensor(1.0 / 127.0).item())
+
+
+def quantize_i8_ref(q: torch.Tensor, k: torch.Tensor, sm_scale: float):
+    """Plain version of B8's quantize pass: q and k [B, S, H, D] ->
+    (qi, ki) int8 [B*H, S, i8_width(D)] (the padded columns zero) and
+    (q_deq, k_deq) f32 [B*H, S]: q_amax * c/127 and k_amax * 1/127, each
+    row quantized as ``quantize_rows_i8`` quantizes it."""
+    b, s, h, d = q.shape
+    out = []
+    for x, c in zip((q, k), i8_dequant_scales(sm_scale)):
+        # head-major rows, zero-padded to the tile width first, as the
+        # kernel's lanes past D read zeros
+        xf = F.pad(x.permute(0, 2, 1, 3).reshape(b * h, s, d).float(),
+                   (0, i8_width(d) - d))
+        amax = xf.abs().amax(dim=-1)
+        r = 127.0 / torch.clamp(amax, min=1e-20)
+        xi = torch.clamp(torch.round(xf * r[..., None]), -127.0, 127.0)
+        out += [xi.to(torch.int8), amax * torch.tensor(c)]
+    qi, qd, ki, kd = out
+    return qi, ki, qd, kd
+
+
+def attention_i8_from_quantized(qi: torch.Tensor, ki: torch.Tensor,
+                                q_deq: torch.Tensor, k_deq: torch.Tensor,
+                                v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the core's int8 form on ``quantize_i8_ref``'s
+    output: exact integer logits (f32 sums of integer products stay exact
+    below 2^24), dequantized in the TPU kernel's order, (float(s32) *
+    q_deq) * k_deq, in the exp2 domain; softmax by exp2, probabilities cast
+    to v's dtype for P V, f32 sums, output in v's dtype. v [B, S, H, D];
+    returns [B, S, H, D]."""
+    b, s, h, d = v.shape
+    s32 = torch.einsum("nqd,nkd->nqk", qi.float(), ki.float())
+    logits = (s32 * q_deq[:, :, None]) * k_deq[:, None, :]
+    p = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
+    vh = v.permute(0, 2, 1, 3).reshape(b * h, s, d)
+    out = torch.einsum("nqk,nkd->nqd", p.to(v.dtype).float(), vh.float())
+    out = out / p.sum(dim=-1, keepdim=True)
+    return out.reshape(b, h, s, d).permute(0, 2, 1, 3).to(v.dtype)
+
+
+def attention_i8_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     sm_scale: float) -> torch.Tensor:
+    """Plain version of the int8-QK^T attention (B8): q quantized per
+    query row and k per key token over D, as the TPU kernel's ``_i8``,
+    exact integer logits dequantized with (amax_q * c/127) * (amax_k / 127),
+    c = sm_scale * log2(e), and a softmax in the exp2 domain; the kernel's
+    two steps, ``quantize_i8_ref`` then ``attention_i8_from_quantized``."""
+    return attention_i8_from_quantized(*quantize_i8_ref(q, k, sm_scale), v)
+
+
 def _self_attention_i8_cuda(q, k, v, sm_scale: float) -> torch.Tensor:
     global i8_launches
     _check_qkv(q, k, v, (torch.bfloat16,))
+    d_out = q.shape[3]
+    # the quantize pass reads q and k with any strides; v goes through the
+    # core's tensor map, so views it cannot take are copied first (all three,
+    # to keep one set of strides)
+    if not tensor_map_ready(v, v, v):
+        q, k, v = _staged(q, k, v)
     b, s, h, d = q.shape
     fn = _build.library("attention_i8").sdt_self_attention_i8_bf16
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    # the TPU kernel's dequant constants: c / 127 with c = sm_scale*log2(e)
-    # (taken to f32 from double, as JAX's weak-typed constant), and 1/127
+    qi = torch.empty(2, b * h * s * i8_width(d), dtype=torch.int8,
+                     device=q.device)
+    deq = torch.empty(2 * b * h * i8_pitch(s), dtype=torch.float32,
+                      device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             qi[0].data_ptr(), qi[1].data_ptr(), deq.data_ptr(),
              b, s, h, d, q.stride(0), q.stride(1), q.stride(2),
-             float(sm_scale * LOG2E / 127.0), float(1.0 / 127.0),
-             _build.stream_ptr(q.device))
+             *i8_dequant_scales(sm_scale), _build.stream_ptr(q.device))
     _build.check(err, "sdt_self_attention_i8_bf16")
     i8_launches += 1
-    return out
+    return out if d == d_out else out[..., :d_out].contiguous()
 
 
 def attention_nt_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

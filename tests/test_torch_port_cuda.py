@@ -266,6 +266,26 @@ def test_attention_i8_kernel_rounds_ties_to_even(dev):
                                atol=ATTN_BF16_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("s", [129, 575, 1087])
+@pytest.mark.parametrize("d", [40, 80])
+def test_attention_i8_kernel_partial_tiles_across_heads(dev, s, d):
+    """S not a multiple of the 128-query block or of the key tile (128 keys
+    at D = 40, 64 at D = 80), with 2 x 3 heads in one head-major int8
+    scratch: the tensor maps' bounds must zero-fill the rows past S rather
+    than read the next head's, and every real logit is negative (q >= 0,
+    k <= 0), so a weighed zero row would outweigh the real keys."""
+    g = _gen(15)
+    shape = (2, s, 3, d)
+    q = torch.randn(shape, device=dev, generator=g).abs().bfloat16()
+    k = -torch.randn(shape, device=dev, generator=g).abs().bfloat16()
+    v = torch.randn(shape, device=dev, generator=g).bfloat16()
+    got = _i8(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), _i8_want(q, k, v, d ** -0.5),
+                               atol=ATTN_BF16_TOL, rtol=0)
+
+
 @pytest.mark.parametrize("layout", ["packed_qkv", "padded_rows"])
 def test_attention_i8_kernel_strided_views(dev, layout):
     """q/k/v as views of one [B,S,3,H,D] projection, or of [B,S,H,D+4]
@@ -742,6 +762,33 @@ def test_conv3x3_up_interleave_kernel_matches_plain_and_planar(
     torch.testing.assert_close(got.float(), want, atol=5e-2, rtol=2e-2)
     torch.testing.assert_close(got.float(), planar.float(), atol=5e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,h2,w2,ci,co", [
+    (3, 4, 16, 128, 128), (3, 5, 20, 96, 192)])
+def test_conv3x3_up_interleave_kernel_reads_no_neighbouring_pixels(
+        dev, b, h2, w2, ci, co):
+    """B7 with every image's outer rows and columns at +-30, as B3's test:
+    a kernel that reads a neighbouring image's row, wraps a column, pads
+    with anything but zeros or takes a parity's taps at the wrong band
+    offset is off by tens on the border outputs. (3, 4, 16) fills whole
+    4 x 16 patches; (3, 5, 20) leaves ragged ones, Ci % 64 == 32 and three
+    64-channel tiles. Dyadic weights exact in bf16 after pre-summing."""
+    g = _gen(22)
+    h = torch.randn(b, h2, w2, ci, device=dev, generator=g)
+    sign = torch.where(torch.rand(h.shape, device=dev, generator=g) < 0.5,
+                       -30.0, 30.0)
+    edge = torch.zeros(h2, w2, dtype=torch.bool, device=dev)
+    edge[[0, -1], :] = True
+    edge[:, [0, -1]] = True
+    h = torch.where(edge[None, :, :, None], sign, h).bfloat16()
+    w = (torch.randint(-8, 9, (co, ci, 3, 3), device=dev, generator=g)
+         / 256.0).bfloat16()
+    bb = torch.randn(co, device=dev, generator=g).bfloat16()
+    got = conv3x3.conv3x3_up(h, w, bb, form="interleave")
+    want = conv3x3.conv3x3_up_ref(h.float(), w.float(), bb.float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=5e-2, rtol=2e-2)
 
 
 def test_conv3x3_up_interleave_wrapper_rejects_what_the_kernel_does_not_take(
