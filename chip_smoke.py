@@ -7,13 +7,15 @@
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. environment: torch/CUDA versions, the card's name and power limit, the
      TF32 switches (turned off for the f32 checks);
-  2. build: nvcc builds the CUDA kernels from csrc/ (Triton compiles its
-     kernel at first launch);
+  2. build: nvcc builds the CUDA kernels from csrc/ (Triton compiles B5,
+     the GroupNorm statistics kernel, at its first launch);
   3. kernel checks: ptxas' registers, spills and static shared memory of
      every kernel in csrc/ (and the dynamic shared memory of every template
      of the attention core that B1, B9 and B10 share, attention_hopper.cuh,
      and of its int8 form, B8's, and of the three forms of the conv core
-     that B4, B3 and B7 share, conv_hopper.cuh: the wgmma kernels);
+     that B4, B3 and B7 share, conv_hopper.cuh: the wgmma kernels; B2's and
+     B6's cluster kernels take theirs from each shape's plan, printed on
+     their rows with the cluster sizes);
      then each kernel at the main path's shapes (and B4/B5 also at the
      runner's bank-encode shapes; B9/B10 also in f32; B7 beside B3) against
      its plain PyTorch version, with its device time and a library call's
@@ -23,10 +25,12 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      (``cuda_ms``: events around Python calls);
   3b. with --parent DIR (the root of an earlier checkout, unpacked with
      ``git archive``): its attention.cu, attention_nt.cu, attention_bshd.cu,
-     conv3x3.cu, conv3x3_up.cu, attention_i8.cu and
-     conv3x3_up_interleave.cu built with the same flags, and B1, B9, B10,
-     B4, B3, B8 and B7 of both timed in turns (parent, this, this, parent;
-     device times) at the main path's shapes (B8 and B7 at phase 3's);
+     conv3x3.cu, conv3x3_up.cu, attention_i8.cu, conv3x3_up_interleave.cu
+     and rbf.cu built with the same flags, and its ops/group_norm.py loaded
+     by path (B6 in Triton before this checkout's CUDA kernel); B1, B9,
+     B10, B4, B3, B8, B7, B2 and B6 of both timed in turns (parent, this,
+     this, parent; device times) at the main path's shapes (B8, B7, B2 and
+     B6 at phase 3's);
   4. main path: the tiny f32 slice on cuda against the CPU, at 8^2 latents
      and at 32^2 (S = 1024) under each attention layout (bhsd, nt, nt with
      the head repacks, bshd: SDT_FLASH2_LAYOUT / SDT_ATTN_REPACK), then
@@ -138,6 +142,12 @@ SD3_STEPS, SD3_SIDE, SD3_BANK = 50, 1024, 16
 # the runner phase: its checkpoint's depth cuts, cases and bank
 SD3_RUNNER_LAYERS = {"mmdit": 6, "t5": 2, "clip_g": 4}
 SD3_RUNNER_CASES, SD3_RUNNER_N_EMBED = 2, 8
+
+# B6's phase-3 shapes: the UNet's admitted GroupNorms with 32 groups (the
+# largest, a 1280-wide one, the 2560-wide one at S = 64) in bf16, then the
+# first in f32
+GN_SHAPES = ((8, 4096, 320, torch.bfloat16), (8, 1024, 1280, torch.bfloat16),
+             (8, 64, 2560, torch.bfloat16), (8, 4096, 320, torch.float32))
 
 # B8's max|d| bound at each phase-3 shape, on the inputs b8_errors draws
 # for it: above the sound kernel's readings over nine seeds and below B1's
@@ -522,7 +532,8 @@ def print_ptxas() -> None:
     """ptxas' registers, spills and static shared memory of every kernel of
     every source (from the report kept beside its library), its warnings
     (C7512/C7513: wgmma serialized), and the dynamic shared memory of the
-    attention core's templates (B1, B8) and of B4, B3 and B7."""
+    attention core's templates (B1, B8) and of B4, B3 and B7 (B2's and
+    B6's depend on the shape: their phase-3 rows print it)."""
     from safe_denoiser_tpu_torch.ops import _build
 
     for name in _build.SOURCES:
@@ -534,6 +545,10 @@ def print_ptxas() -> None:
             dyn = dynamic_smem(name, fn)
             extra = "" if dyn is None else \
                 f", {dyn} bytes dynamic shared memory"
+            if name in ("rbf", "group_norm"):
+                extra = (", a cluster kernel: dynamic shared memory and "
+                         "cluster size from each shape's plan (phase-3 "
+                         "rows)")
             print(f"  ptxas {name} {fn}: {regs} registers, {st} bytes "
                   f"spill stores, {ld} bytes spill loads, {smem} bytes "
                   f"static shared memory{extra}")
@@ -873,8 +888,14 @@ def phase_kernels() -> dict:
             dtm = (device_ms(kernel), None)
             bnd = bound_ms((m * dd + 2 * n * dd + n) * 4, 4 * n * m * dd,
                            PEAK_F32)
+            p = repellency_kernels.rbf_plan(n, m, dd, 4)
+            plan = (f"plan: pass 1 clusters of {p.cl1} D-slices of {p.ds} "
+                    f"columns, {p.mr} rows a block; pass 2 clusters of "
+                    f"{p.cl2} runs of {p.ms} rows, {n * 128 * p.vec * 4} "
+                    f"bytes dynamic shared memory")
             _report("rbf", [n, dd, m, f"normalize={normalize}"], err, 1e-4,
-                    ms, plain, None, bnd, "no single PyTorch call", dtm)
+                    ms, plain, None, bnd, f"no single PyTorch call; {plan}",
+                    dtm)
             if normalize and "rbf" not in results:
                 results["rbf"] = dict(err=err, ms=ms, plain=plain, lib=None,
                                       bound=bnd, dev=dtm)
@@ -1091,10 +1112,7 @@ def phase_kernels() -> dict:
     # same f32 value may round to a neighbouring bf16 value), f32 within
     # 1e-4 (sums in another order). Library: F.group_norm + F.silu on the
     # channels_last NCHW view. Bound: one read and one write of x.
-    for b, s, c, dtype in ((8, 4096, 320, torch.bfloat16),
-                           (8, 1024, 1280, torch.bfloat16),
-                           (8, 64, 2560, torch.bfloat16),
-                           (8, 4096, 320, torch.float32)):
+    for b, s, c, dtype in GN_SHAPES:
         xx = (torch.randn(b, s, c, device=dev, generator=g) * 2 + 1).to(dtype)
         sc = 1 + 0.2 * torch.randn(c, device=dev, generator=g)
         bi = 0.5 * torch.randn(c, device=dev, generator=g)
@@ -1118,8 +1136,16 @@ def phase_kernels() -> dict:
                device_ms(lambda: F.silu(F.group_norm(xn, 32, scd, bid,
                                                      1e-5))))
         bnd = bound_ms(2 * xx.nbytes + 2 * c * 4, 0, PEAK_F32)
+        p = group_norm.gn_plan(b, s, c, 32, xx.element_size())
+        reread = device_ms(lambda: group_norm._group_norm_fused_cuda(
+            xx, sc, bi, 32, 1e-5, "silu", one_read=False))
+        plan = (f"plan: {p.tiles} tiles of {p.ct} channels, clusters of "
+                f"{p.cl} blocks of {p.rows} rows, {p.vb}-byte vectors, "
+                f"{'one read' if p.resident else 're-read'}, {p.smem} bytes "
+                f"dynamic shared memory; the re-read form {reread:.4f} ms")
         _report("gn_fused", [b, s, c, str(dtype)[6:]], err, tol, ms, plain,
-                lib, bnd, "F.silu(F.group_norm) on the NCHW view", dtm)
+                lib, bnd, f"F.silu(F.group_norm) on the NCHW view; {plan}",
+                dtm)
         if "gn_fused" not in results:
             results["gn_fused"] = dict(err=err, ms=ms, plain=plain, lib=lib,
                                        bound=bnd, dev=dtm)
@@ -1147,21 +1173,23 @@ PARENT_ENTRIES = {"attention": "sdt_self_attention_bf16",
                   "conv3x3": "sdt_conv3x3_bf16",
                   "conv3x3_up": "sdt_conv3x3_up_bf16",
                   "attention_i8": "sdt_self_attention_i8_bf16",
-                  "conv3x3_up_interleave": "sdt_conv3x3_up_interleave_bf16"}
-# entries whose arguments changed since the checkouts that 3b is run
-# against: the parent's argument list. B8's took no scratch before its
-# quantize pass became a kernel of its own (q, k, v, o, B, S, H, D, sb, ss,
-# sh, cq, ck, stream).
-PARENT_ARGTYPES = {"attention_i8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 3
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]}
+                  "conv3x3_up_interleave": "sdt_conv3x3_up_interleave_bf16",
+                  "rbf": "sdt_rbf_score_f32",
+                  "group_norm": "sdt_group_norm_fused"}
+# entries whose arguments changed since the checkout that 3b is run
+# against: the parent's argument list. B2's took no plan before its
+# cluster kernels (x, refs, w, num, beta, N, M, D, two_sigma2, eps,
+# normalize, stream).
+PARENT_ARGTYPES = {"rbf": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p]}
 
 
 def build_parent(root: str) -> dict:
-    """The bf16 C entry points of PARENT_ENTRIES from the checkout at
-    ``root``, built (all sources at once) with this checkout's nvcc flags into
-    build/torch_kernels_parent/; they take the arguments of this
-    checkout's, or those of PARENT_ARGTYPES."""
+    """The C entry points of PARENT_ENTRIES from the checkout at ``root``
+    (those whose source it has), built (all sources at once) with this
+    checkout's nvcc flags into build/torch_kernels_parent/; they take the
+    arguments of this checkout's, or those of PARENT_ARGTYPES."""
     from safe_denoiser_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR.parent / "torch_kernels_parent"
@@ -1170,6 +1198,8 @@ def build_parent(root: str) -> dict:
     for name in PARENT_ENTRIES:
         src = os.path.join(root, "safe_denoiser_tpu_torch", "csrc",
                            f"{name}.cu")
+        if not os.path.exists(src):
+            continue
         lib = str(out_dir / f"lib{name}.so")
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
@@ -1188,22 +1218,39 @@ def build_parent(root: str) -> dict:
     return fns
 
 
+def load_parent_group_norm(root: str):
+    """The checkout's ``ops/group_norm.py`` as a module of its own, loaded
+    by path: B6 in Triton, before ``csrc/group_norm.cu`` (the module then
+    imported only functools, os and torch)."""
+    import importlib.util
+
+    path = os.path.join(root, "safe_denoiser_tpu_torch", "ops",
+                        "group_norm.py")
+    spec = importlib.util.spec_from_file_location("parent_group_norm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_parent(root: str) -> None:
-    """Phase 3b: B1, B9, B10, B4, B3, B8 and B7 of the checkout at
+    """Phase 3b: B1, B9, B10, B4, B3, B8, B7, B2 and B6 of the checkout at
     ``root`` against this checkout's on the same seeded inputs, device
     times (``device_ms``) in turns (parent, this, this, parent), with the
     largest difference of their outputs."""
     from safe_denoiser_tpu_torch.models import SD3_VAE
-    from safe_denoiser_tpu_torch.ops import _build, attention, conv3x3
+    from safe_denoiser_tpu_torch.ops import (
+        _build, attention, conv3x3, group_norm, repellency_kernels)
 
     parent = build_parent(root)
     this = {name: getattr(_build.library(name), entry)
-            for name, entry in PARENT_ENTRIES.items()}
+            for name, entry in PARENT_ENTRIES.items() if name in parent}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def turns(name, call, shape):
-        fns = {"parent": parent[name], "this": this[name]}
+    def turns(name, call, shape, fns=None):
+        """``call(fn)`` with the parent's and this checkout's entry of
+        ``name`` (or the two callables of ``fns``)."""
+        fns = fns or {"parent": parent[name], "this": this[name]}
         diff = (call(fns["this"]).float()
                 - call(fns["parent"]).float()).abs().max().item()
         ms = {"parent": [], "this": []}
@@ -1294,7 +1341,7 @@ def phase_parent(root: str) -> None:
 
         turns("conv3x3_up", up, [b, h2, w2, ci, co])
         del hh
-    # B8 at its phase-3 shapes (the parent's entry without scratch)
+    # B8 at its phase-3 shapes
     for b, s, h, d in B8_ATOL:
         q, k, v = (torch.randn(b, s, h, d, device=dev, generator=g)
                    .bfloat16() for _ in range(3))
@@ -1306,10 +1353,9 @@ def phase_parent(root: str) -> None:
 
         def attn_i8(fn):
             out = torch.empty_like(q)
-            scratch = ([] if fn is parent["attention_i8"] else
-                       [qi[0].data_ptr(), qi[1].data_ptr(), deq.data_ptr()])
             _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), *scratch, b, s, h, d,
+                            out.data_ptr(), qi[0].data_ptr(),
+                            qi[1].data_ptr(), deq.data_ptr(), b, s, h, d,
                             *q.stride()[:3], cq, ck, _build.stream_ptr(dev)),
                          "sdt_self_attention_i8_bf16")
             return out
@@ -1336,6 +1382,56 @@ def phase_parent(root: str) -> None:
 
         turns("conv3x3_up_interleave", up_il, [b, h2, w2, c, c])
         del hh
+    # B2 at its phase-3 shapes (the parent's entry without a plan where
+    # PARENT_ARGTYPES has its old argument list)
+    for n, m, cc, hw in ((4, 515, 4, 64), (1, 16, 16, 128)):
+        dd = cc * hw * hw
+        refs = torch.randn(m, dd, device=dev, generator=g)
+        x = refs[:n] + 0.1 * torch.randn(n, dd, device=dev, generator=g)
+        w = torch.empty((n, m), device=dev)
+        beta = torch.empty((n,), device=dev)
+        p = repellency_kernels.rbf_plan(n, m, dd, 4)
+
+        def rbf(fn):
+            num = torch.empty((n, dd), device=dev)
+            old = fn is parent["rbf"] and "rbf" in PARENT_ARGTYPES
+            plan = [] if old else list(p)
+            _build.check(fn(x.data_ptr(), refs.data_ptr(), w.data_ptr(),
+                            num.data_ptr(), beta.data_ptr(), n, m, dd,
+                            2 * 3.15 ** 2, 1e-8, 1, *plan,
+                            _build.stream_ptr(dev)), "sdt_rbf_score_f32")
+            return num
+
+        turns("rbf", rbf, [n, dd, m])
+        del refs, x
+    # B6 at its phase-3 shapes: the parent's C entry on this checkout's
+    # plan, or its Triton kernels, loaded by path, where it has no
+    # csrc/group_norm.cu
+    parent_gn = (None if "group_norm" in parent
+                 else load_parent_group_norm(root))
+    for b, s, c, dtype in GN_SHAPES:
+        xx = (torch.randn(b, s, c, device=dev, generator=g) * 2 + 1).to(dtype)
+        sc = 1 + 0.2 * torch.randn(c, device=dev, generator=g)
+        bi = 0.5 * torch.randn(c, device=dev, generator=g)
+        p = group_norm.gn_plan(b, s, c, 32, xx.element_size())
+
+        def gn_c(fn):
+            y = torch.empty_like(xx)
+            _build.check(fn(xx.data_ptr(), sc.data_ptr(), bi.data_ptr(),
+                            y.data_ptr(), group_norm._GN_DTYPES[dtype], b,
+                            s, c, 32, p.ct, p.cl, p.rows, p.pass_rows, p.vb,
+                            int(p.resident), 1e-5, 1,
+                            int(group_norm.fast_act_ok(dtype)),
+                            _build.stream_ptr(dev)), "sdt_group_norm_fused")
+            return y
+
+        if parent_gn is None:
+            turns("group_norm", gn_c, [b, s, c, str(dtype)[6:]])
+        else:
+            turns("gn_fused", lambda fn: fn(xx, sc, bi, 32, 1e-5, "silu"),
+                  [b, s, c, str(dtype)[6:]],
+                  {"parent": parent_gn.group_norm_fused,
+                   "this": group_norm.group_norm_fused})
 
 
 KERNEL_META = {
@@ -1365,7 +1461,7 @@ KERNEL_META = {
     "conv3x3_up_interleave": (
         "cuda", "safe_denoiser_tpu_torch/csrc/conv3x3_up_interleave.cu",
         "safe_denoiser_tpu/ops/conv3x3.py:180"),
-    "gn_fused": ("triton", "safe_denoiser_tpu_torch/ops/group_norm.py",
+    "gn_fused": ("cuda", "safe_denoiser_tpu_torch/csrc/group_norm.cu",
                  "safe_denoiser_tpu/ops/group_norm.py:181"),
 }
 
@@ -1674,7 +1770,7 @@ def phase_ddim(pipe, kw) -> dict:
         with env():
             dec = vae_kernel_plan(pipe.vae.config, 4, 64, 64)[0]
             gnl = unet_gn_launches(pipe.unet.config, 64, 64)
-            # warm-up: Triton compiles B6 for each new shape at its first
+            # warm-up: Triton compiles B5 for each new shape at its first
             # launch, which would land in the timed loop
             ddim.generate_batch(PROMPTS, seeds=[0, 1, 2, 3],
                                 num_inference_steps=2, **kw)
@@ -2479,7 +2575,7 @@ def profile_call(fn, label: str) -> None:
     # and quantize_i8_kernel B8's quantize pass; conv_kernel: the conv
     # core, B3 in its upsample form (<true>), B4 in its nine-tap form
     # (<false>), matched demangled or mangled; up4_kernel: its interleave
-    # form (B7)
+    # form (B7); rbf_: B2's two kernels; gn_fused_kernel: B6
     names = {"attn_kernel": ("attn_kernel",),
              "attn_i8_kernel": ("attn_i8_kernel",),
              "quantize_i8_kernel": ("quantize_i8_kernel",),
@@ -2488,7 +2584,7 @@ def profile_call(fn, label: str) -> None:
              "up4_kernel": ("up4_kernel",),
              "conv_kernel<false>": ("conv_kernel<false>", "conv_kernelILb0E"),
              "_partial_sums": ("_partial_sums",), "_finish": ("_finish",),
-             "_gn_apply": ("_gn_apply",)}
+             "gn_fused_kernel": ("gn_fused_kernel",)}
     ours = dict.fromkeys(names, 0.0)
     for ms, _, key in rows:
         for k, pats in names.items():
@@ -2516,8 +2612,8 @@ def main() -> None:
                     help="after the main path, profile a 10-step batch; "
                          "after each SD3 run, a 5-step image")
     ap.add_argument("--parent", metavar="DIR",
-                    help="an earlier checkout whose B1, B9, B10, B4, B3, B8 "
-                         "and B7 phase 3b times against this one's")
+                    help="an earlier checkout whose B1, B9, B10, B4, B3, B8, "
+                         "B7, B2 and B6 phase 3b times against this one's")
     args = ap.parse_args()
     try:
         import safe_denoiser_tpu_torch  # noqa: F401

@@ -13,7 +13,7 @@
 | conv3x3_up_interleave | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_up_kernel             |
 | conv3x3               | ops/conv3x3.py     | CUDA   | ops/conv3x3.py::_kernel                |
 | gn_stats              | ops/group_norm.py  | Triton | ops/group_norm.py::_gn_stats_kernel    |
-| gn_fused              | ops/group_norm.py  | Triton | ops/group_norm.py::_gn_kernel          |
+| gn_fused              | ops/group_norm.py  | CUDA   | ops/group_norm.py::_gn_kernel          |
 
 Each wrapper counts its launches in a module-level integer (``COUNTERS``).
 """

@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("attention", "attention_i8", "rbf", "conv3x3_up", "conv3x3",
            "attention_nt", "attention_bshd", "repack_heads",
-           "conv3x3_up_interleave")
+           "conv3x3_up_interleave", "group_norm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -50,7 +50,10 @@ SIGNATURES = {
         "sdt_attention_i8_quantized_bf16": [_P] * 5 + [_I] * 4 + [_L] * 3
         + [_P],
         "sdt_self_attention_i8_bf16_smem": [_I]},
-    "rbf": {"sdt_rbf_score_f32": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P]},
+    "rbf": {"sdt_rbf_score_f32": [_P] * 5 + [_I] * 3 + [_F, _F] + [_I] * 7
+            + [_P]},
+    "group_norm": {"sdt_group_norm_fused": [_P] * 4 + [_I] * 11
+                   + [_F, _I, _I, _P]},
     "conv3x3_up": {"sdt_conv3x3_up_bf16": [_P] * 4 + [_I] * 5 + [_P],
                    "sdt_conv3x3_up_bf16_smem": []},
     "conv3x3_up_interleave": {

@@ -1,6 +1,7 @@
 """GroupNorm with f32 statistics: the plain forms, the affine coefficients,
-the one-read statistics kernel and the fused GroupNorm(+SiLU) kernel (both
-Triton), each with its plain version, and the dispatch between them.
+the one-read statistics kernel (Triton) and the fused GroupNorm(+SiLU)
+kernel (CUDA, ``csrc/group_norm.cu``), each with its plain version, and the
+dispatch between them.
 
 Counterpart of ``safe_denoiser_tpu/ops/group_norm.py``. Layout is the JAX
 package's ``[B, S, C]``. The switches are read at each call:
@@ -20,27 +21,25 @@ a fixed order (no atomics, so the sums are deterministic). ``triton`` is
 imported inside the launching function: the CPU host has none.
 
 The fused kernel replaces ``_gn_kernel``: the whole GroupNorm (+SiLU) of a
-[B, S, C] activation with S*C <= 4096*320, one read for the statistics and
-one read and one write for the output. Bound by bytes: one read and one
-write of x (41.9 MB, 12.5 us, at the UNet's [8, 4096, 320] bf16). The TPU
-kernel's one-hot [C, G] products (an MXU device for group sums) have no
-counterpart here. Design: pass 1 is the statistics kernel's partial-sum
-pass (per-(b, row range, c) f32 sums, programs spread over S); pass 2 gives
-each program one batch row, a row range and a tile of whole groups, laid
-out [groups, group width padded to a power of two] so that a group's sum
-is a reduction over one axis; it adds the partials of its channels, folds
-them into group mean and rsqrt(var + eps), forms a = rsqrt * scale and
-b = bias - mean * a, and writes y = x*a + b (then SiLU) for its rows. The
-second read of x can hit the 50 MB L2 (x is at most 21 MB at the UNet's
-shapes). Both launches count as one.
+[B, S, C] activation in one launch, bound by one read and one write of x
+(41.9 MB, 12.5 us, at the UNet's [8, 4096, 320] bf16). ``gn_plan`` cuts
+each batch row into tiles of whole groups along C, one thread-block
+cluster a tile, whose blocks split the rows; a block keeps its slice of x
+in shared memory where it fits (one read of x), sums it per group, and the
+cluster adds its blocks' sums in rank order through distributed shared
+memory before the block writes y (design notes in the source). The
+numerics are those of ``group_norm_fused_ref``.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+from typing import NamedTuple
 
 import torch
+
+from . import _build
 
 launches = 0         # kernel launches of gn_stats on CUDA tensors
 fused_launches = 0   # kernel launches of group_norm_fused on CUDA tensors
@@ -123,50 +122,6 @@ def _finish(p1_ptr, p2_ptr, s1_ptr, s2_ptr, C, n_split,
     tl.store(s2_ptr + b * C + cols, a2, mask=cmask)
 
 
-def _gn_apply(x_ptr, y_ptr, p1_ptr, p2_ptr, scale_ptr, bias_ptr, S, C, CG,
-              G, n_part, rows_per_split, n_per_group, eps,
-              SILU: tl.constexpr, FAST: tl.constexpr, BLOCK_S: tl.constexpr,
-              GPB: tl.constexpr, CGP: tl.constexpr):
-    """Pass 2 of the fused GroupNorm: program (b, row range, group tile);
-    channels as [GPB groups, CGP >= CG lanes], the group's channels
-    contiguous from grp * CG."""
-    b = tl.program_id(0)
-    sp = tl.program_id(1)
-    gt = tl.program_id(2)
-    grp = gt * GPB + tl.arange(0, GPB)
-    j = tl.arange(0, CGP)
-    cols = grp[:, None] * CG + j[None, :]
-    cmask = (grp[:, None] < G) & (j[None, :] < CG)
-    a1 = tl.zeros((GPB, CGP), dtype=tl.float32)
-    a2 = tl.zeros((GPB, CGP), dtype=tl.float32)
-    for k in range(0, n_part):
-        off = (b * n_part + k) * C + cols
-        a1 += tl.load(p1_ptr + off, mask=cmask, other=0.0)
-        a2 += tl.load(p2_ptr + off, mask=cmask, other=0.0)
-    mean = tl.sum(a1, axis=1) / n_per_group
-    var = tl.sum(a2, axis=1) / n_per_group - mean * mean
-    inv = tl.rsqrt(var + eps)
-    a = inv[:, None] * tl.load(scale_ptr + cols, mask=cmask, other=0.0)
-    sh = tl.load(bias_ptr + cols, mask=cmask, other=0.0) - mean[:, None] * a
-    base = x_ptr + b.to(tl.int64) * S * C
-    out = y_ptr + b.to(tl.int64) * S * C
-    start = sp * rows_per_split
-    for r0 in range(0, rows_per_split, BLOCK_S):
-        rows = start + r0 + tl.arange(0, BLOCK_S)
-        mask = (rows < S)[:, None, None] & cmask[None, :, :]
-        off = rows.to(tl.int64)[:, None, None] * C + cols[None, :, :]
-        xv = tl.load(base + off, mask=mask, other=0.0).to(tl.float32)
-        y = xv * a[None, :, :] + sh[None, :, :]
-        if SILU:
-            if FAST:   # round to bf16 first, SiLU at bf16 (fast_act)
-                y = y.to(tl.bfloat16).to(tl.float32)
-                sg = tl.sigmoid(y).to(tl.bfloat16).to(tl.float32)
-                y = y * sg
-            else:
-                y = y * tl.sigmoid(y)
-        tl.store(out + off, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-
 @functools.lru_cache(maxsize=None)
 def _triton_kernels():
     global tl
@@ -174,8 +129,7 @@ def _triton_kernels():
     import triton.language
 
     tl = triton.language
-    return (triton.jit(_partial_sums), triton.jit(_finish),
-            triton.jit(_gn_apply))
+    return triton.jit(_partial_sums), triton.jit(_finish)
 
 
 def _split(b: int, s: int, tiles: int) -> tuple[int, int]:
@@ -198,7 +152,7 @@ def _gn_stats_cuda(x: torch.Tensor):
     if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"gn_stats: unsupported dtype {x.dtype}")
     b, s, c = x.shape
-    partial_sums, finish, _ = _triton_kernels()
+    partial_sums, finish = _triton_kernels()
     c_tiles = -(-c // _BLOCK_C)
     n_split, rows = _split(b, s, c_tiles)
     p1 = torch.empty((b, n_split, c), dtype=torch.float32, device=x.device)
@@ -311,18 +265,108 @@ def group_norm_fused_ref(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _pow2(n: int) -> int:
-    return 1 << max(0, n - 1).bit_length()
+class GNPlan(NamedTuple):
+    """The fused kernel's walk of one shape (``csrc/group_norm.cu``)."""
+    ct: int         # channels a tile (whole groups)
+    tiles: int      # tiles a batch row: C // ct
+    cl: int         # blocks a tile: the cluster, splitting the rows
+    rows: int       # rows a block (the last one fewer)
+    pass_rows: int  # rows a pass of the copies into shared memory
+    vb: int         # bytes a vector of the copies and of the output
+    chunks: int     # row chunks of the sums: a thread sums one channel's
+    #                 rows of one chunk, the block the chunks in order
+    resident: bool  # the slice stays in shared memory: x is read once
+    smem: int       # dynamic shared memory of a block, bytes
 
 
-def _group_norm_fused_cuda(x, scale, bias, groups, epsilon, act):
+_GN_THREADS = 1024           # threads a block (csrc/group_norm.cu THREADS)
+_GN_CT_MAX = 4 * _GN_THREADS  # channels a tile (CH_MAX * THREADS)
+_GN_FILL = 128               # blocks that fill the H100 at one a SM
+_GN_PASS_BYTES = 32768       # bytes a pass of the copies
+_GN_SEGMENT = 256            # bytes: the re-read form's least row segment
+_GN_SEGMENT_WIDE = 320       # bytes: a row segment no wider pays off
+_GN_SMEM_MAX = 232448        # shared memory a block can opt into (H100)
+_GN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _gn_smem(esize: int, ct: int, cg: int, rows: int, pass_rows: int,
+             resident: bool) -> int:
+    """csrc/group_norm.cu::smem_bytes: the staged rows, the f64 sums of
+    the chunks, the channels, the runs and the groups."""
+    chunks = _GN_THREADS // ct if ct < _GN_THREADS else 1
+    staged = -(-(rows if resident else 2 * pass_rows) * ct * esize // 16) * 16
+    k = ct // cg
+    return staged + 16 * chunks * ct + 16 * (ct + k * -(-cg // 8) + k)
+
+
+@functools.lru_cache(maxsize=256)
+def gn_plan(b: int, s: int, c: int, groups: int, esize: int,
+            align: int = 16) -> GNPlan | None:
+    """The fused kernel's plan for [b, s, c] x of ``esize``-byte elements
+    whose pointers (x's and y's) are ``align``-byte aligned, or None where
+    a group is wider than a tile can be. One read of x where a block's
+    slice fits its shared memory: among tiles of whole groups and clusters
+    of 1 or 2 blocks splitting the rows (larger clusters of blocks this
+    size were measured to start late on an H100), the plan with the most
+    blocks up to 128 (one a SM), then the widest row segment up to 320
+    bytes, then the smaller cluster, then the wider tile. Else the re-read
+    form, on tiles of the fewest whole groups whose row segment reaches
+    256 bytes, 2 blocks a tile. Vectors of 16 bytes where the tile, the
+    row pitch and the pointers allow, else 8, 4 or 2."""
+    cg = c // groups
+    divisors = [d for d in range(1, groups + 1)
+                if groups % d == 0 and d * cg <= _GN_CT_MAX]
+    if not divisors:
+        return None
+    best = None
+    for k in divisors:
+        ct = k * cg
+        pass_rows = max(1, _GN_PASS_BYTES // (ct * esize))
+        for cl in (1, 2):
+            rows = -(-s // cl)
+            cl = -(-s // rows)
+            if _gn_smem(esize, ct, cg, rows, pass_rows, True) > _GN_SMEM_MAX:
+                continue
+            key = (min(b * (groups // k) * cl, _GN_FILL),
+                   min(ct * esize, _GN_SEGMENT_WIDE), -cl, k)
+            if best is None or key > best[0]:
+                best = (key, ct, cl, rows, pass_rows, True)
+    if best is None:
+        k = next((d for d in divisors if d * cg * esize >= _GN_SEGMENT),
+                 divisors[-1])
+        ct = k * cg
+        rows = -(-s // min(2, s))
+        best = (None, ct, -(-s // rows), rows,
+                max(1, _GN_PASS_BYTES // (ct * esize)), False)
+    _, ct, cl, rows, pass_rows, resident = best
+    vb = 16
+    while vb > esize and ((ct * esize) % vb or (c * esize) % vb
+                          or align % vb):
+        vb //= 2
+    return GNPlan(ct, c // ct, cl, rows, pass_rows, vb,
+                  _GN_THREADS // ct if ct < _GN_THREADS else 1, resident,
+                  _gn_smem(esize, ct, cg, rows, pass_rows, resident))
+
+
+def _align(*tensors) -> int:
+    """The largest power of two up to 16 dividing every data pointer."""
+    bits = 16
+    for t in tensors:
+        bits |= t.data_ptr()
+    return bits & -bits
+
+
+def _group_norm_fused_cuda(x, scale, bias, groups, epsilon, act, *,
+                           one_read: bool = True):
+    """``one_read=False`` takes the re-read form even where the slice fits
+    (tests compare the two forms at one shape)."""
     global fused_launches
     if not x.is_cuda or scale.device != x.device or bias.device != x.device:
         raise ValueError("x, scale and bias must lie on one GPU")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"group_norm_fused takes a contiguous [B,S,C], got "
                          f"{tuple(x.shape)} strides {x.stride()}")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    if x.dtype not in _GN_DTYPES:
         raise ValueError(f"group_norm_fused: unsupported dtype {x.dtype}")
     b, s, c = x.shape
     if c % groups or scale.shape != (c,) or bias.shape != (c,):
@@ -331,25 +375,20 @@ def _group_norm_fused_cuda(x, scale, bias, groups, epsilon, act):
                          f"{tuple(scale.shape)}/{tuple(bias.shape)}")
     if act not in (None, "silu"):
         raise ValueError(f"act must be None or 'silu', got {act!r}")
-    partial_sums, _, apply = _triton_kernels()
-    cg = c // groups
-    cgp = _pow2(cg)
-    gpb = max(1, _BLOCK_C // cgp)                # whole groups per tile
-    g_tiles = -(-groups // gpb)
-    c_tiles = -(-c // _BLOCK_C)
-    n_part, rows1 = _split(b, s, c_tiles)
-    p1 = torch.empty((b, n_part, c), dtype=torch.float32, device=x.device)
-    p2 = torch.empty_like(p1)
-    partial_sums[(b, n_part, c_tiles)](x, p1, p2, s, c, rows1, n_part,
-                                       BLOCK_S=_BLOCK_S, BLOCK_C=_BLOCK_C,
-                                       num_warps=4)
-    n_split, rows2 = _split(b, s, g_tiles)
     y = torch.empty_like(x)
-    apply[(b, n_split, g_tiles)](
-        x, y, p1, p2, scale.float().contiguous(), bias.float().contiguous(),
-        s, c, cg, groups, n_part, rows2, float(s * cg), float(epsilon),
-        SILU=act == "silu", FAST=fast_act_ok(x.dtype), BLOCK_S=_BLOCK_S,
-        GPB=gpb, CGP=cgp, num_warps=4)
+    plan = gn_plan(b, s, c, groups, x.element_size(), _align(x, y))
+    if plan is None or plan.smem > _GN_SMEM_MAX:
+        raise ValueError(f"group_norm_fused: groups of {c // groups} "
+                         f"channels are wider than the kernel's tiles")
+    sc, bi = scale.float().contiguous(), bias.float().contiguous()
+    err = _build.library("group_norm").sdt_group_norm_fused(
+        x.data_ptr(), sc.data_ptr(), bi.data_ptr(), y.data_ptr(),
+        _GN_DTYPES[x.dtype], b, s, c, groups, plan.ct, plan.cl, plan.rows,
+        plan.pass_rows, plan.vb, int(plan.resident and one_read),
+        float(epsilon),
+        int(act == "silu"), int(fast_act_ok(x.dtype)),
+        _build.stream_ptr(x.device))
+    _build.check(err, "sdt_group_norm_fused")
     fused_launches += 1
     return y
 

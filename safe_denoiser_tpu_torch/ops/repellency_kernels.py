@@ -16,12 +16,63 @@ the counterpart of the reference's Precision.HIGHEST.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import _build
 
 launches = 0   # kernel launches of rbf_negative_score on CUDA tensors
 N_MAX = 16     # rows of x the kernel takes (csrc/rbf.cu NMAX)
+
+
+class RBFPlan(NamedTuple):
+    """The kernel's walk of one shape (``csrc/rbf.cu``)."""
+    vec: int      # floats a load: 4 (16 bytes) or 1
+    mr: int       # pass 1: bank rows a block (its 8 warps split the slice;
+    #               a lane reads x once for all of them)
+    cl1: int      # pass 1: blocks a cluster, splitting D
+    ds: int       # pass 1: columns a block's D-slice (the last one fewer)
+    cl2: int      # pass 2: blocks a cluster, splitting M
+    ms: int       # pass 2: bank rows a block (the last one fewer)
+
+
+_RBF_WARPS = 8               # warps of a pass-1 block: parts of its slice
+_RBF_TILE = 128              # threads of a pass-2 block: a tile of 128 * vec
+_RBF_FILL1 = 2 * 132         # pass-1 blocks: two a SM (one wave)
+_RBF_FILL2 = 4 * 132         # pass-2 blocks: four a SM
+_RBF_SLICE_MIN = 1024        # columns: the least D-slice worth a block
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def _pow2_at_most(v: int) -> int:
+    return 1 << (max(1, v).bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=64)
+def rbf_plan(n: int, m: int, d: int, vec: int) -> RBFPlan:
+    """The kernel's plan for x [n, d] against a bank [m, d]. Pass 1: the
+    most bank rows a block (8, or 4 for n > 8, then fewer) at which
+    clusters of up to 16 D-slices of at least 1024 columns fill the card
+    in one wave (132 to 264 blocks: two a SM fit). Pass 2: clusters of
+    enough of M's runs (up to 16) beside the D tiles for 528 blocks.
+    Cluster sizes are powers of two (the last blocks may find no work)."""
+    slices = _pow2_at_most(d // _RBF_SLICE_MIN)
+    for mr in (8, 4, 2, 1):
+        if mr > (8 if n <= 8 else 4):
+            continue
+        chunks = -(-m // mr)
+        cl1 = min(16, slices, _pow2_at_most(_RBF_FILL1 // chunks))
+        if chunks * cl1 >= _RBF_FILL1 // 2:
+            break
+    tiles = -(-d // (_RBF_TILE * vec))
+    cl2 = min(16, _pow2_at_least(m), _pow2_at_least(-(-_RBF_FILL2 // tiles)))
+    return RBFPlan(vec, mr, cl1, -(-(-(-d // cl1)) // 4) * 4, cl2,
+                   -(-m // cl2))
 
 
 def _pairwise_dist(x: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
@@ -63,12 +114,14 @@ def _rbf_cuda(x, refs, sigma: float, epsilon: float, normalize: bool):
         raise ValueError(f"rbf kernel takes 1..{N_MAX} rows of x and a "
                          f"non-empty bank, got N={n}, M={m}")
     fn = _build.library("rbf").sdt_rbf_score_f32
-    w =torch.empty((n, m), dtype=torch.float32, device=x.device)
+    w = torch.empty((n, m), dtype=torch.float32, device=x.device)
     num = torch.empty((n, d), dtype=torch.float32, device=x.device)
     beta = torch.empty((n,), dtype=torch.float32, device=x.device)
+    aligned = (x.data_ptr() | refs.data_ptr()) % 16 == 0
+    plan = rbf_plan(n, m, d, 4 if d % 4 == 0 and aligned else 1)
     err = fn(x.data_ptr(), refs.data_ptr(), w.data_ptr(), num.data_ptr(),
              beta.data_ptr(), n, m, d, float(2.0 * sigma ** 2),
-             float(epsilon), int(bool(normalize)),
+             float(epsilon), int(bool(normalize)), *plan,
              _build.stream_ptr(x.device))
     _build.check(err, "sdt_rbf_score_f32")
     launches += 1

@@ -4,8 +4,9 @@ other head dims, strided and unaligned rows, the f32 attention path, the
 int8-QK^T kernel's rounding ties and zero rows, the layout kernels (nt,
 bshd, the head repacks) and their switches, small and odd banks, odd
 image sizes, channel counts that are not a tile's, the fused GroupNorm at
-group widths that are not powers of two, the interleaved upsample conv
-against the planar one.
+group widths that are not powers of two, in its one-read and re-read
+forms and with narrow vectors, the cluster kernels' plans and their
+determinism, the interleaved upsample conv against the planar one.
 
 Every test is marked ``cuda`` and skips where no GPU is visible. On a GPU
 machine (which need not have JAX; ``--noconftest`` skips the suite's JAX
@@ -630,6 +631,40 @@ def test_rbf_kernel_matches_plain(dev, n, m, d, normalize):
     torch.testing.assert_close(beta, wb, atol=0.0, rtol=1e-4)
 
 
+@pytest.mark.parametrize("n,m,d,offset", [
+    (16, 515, 16384, 0),    # N = 16 at SD-v1's shape: 4 rows a block
+    (2, 515, 4096, 0),      # 4 D-slices of 1024 columns, 8 rows a block
+    (3, 300, 1000, 0),      # D = 1000; M 300 in runs of 38
+    (5, 1003, 2052, 0),     # 3 D-slices, 8 runs of 126 rows (the last 121)
+    (4, 77, 999, 0),        # D % 4 != 0: scalar loads
+    (2, 41, 4096, 1)])      # x and refs 4 bytes off: scalar loads
+def test_rbf_kernel_plans(dev, n, m, d, offset):
+    """The cluster kernels at plans the main path does not take: M no
+    multiple of its split (trailing runs empty), D = 1000 and odd, N = 16,
+    pointers that are not 16-byte aligned. Bounds as
+    test_rbf_kernel_matches_plain's."""
+    g = _gen(21)
+    buf = torch.randn(m * d + offset, device=dev, generator=g)
+    refs = (buf[offset:] * (4096 / d) ** 0.5).view(m, d)
+    xb = torch.randn(n * d + offset, device=dev, generator=g)
+    x = xb[offset:].view(n, d)
+    x.copy_(refs[torch.arange(n, device=dev) % m]
+            + 0.1 * (4096 / d) ** 0.5 * x)
+    aligned = (x.data_ptr() | refs.data_ptr()) % 16 == 0
+    p = repellency_kernels.rbf_plan(n, m, d, 4 if d % 4 == 0 and aligned
+                                    else 1)
+    assert p.cl2 == 1 or m % p.ms
+    assert p.vec == (1 if offset or d % 4 else 4)
+    for normalize in (True, False):
+        num, beta = repellency_kernels.rbf_negative_score(
+            x, refs, 3.15, 1e-8, normalize=normalize)
+        wn, wb = repellency_kernels.rbf_negative_score_ref(
+            x, refs, 3.15, 1e-8, normalize=normalize)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(num, wn, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(beta, wb, atol=0.0, rtol=1e-4)
+
+
 def test_rbf_wrapper_rejects_what_the_kernel_does_not_take(dev):
     ops.reset_launch_counts()
     refs = torch.randn(8, 256, device=dev)
@@ -1019,6 +1054,92 @@ def test_group_norm_fused_kernel_matches_plain(dev, b, s, c, groups, dtype,
         assert err <= _bf16_ulp(want.float().abs().max().item()), err
 
 
+def _gn_inputs(b, s, c, dtype, seed, offset=0):
+    gen = _gen(seed)
+    buf = torch.empty(b * s * c + offset, device="cuda", dtype=dtype)
+    x = buf[offset:].view(b, s, c)
+    x.copy_(torch.randn(b, s, c, device="cuda", generator=gen) * 2 + 5)
+    sc = 1 + 0.5 * torch.randn(c, device="cuda", generator=gen)
+    bi = 0.5 * torch.randn(c, device="cuda", generator=gen)
+    return x, sc, bi
+
+
+def _assert_gn_close(got, want):
+    """f32 within 5e-5 + 1e-5 |plain|; bf16 and f16 within one ulp of
+    max|y| in their type (test_group_norm_fused_kernel_matches_plain's)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-5)
+        return
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    bits = 7 if got.dtype == torch.bfloat16 else 10
+    assert err <= 2.0 ** (torch.tensor(top).log2().floor().item() - bits), err
+
+
+@pytest.mark.parametrize("b,s,c,dtype", [
+    (8, 4096, 320, torch.bfloat16), (8, 4096, 320, torch.float32),
+    (8, 64, 2560, torch.bfloat16), (2, 300, 160, torch.float16)])
+def test_group_norm_fused_kernel_one_read_and_reread_forms(dev, b, s, c,
+                                                           dtype):
+    """The one-read form (a block's slice in shared memory) and the re-read
+    form at one shape: the same walk and sums, so bit-equal outputs, each
+    within the plain version's bound."""
+    x, sc, bi = _gn_inputs(b, s, c, dtype, 15)
+    groups = 32
+    assert group_norm.gn_plan(b, s, c, groups, x.element_size()).resident
+    one = group_norm._group_norm_fused_cuda(x, sc, bi, groups, 1e-5, "silu")
+    again = group_norm._group_norm_fused_cuda(x, sc, bi, groups, 1e-5,
+                                              "silu", one_read=False)
+    want = group_norm.group_norm_fused_ref(x, sc, bi, groups, 1e-5, "silu")
+    torch.cuda.synchronize()
+    assert torch.equal(one, again)
+    _assert_gn_close(one, want)
+
+
+@pytest.mark.parametrize("b,s,c,groups,dtype,offset,vb", [
+    (2, 300, 60, 6, torch.bfloat16, 0, 4),    # 20-byte tile rows
+    (2, 100, 96, 8, torch.bfloat16, 0, 8),    # 24-byte tile rows
+    (2, 77, 33, 3, torch.bfloat16, 0, 2),     # 22-byte tile rows
+    (2, 77, 33, 3, torch.float16, 0, 2),
+    (2, 50, 45, 5, torch.float32, 0, 4),      # 36-byte f32 tile rows
+    (2, 300, 320, 32, torch.bfloat16, 2, 4),  # x 4 bytes off 16
+    (1, 129, 96, 8, torch.float32, 2, 8)])    # x 8 bytes off 16
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_fused_kernel_narrow_vectors(dev, b, s, c, groups, dtype,
+                                                offset, vb, act):
+    """Tiles whose row segments, row pitch or base pointer are not 16-byte
+    aligned take 8-, 4- or 2-byte vectors (plain copies at 2) instead of
+    being refused."""
+    x, sc, bi = _gn_inputs(b, s, c, dtype, 16, offset)
+    p = group_norm.gn_plan(b, s, c, groups, x.element_size(),
+                           group_norm._align(x))
+    assert p.vb == vb, p
+    ops.reset_launch_counts()
+    got = group_norm.group_norm_fused(x, sc, bi, groups, act=act)
+    want = group_norm.group_norm_fused_ref(x, sc, bi, groups, act=act)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gn_fused"] == 1
+    _assert_gn_close(got, want)
+
+
+def test_cluster_kernels_are_deterministic(dev):
+    """The cluster reductions add in rank order, with no atomics: two calls
+    give bit-equal outputs (B6 at the UNet's largest shape in bf16 and f32,
+    B2 at SD-v1's and SD3's)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x, sc, bi = _gn_inputs(8, 4096, 320, dtype, 17)
+        outs = [group_norm.group_norm_fused(x, sc, bi, 32, 1e-5, "silu")
+                for _ in range(2)]
+        assert torch.equal(*outs), dtype
+    g = _gen(18)
+    for n, m, d in ((4, 515, 16384), (1, 16, 262144)):
+        refs = torch.randn(m, d, device=dev, generator=g)
+        x = refs[:n] + 0.1 * torch.randn(n, d, device=dev, generator=g)
+        (n1, b1), (n2, b2) = (repellency_kernels.rbf_negative_score(
+            x, refs, 3.15) for _ in range(2))
+        assert torch.equal(n1, n2) and torch.equal(b1, b2), (n, m, d)
+
+
 def test_group_norm_fused_wrapper_rejects_what_the_kernel_does_not_take(dev):
     ops.reset_launch_counts()
     x = torch.randn(2, 64, 128, device=dev)
@@ -1051,8 +1172,8 @@ def test_group_norm_dispatch_under_the_fused_switch(dev, monkeypatch):
 
 # ----------------------------------------------------------------- counts
 def test_each_wrapper_call_counts_one_launch(dev):
-    """One count per wrapper call, though rbf, gn_stats and
-    group_norm_fused each run two device kernels."""
+    """One count per wrapper call, though rbf and gn_stats each run two
+    device kernels."""
     ops.reset_launch_counts()
     x = torch.randn(1, 512, 2, 40, device=dev).bfloat16()
     attention.self_attention(x, x, x, 0.1)
