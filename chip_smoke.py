@@ -17,7 +17,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      B6's cluster kernels take theirs from each shape's plan, printed on
      their rows with the cluster sizes);
      then each kernel at the main path's shapes (and B4/B5 also at the
-     runner's bank-encode shapes; B9/B10 also in f32; B7 beside B3) against
+     runner's bank-encode shapes; B2 also at CoPro's 3000-row bank; B9/B10
+     also in f32; B7 beside B3) against
      its plain PyTorch version, with its device time and a library call's
      where one exists (``device_ms``: calls captured into a CUDA graph and
      replayed), the bound the card could reach, and the wrapper-paced
@@ -49,6 +50,19 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      through the fused conv and beta-calibrated, 4 CSV prompts x 50 steps
      with std_rep, a small NudeNet-shaped ONNX classifier as the gate --
      its output tree and the launch count of every kernel;
+  6e. artist and SPELL: ``runners.artist ann_graham`` (2 samples) and
+     ``munch`` (1) on phase 6's checkpoint with configs/ann_graham's and
+     configs/munch's kernel_fast against 16 random 512^2 bank PNGs encoded
+     through B4; ``runners.nudity`` under configs/sparse_repellency/
+     spell.yaml's parameters against a cached [515,4,64,64] bank, 4 cases
+     (B2 never runs); the SPELL force at full width against a bank of the
+     run's own x0, which must move the latents; the euclidean (B2), kernel
+     and lsh processors' conditioning on cuda against the CPU;
+  6f. CoPro: ``runners.copro`` with the Q16 gate on a random full ViT-L/14
+     tower (303M parameters, an HF-named safetensors file), 4 CSV prompts
+     x 50 steps, kernel_fast without the beta gate against a cached
+     3000-row bank (B2 at M = 3000); the tower's embedding on cuda against
+     the CPU's, and its time per image;
   6b. DDIM: the 10-step DDIM configuration (BASELINE.md #1) at full SD-v1.4
      width on phase 4's modules -- 4 prompts, 512x512, CFG 7.5, kernel_fast
      in [1000, 780] -- under bhsd, nt with the repacks and bshd; stage
@@ -123,17 +137,17 @@ DECODE_MS_CUDNN = "51.07-51.99"
 
 # the runner phase: 4 cases of batch 1 x 50 steps (std_rep: window
 # [1000, 800], 10 in-window steps t = 981 ... 801), a 32-image bank encoded
-# in 2 chunks of n_embed 16. attention 10 x 50 x 4; rbf 10 x 4; conv3x3_up
-# 53 x 4; conv3x3 20 per chunk (10 encoder resnets x 2) x 2 + 28 x 4;
-# gn_stats 3 x 50 x 4 + 30 x 4 + 22 encoder norms per chunk x 2
+# in 2 chunks of n_embed 16 (launches: ``runner_launches``)
 RUNNER_CASES, RUNNER_BANK, RUNNER_N_EMBED = 4, 32, 16
-RUNNER_LAUNCHES = {"attention": 2000, "rbf": 40, "conv3x3_up": 212,
-                   "conv3x3": 2 * 20 + 4 * 28, "gn_stats": 600 + 120 + 44,
-                   "attention_i8": 0, "conv3x3_up_interleave": 0,
-                   "gn_fused": 0}
 # the runner's second run: sld_rep (SLD STRONG's 3-branch batch, window
 # [1000, 780]) on 2 of the CSV's cases under FUSED_SWITCHES
 RUNNER_SLD_CASES = 2
+# 6e: the artist runs' samples (ann_graham; munch takes 1) and bank
+# images, the SPELL run's cases, the SPELL force check's copies of each x0
+ARTIST_SAMPLES, ARTIST_BANK = 2, 16
+SPELL_CASES, SPELL_COPIES = 4, 8
+# 6f: the CoPro run's cases and its bank (BASELINE #4's 3k-image bank)
+COPRO_CASES, COPRO_BANK = 4, 3000
 
 # SD3 (bench.py's sd3 legs: SD3-medium, 1 prompt with CFG, 1024^2, 50
 # flow-match steps, CFG 2.5, kernel_fast against a 16-latent bank)
@@ -865,8 +879,10 @@ def phase_kernels() -> dict:
 
     # B2 rbf score, f32: x near the bank rows so the weights span 1e-3..1;
     # SD-v1's [4, 16384] against 515 rows, then SD3's one [16, 128, 128]
-    # latent (D = 262144) against its 16-latent bank
-    for n, m, cc, hw in ((4, 515, 4, 64), (1, 16, 16, 128)):
+    # latent (D = 262144) against its 16-latent bank, then CoPro's one
+    # [4, 64, 64] latent against its 3000-row bank
+    for n, m, cc, hw in ((4, 515, 4, 64), (1, 16, 16, 128),
+                         (1, COPRO_BANK, 4, 64)):
         dd = cc * hw * hw
         refs = torch.randn(m, cc, hw, hw, device=dev, generator=g)
         refs = (refs / refs.norm(dim=1, keepdim=True)).reshape(m, dd)
@@ -1676,6 +1692,25 @@ def phase_main_path() -> dict:
     return counts, pipe, kw
 
 
+def first_step_x0(pipe, steps: int, seeds: list) -> tuple:
+    """(t, x0 [4, 4, 64, 64]) of the first of ``steps`` DDPM steps of
+    PROMPTS at 512^2 with CFG 7.5, computed as the pipeline computes it:
+    the same seeds give the same initial latents."""
+    dev, sch, n = pipe.device, pipe.scheduler, len(PROMPTS)
+    t = int(sch.timesteps(steps)[0])
+    with torch.no_grad():
+        text = torch.cat([pipe.encode_prompt(p) for p in PROMPTS], dim=1)
+        lat = torch.stack([
+            torch.randn((4, 64, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(s))
+            for s in seeds]) * sch.init_noise_sigma
+        eps = pipe.unet(torch.cat([lat, lat]), t,
+                        text.reshape(2 * n, *text.shape[2:]))
+        uncond, cond = eps.reshape(2, n, *eps.shape[1:])
+        x0 = sch.pred_original_sample(uncond + 7.5 * (cond - uncond), t, lat)
+    return t, x0.float()
+
+
 def phase_gate_open(pipe) -> None:
     """Full width with the beta gate open, which random weights and a
     random bank never open: the bank (a torch.save cache, as users load
@@ -1688,24 +1723,11 @@ def phase_gate_open(pipe) -> None:
     from safe_denoiser_tpu_torch.pipeline import EraseSpec, RepellencyWindow
     from safe_denoiser_tpu_torch.repellency import KernelFastRepellency
 
-    dev, sch = pipe.device, pipe.scheduler
+    dev = pipe.device
     steps, seeds, copies, n = 5, [0, 1, 2, 3], 128, len(PROMPTS)
-    t = int(sch.timesteps(steps)[0])
-    with torch.no_grad():
-        # x0 of the first step, computed as the pipeline does: same seeds,
-        # so the same initial latents
-        text = torch.cat([pipe.encode_prompt(p) for p in PROMPTS], dim=1)
-        lat = torch.stack([
-            torch.randn((4, 64, 64), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(s))
-            for s in seeds]) * sch.init_noise_sigma
-        eps = pipe.unet(torch.cat([lat, lat]), t,
-                        text.reshape(2 * n, *text.shape[2:]))
-        uncond, cond = eps.reshape(2, n, *eps.shape[1:])
-        gs = torch.full((n, 1, 1, 1), 7.5, device=dev)
-        x0 = sch.pred_original_sample(uncond + gs * (cond - uncond), t, lat)
+    t, x0 = first_step_x0(pipe, steps, seeds)
     g = torch.Generator(device=dev).manual_seed(2)
-    bank = torch.cat([x0.float().repeat_interleave(copies, 0),
+    bank = torch.cat([x0.repeat_interleave(copies, 0),
                       torch.randn(515 - n * copies, 4, 64, 64, device=dev,
                                   generator=g)])
     spec = EraseSpec(repellency=True, window=RepellencyWindow(1000.0, 780.0))
@@ -1999,39 +2021,49 @@ def nudenet_like_onnx(seed: int = 0) -> bytes:
             + _pb(7, graph))
 
 
-def phase_runner(pipe) -> float:
+def write_runner_assets(pipe, tmp: str) -> dict:
+    """The runner phases' shared assets under ``tmp``: phase 4's modules
+    as an HF-layout checkpoint (``ckpt``) and the NudeNet-shaped ONNX gate
+    (``onnx``)."""
+    t0 = time.perf_counter()
+    voc = os.path.join(tmp, "vocab")
+    os.makedirs(voc)
+    write_tiny_vocab(voc)
+    ckpt = os.path.join(tmp, "ckpt")
+    write_checkpoint(pipe, ckpt, voc)
+    onnx = os.path.join(tmp, "nudenet.onnx")
+    with open(onnx, "wb") as f:
+        f.write(nudenet_like_onnx())
+    print(f"runner assets: checkpoint and ONNX gate written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"tmp": tmp, "ckpt": ckpt, "onnx": onnx}
+
+
+def phase_runner(pipe, assets: dict) -> float:
     """The nudity runner on cuda at full SD-v1.4 width (phase 4's weights
-    loaded back from an HF-layout checkpoint): the bank encoded through B4
-    and beta-calibrated, 4 cases of 50 steps, the NudeNet-shaped gate.
-    Checks the output tree and every kernel's launch count; returns the
-    wall seconds per case."""
-    import contextlib
-    import io
+    loaded back from the HF-layout checkpoint of ``assets``): the bank
+    encoded through B4 and beta-calibrated, 4 cases of 50 steps, the
+    NudeNet-shaped gate. Checks the output tree and every kernel's launch
+    count; returns the wall seconds per case."""
     import re
 
     import numpy as np
 
-    from safe_denoiser_tpu_torch import ops
     from safe_denoiser_tpu_torch.data.images import read_png, write_png
     from safe_denoiser_tpu_torch.runners.nudity import main as run_nudity
     from safe_denoiser_tpu_torch.utils.config import load_yaml
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        voc = os.path.join(tmp, "vocab")
-        os.makedirs(voc)
-        write_tiny_vocab(voc)
-        ckpt = os.path.join(tmp, "ckpt")
-        write_checkpoint(pipe, ckpt, voc)
-        bank = os.path.join(tmp, "bank", "i2p_sexual")
-        os.makedirs(bank)
-        rs = np.random.RandomState(3)
-        for i in range(RUNNER_BANK):
-            write_png(rs.randint(0, 256, (512, 512, 3), dtype=np.uint8),
-                      os.path.join(bank, f"{i:03d}.png"))
-        task = os.path.join(tmp, "task.yaml")
-        with open(task, "w") as f:
-            f.write(f"""# kernel_fast with beta calibrated from the bank
+    tmp, ckpt, onnx = assets["tmp"], assets["ckpt"], assets["onnx"]
+    t0 = time.perf_counter()
+    bank = os.path.join(tmp, "bank", "i2p_sexual")
+    os.makedirs(bank)
+    rs = np.random.RandomState(3)
+    for i in range(RUNNER_BANK):
+        write_png(rs.randint(0, 256, (512, 512, 3), dtype=np.uint8),
+                  os.path.join(bank, f"{i:03d}.png"))
+    task = os.path.join(tmp, "task.yaml")
+    with open(task, "w") as f:
+        f.write(f"""# kernel_fast with beta calibrated from the bank
 repellency:
   method: kernel_fast
   n_embed: {RUNNER_N_EMBED}
@@ -2047,118 +2079,490 @@ data:
   class_info: i2p_sexual
   size: 512
 """)
-        csv_path = os.path.join(tmp, "prompts.csv")
-        with open(csv_path, "w") as f:
-            f.write("case_number,prompt,evaluation_seed,categories\n")
-            for i, p in enumerate(PROMPTS[:RUNNER_CASES]):
-                f.write(f"{i},{p},{100 + i},sexual\n")
-        onnx = os.path.join(tmp, "nudenet.onnx")
-        with open(onnx, "wb") as f:
-            f.write(nudenet_like_onnx())
-        print(f"runner: assets written in {time.perf_counter() - t0:.1f} s "
-              f"(checkpoint, {RUNNER_BANK} bank PNGs, task YAML, CSV, ONNX)")
+    csv_path = os.path.join(tmp, "prompts.csv")
+    with open(csv_path, "w") as f:
+        f.write("case_number,prompt,evaluation_seed,categories\n")
+        for i, p in enumerate(PROMPTS[:RUNNER_CASES]):
+            f.write(f"{i},{p},{100 + i},sexual\n")
+    print(f"runner: assets written in {time.perf_counter() - t0:.1f} s "
+          f"({RUNNER_BANK} bank PNGs, task YAML, CSV)")
 
-        out = os.path.join(tmp, "out")
-        log = io.StringIO()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(log):
-            run_nudity(["--data", csv_path, "--save-dir", out,
-                        "--erase_id", "std_rep", "--model_dir", ckpt,
-                        "--task_config", task, "--nudenet-path", onnx,
-                        "--num_inference_steps", "50",
-                        "--image_length", "512", "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+    out = os.path.join(tmp, "out")
+    wall, counts, log = _run_quiet(run_nudity, [
+        "--data", csv_path, "--save-dir", out, "--erase_id", "std_rep",
+        "--model_dir", ckpt, "--task_config", task, "--nudenet-path", onnx,
+        "--num_inference_steps", "50", "--image_length", "512",
+        "--device", "cuda"])
+    want = runner_launches(pipe, RUNNER_CASES, 10,
+                           RUNNER_BANK // RUNNER_N_EMBED, RUNNER_N_EMBED)
+    logs = open(os.path.join(out, "logs.txt")).read()
+    per_case = _case_walls(out)
+    beta = re.findall(r"t=1: ([0-9.e+-]+)", log)
+    names = {f"{i}_sexual.png" for i in range(RUNNER_CASES)}
+    listing = {d: set(os.listdir(os.path.join(out, d)))
+               for d in ("all", "safe", "unsafe")}
+    detect = json.load(open(os.path.join(out, "detect_dict.json")))
+    cfg = load_yaml(os.path.join(out, "config.yaml"))
+    img = read_png(os.path.join(out, "all", "0_sexual.png"))
+    print(f"runner: {RUNNER_CASES} cases x 50 steps at 512^2, bank "
+          f"{RUNNER_BANK} images: wall_s={wall:.3f} "
+          f"per_case_s={[round(v, 2) for v in per_case]} "
+          f"(dispatch to fetch, overlapped) calibrated beta at t=1: "
+          f"{beta} unsafe={detect['unsafe']}")
+    print(f"runner launches: {json.dumps(counts)} "
+          f"expected {json.dumps(want)}")
+    problems = []
+    if listing["all"] != names:
+        problems.append(f"all/ holds {sorted(listing['all'])}")
+    if (listing["safe"] | listing["unsafe"] != names
+            or listing["safe"] & listing["unsafe"]):
+        problems.append(f"safe/ {sorted(listing['safe'])} and unsafe/ "
+                        f"{sorted(listing['unsafe'])} do not split "
+                        "the cases")
+    if len(detect["unsafe"]) != RUNNER_CASES or len(per_case) != \
+            RUNNER_CASES:
+        problems.append("detect_dict.json or logs.txt miss cases")
+    if img.shape != (512, 512, 3) or cfg["repellency"]["n_embed"] != \
+            RUNNER_N_EMBED or "Repellency method : kernel_fast" not in logs:
+        problems.append("image, config.yaml or logs.txt content")
+    for name, n in want.items():
+        if counts[name] != n:
+            problems.append(f"kernel {name} launched {counts[name]} "
+                            f"times, expected {n}")
+    if problems:
+        print(log[-4000:])
+        fail("runner phase: " + "; ".join(problems))
 
-        logs = open(os.path.join(out, "logs.txt")).read()
-        per_case = [float(v) for v in re.findall(
-            r"Wall-Clock Time for image generation \(Case#: \d+\): "
-            r"([0-9.]+) seconds", logs)]
-        beta = re.findall(r"t=1: ([0-9.e+-]+)", log.getvalue())
-        names = {f"{i}_sexual.png" for i in range(RUNNER_CASES)}
-        listing = {d: set(os.listdir(os.path.join(out, d)))
-                   for d in ("all", "safe", "unsafe")}
-        detect = json.load(open(os.path.join(out, "detect_dict.json")))
-        cfg = load_yaml(os.path.join(out, "config.yaml"))
-        img = read_png(os.path.join(out, "all", "0_sexual.png"))
-        print(f"runner: {RUNNER_CASES} cases x 50 steps at 512^2, bank "
-              f"{RUNNER_BANK} images: wall_s={wall:.3f} "
-              f"per_case_s={[round(v, 2) for v in per_case]} "
-              f"(dispatch to fetch, overlapped) calibrated beta at t=1: "
-              f"{beta} unsafe={detect['unsafe']}")
-        print(f"runner launches: {json.dumps(counts)} "
-              f"expected {json.dumps(RUNNER_LAUNCHES)}")
-        problems = []
-        if listing["all"] != names:
-            problems.append(f"all/ holds {sorted(listing['all'])}")
-        if (listing["safe"] | listing["unsafe"] != names
-                or listing["safe"] & listing["unsafe"]):
-            problems.append(f"safe/ {sorted(listing['safe'])} and unsafe/ "
-                            f"{sorted(listing['unsafe'])} do not split "
-                            "the cases")
-        if len(detect["unsafe"]) != RUNNER_CASES or len(per_case) != \
-                RUNNER_CASES:
-            problems.append("detect_dict.json or logs.txt miss cases")
-        if img.shape != (512, 512, 3) or cfg["repellency"]["n_embed"] != \
-                RUNNER_N_EMBED or "Repellency method : kernel_fast" not in logs:
-            problems.append("image, config.yaml or logs.txt content")
-        for name, n in RUNNER_LAUNCHES.items():
-            if counts[name] != n:
-                problems.append(f"kernel {name} launched {counts[name]} "
-                                f"times, expected {n}")
-        if problems:
-            print(log.getvalue()[-4000:])
-            fail("runner phase: " + "; ".join(problems))
-
-        # 6d's runner run: sld_rep on the first RUNNER_SLD_CASES cases under
-        # FUSED_SWITCHES; launches per case from the gates as they stand,
-        # plus the bank encode
-        out = os.path.join(tmp, "out_sld")
-        n, chunks = RUNNER_SLD_CASES, RUNNER_BANK // RUNNER_N_EMBED
-        log = io.StringIO()
-        with switches(FUSED_SWITCHES):
-            gnl = unet_gn_launches(pipe.unet.config, 64, 64)
-            dec = vae_kernel_plan(pipe.vae.config, 1, 64, 64)[0]
-            enc = vae_kernel_plan(pipe.vae.config, RUNNER_N_EMBED, 512, 512,
-                                  "encoder")[0]
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(log):
-                run_nudity(["--data", csv_path, "--save-dir", out,
-                            "--erase_id", "sld_rep", "--model_dir", ckpt,
-                            "--task_config", task, "--nudenet-path", onnx,
-                            "--num_inference_steps", "50",
-                            "--image_length", "512", "--device", "cuda",
-                            "--valid_case_numbers", f"0,{n}"])
-            torch.cuda.synchronize()
-            wall_sld = time.perf_counter() - t0
-            counts = ops.launch_counts()
-        want = {"attention": 500 * n, "rbf": 11 * n, "attention_i8": 0}
-        for k in dec:
-            want[k] = n * dec[k] + chunks * enc[k]
-        want["conv3x3_up"] += 50 * n
-        for k in gnl:
-            want[k] += 50 * n * gnl[k]
-        logs = open(os.path.join(out, "logs.txt")).read()
-        names = {f"{i}_sexual.png" for i in range(n)}
-        detect = json.load(open(os.path.join(out, "detect_dict.json")))
-        print(f"runner sld_rep under {json.dumps(FUSED_SWITCHES)}: {n} cases "
-              f"x 50 steps at 512^2: wall_s={wall_sld:.3f} "
-              f"unsafe={detect['unsafe']}")
-        print(f"runner sld_rep launches: {json.dumps(counts)} expected "
-              f"{json.dumps(want)}")
-        problems = [f"kernel {k} launched {counts[k]} times, expected {v}"
-                    for k, v in want.items() if counts[k] != v]
-        if set(os.listdir(os.path.join(out, "all"))) != names:
-            problems.append("all/ does not hold the cases")
-        if len(detect["unsafe"]) != n or "SLD safe level: WEAK" not in logs:
-            problems.append("detect_dict.json or logs.txt content")
-        if problems:
-            print(log.getvalue()[-4000:])
-            fail("runner sld_rep: " + "; ".join(problems))
+    # 6d's runner run: sld_rep (window [1000, 780]: 11 steps a case) on the
+    # first RUNNER_SLD_CASES cases under FUSED_SWITCHES, with the launches
+    # from the gates as they stand
+    out = os.path.join(tmp, "out_sld")
+    n = RUNNER_SLD_CASES
+    with switches(FUSED_SWITCHES):
+        want = runner_launches(pipe, n, 11, RUNNER_BANK // RUNNER_N_EMBED,
+                               RUNNER_N_EMBED)
+        wall_sld, counts, log = _run_quiet(run_nudity, [
+            "--data", csv_path, "--save-dir", out, "--erase_id", "sld_rep",
+            "--model_dir", ckpt, "--task_config", task, "--nudenet-path",
+            onnx, "--num_inference_steps", "50", "--image_length", "512",
+            "--device", "cuda", "--valid_case_numbers", f"0,{n}"])
+    logs = open(os.path.join(out, "logs.txt")).read()
+    names = {f"{i}_sexual.png" for i in range(n)}
+    detect = json.load(open(os.path.join(out, "detect_dict.json")))
+    print(f"runner sld_rep under {json.dumps(FUSED_SWITCHES)}: {n} cases "
+          f"x 50 steps at 512^2: wall_s={wall_sld:.3f} "
+          f"unsafe={detect['unsafe']}")
+    print(f"runner sld_rep launches: {json.dumps(counts)} expected "
+          f"{json.dumps(want)}")
+    problems = [f"kernel {k} launched {counts[k]} times, expected {v}"
+                for k, v in want.items() if counts[k] != v]
+    if set(os.listdir(os.path.join(out, "all"))) != names:
+        problems.append("all/ does not hold the cases")
+    if len(detect["unsafe"]) != n or "SLD safe level: WEAK" not in logs:
+        problems.append("detect_dict.json or logs.txt content")
+    if problems:
+        print(log[-4000:])
+        fail("runner sld_rep: " + "; ".join(problems))
     return wall / RUNNER_CASES
+
+
+def runner_launches(pipe, cases: int, in_window: int, chunks: int = 0,
+                    n_embed: int = 0) -> dict:
+    """Each kernel's launches in a runner run under the default switches:
+    ``cases`` batch-1 cases of 50 steps at 512^2 (10 self-attentions with
+    S >= 512 a step, B3 a step, the UNet's GroupNorm kernels a step, one
+    decode each), B2 on ``in_window`` steps of each case, after a bank
+    encode in ``chunks`` chunks of ``n_embed`` 512^2 images."""
+    want = dict.fromkeys(EXPECTED_LAUNCHES, 0)
+    want["attention"] = 500 * cases
+    want["rbf"] = in_window * cases
+    dec = vae_kernel_plan(pipe.vae.config, 1, 64, 64)[0]
+    enc = (vae_kernel_plan(pipe.vae.config, n_embed, 512, 512,
+                           "encoder")[0] if chunks else {})
+    for k in dec:
+        want[k] += cases * dec[k] + chunks * enc.get(k, 0)
+    want["conv3x3_up"] += 50 * cases
+    for k, v in unet_gn_launches(pipe.unet.config, 64, 64).items():
+        want[k] += 50 * cases * v
+    return want
+
+
+def _task_yaml(path: str, config: str, params: dict, data: dict) -> dict:
+    """The task config ``configs/<config>`` with ``params`` over its
+    repellency parameters and ``data`` over its data section, written to
+    ``path``; returns it."""
+    from safe_denoiser_tpu_torch.utils.config import dump_yaml, load_yaml
+
+    task = load_yaml(os.path.join(ROOT, "configs", config))
+    task["repellency"]["params"].update(params)
+    task["data"].update(data)
+    with open(path, "w") as f:
+        f.write(dump_yaml(task))
+    return task
+
+
+def _run_quiet(main, argv) -> tuple:
+    """``main(argv)`` with its standard output kept; (wall seconds, the
+    kernels' launch counts from zero, the output)."""
+    import contextlib
+    import io
+
+    from safe_denoiser_tpu_torch import ops
+
+    log = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, ops.launch_counts(), log.getvalue()
+
+
+def _case_walls(out: str) -> list:
+    import re
+    logs = open(os.path.join(out, "logs.txt")).read()
+    return [float(v) for v in re.findall(
+        r"Wall-Clock Time for image generation \(Case#: \d+\): "
+        r"([0-9.]+) seconds", logs)]
+
+
+def phase_artist_sparse(pipe, assets: dict, profile: bool = False) -> dict:
+    """6e: the artist runners and the SPELL configuration at full SD-v1.4
+    width on the checkpoint of ``assets``.
+
+    - ``runners.artist ann_graham``: ARTIST_SAMPLES samples x 50 steps
+      with configs/ann_graham's repellency (kernel_fast, beta threshold
+      1e-9, no calibration), its bank ARTIST_BANK random 512^2 PNGs encoded
+      through B4 in chunks of n_embed 8; then ``runners.artist munch``, 1
+      sample (Munch's negative prompt, guidance 2.0, configs/munch).
+    - ``runners.nudity`` under configs/sparse_repellency/spell.yaml's
+      parameters (sparse, radius 38.746, scale 1.6) against a cached
+      projected bank of sd14-main's shape: SPELL_CASES cases x 50 steps;
+      B2 never runs.
+    - the SPELL force at full width: two 5-step batches against a bank
+      of the run's own x0 (perturbed) at a radius that holds them, scale
+      1.6 and 0; their latents must differ.
+    - the euclidean (through B2), kernel and lsh processors' conditioning
+      at full width on cuda against the same call on the CPU.
+    With ``profile``, one SPELL case of 10 steps on phase 4's modules,
+    profiled. Returns the launch counts of each runner run."""
+    import numpy as np
+
+    from safe_denoiser_tpu_torch.data.images import read_png, write_png
+    from safe_denoiser_tpu_torch.runners import artist
+    from safe_denoiser_tpu_torch.runners.nudity import main as run_nudity
+
+    tmp, ckpt = assets["tmp"], assets["ckpt"]
+    bank = os.path.join(tmp, "artist_bank", "ann_graham_lotz")
+    os.makedirs(bank)
+    rs = np.random.RandomState(4)
+    for i in range(ARTIST_BANK):
+        write_png(rs.randint(0, 256, (512, 512, 3), dtype=np.uint8),
+                  os.path.join(bank, f"{i:03d}.png"))
+    out_counts = {}
+    for task, samples, config in (("ann_graham", ARTIST_SAMPLES,
+                                   "ann_graham/safe_denoiser.yaml"),
+                                  ("munch", 1, "munch/safe_denoiser.yaml")):
+        yaml_path = os.path.join(tmp, f"{task}.yaml")
+        cfg = _task_yaml(
+            yaml_path, config,
+            {"proj_ref_path": os.path.join(tmp, f"{task}_proj.pt")},
+            {"root": os.path.join(tmp, "artist_bank"),
+             "class_info": "ann_graham_lotz"})
+        out = os.path.join(tmp, f"out_{task}")
+        wall, counts, log = _run_quiet(lambda argv: artist.main(task, argv), [
+            "--save-dir", out, "--erase_id", "std_rep", "--model_dir", ckpt,
+            "--task_config", yaml_path, "--num-samples", str(samples),
+            "--num_inference_steps", "50", "--device", "cuda"])
+        n_embed = cfg["repellency"]["n_embed"]
+        want = runner_launches(pipe, samples, 10, ARTIST_BANK // n_embed,
+                               n_embed)
+        spec = artist.ARTIST_TASKS[task]
+        names = sorted(os.listdir(os.path.join(out, "all")))
+        logs = open(os.path.join(out, "logs.txt")).read()
+        print(f"artist {task}: {samples} samples x 50 steps at 512^2, "
+              f"guidance {spec['guidance']}, kernel_fast sigma "
+              f"{cfg['repellency']['params']['sigma']} scale "
+              f"{cfg['repellency']['params']['scale']}, bank {ARTIST_BANK} "
+              f"PNGs: wall_s={wall:.3f} per_sample_s="
+              f"{[round(v, 2) for v in _case_walls(out)]} outputs {names}")
+        problems = []
+        if names != [f"{i}.png" for i in range(samples)] or json.load(open(
+                os.path.join(out, "detect_dict.json"))) != {}:
+            problems.append("all/ or detect_dict.json")
+        if f"Seed: 42, target prompt: {spec['prompt']}" not in logs or \
+                read_png(os.path.join(out, "all", "0.png")).shape != \
+                (512, 512, 3):
+            problems.append("logs.txt or image")
+        if problems:
+            print(log[-4000:])
+            fail(f"artist {task}: " + "; ".join(problems))
+        check_launches(counts, want, f"artist {task}")
+        out_counts[f"artist {task}"] = counts
+
+    # SPELL: spell.yaml's parameters, a cached projected bank
+    g = torch.Generator(device="cuda").manual_seed(5)
+    refs = torch.randn(515, 4, 64, 64, device="cuda", generator=g)
+    proj = os.path.join(tmp, "spell_proj.pt")
+    torch.save((refs / refs.norm(dim=1, keepdim=True)).cpu(), proj)
+    del refs
+    yaml_path = os.path.join(tmp, "spell.yaml")
+    cfg = _task_yaml(yaml_path, "sparse_repellency/spell.yaml",
+                     {"proj_ref_path": proj,
+                      "proj_noisy_ref_path_for_beta":
+                          os.path.join(tmp, "spell_noisy.pt")},
+                     {"root": os.path.join(tmp, "unused")})
+    csv_path = os.path.join(tmp, "spell.csv")
+    with open(csv_path, "w") as f:
+        f.write("case_number,prompt,evaluation_seed,categories\n")
+        for i, p in enumerate(PROMPTS[:SPELL_CASES]):
+            f.write(f"{i},{p},{200 + i},sexual\n")
+    out = os.path.join(tmp, "out_spell")
+    wall, counts, log = _run_quiet(run_nudity, [
+        "--data", csv_path, "--save-dir", out, "--erase_id", "std_rep",
+        "--model_dir", ckpt, "--task_config", yaml_path, "--nudenet-path",
+        assets["onnx"], "--num_inference_steps", "50", "--device", "cuda"])
+    params = cfg["repellency"]["params"]
+    names = {f"{i}_sexual.png" for i in range(SPELL_CASES)}
+    listing = {d: set(os.listdir(os.path.join(out, d)))
+               for d in ("all", "safe", "unsafe")}
+    logs = open(os.path.join(out, "logs.txt")).read()
+    print(f"spell runner: {SPELL_CASES} cases x 50 steps at 512^2, sparse "
+          f"radius {params['radius']} scale {params['scale']}, cached bank "
+          f"[515,4,64,64]: wall_s={wall:.3f} per_case_s="
+          f"{[round(v, 2) for v in _case_walls(out)]} applied_lines="
+          f"{logs.count('Repellency applied')}")
+    if (listing["all"] != names or listing["safe"] | listing["unsafe"]
+            != names or "Repellency method : sparse" not in logs):
+        print(log[-4000:])
+        fail(f"spell runner: output tree or logs ({listing})")
+    check_launches(counts, runner_launches(pipe, SPELL_CASES, 0),
+                   "spell runner")
+    out_counts["spell runner"] = counts
+    if profile:
+        from safe_denoiser_tpu_torch.pipeline import ERASE_SPECS
+        from safe_denoiser_tpu_torch.repellency import SparseRepellency
+        proc = SparseRepellency(ref_data=None, embed_fn=None,
+                                cache_proj_ref=True, proj_ref_path=proj,
+                                radius=float(params["radius"]),
+                                scale=float(params["scale"]))
+        profile_call(lambda: pipe.generate_batch(
+            [PROMPTS[0]], seeds=[200], guidance_scales=[7.5],
+            num_inference_steps=10, repellency_processor=proc,
+            erase_spec=ERASE_SPECS["std_rep"]),
+            "spell case, 10 steps, batch 1, bank 515")
+    phase_spell_force(pipe, float(params["scale"]), tmp)
+    phase_conditioning()
+    return out_counts
+
+
+def phase_spell_force(pipe, scale: float, tmp: str) -> None:
+    """The SPELL force reaching the latents at full width. A random
+    channel-normalized bank lies ~90 apart row to row and at least ~64
+    from any x0, outside spell.yaml's radius, so the sparse run above
+    shows the path but not the force. Here the bank holds SPELL_COPIES
+    perturbed copies (|noise| ~ 6.4) of each prompt's x0 at the first
+    step (a .pt cache, not projected) and the radius is 12.8, so each x0
+    has its copies in range. Two
+    5-step batches (t = 801 ... 1: one step in [1000, 780]) at ``scale``
+    and 0 must differ, on that step only, with no B2 launch."""
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.pipeline import EraseSpec, RepellencyWindow
+    from safe_denoiser_tpu_torch.repellency import SparseRepellency
+
+    dev = pipe.device
+    steps, seeds, n = 5, [0, 1, 2, 3], len(PROMPTS)
+    t, x0 = first_step_x0(pipe, steps, seeds)
+    g = torch.Generator(device=dev).manual_seed(6)
+    near = x0.repeat_interleave(SPELL_COPIES, 0) + 0.05 * torch.randn(
+        n * SPELL_COPIES, 4, 64, 64, device=dev, generator=g)
+    far = torch.randn(515 - n * SPELL_COPIES, 4, 64, 64, device=dev,
+                      generator=g)
+    bank = torch.cat([near, far / far.norm(dim=1, keepdim=True)])
+    path = os.path.join(tmp, "spell_force_bank.pt")
+    torch.save(bank.cpu(), path)          # a cache: taken as it is
+    spec = EraseSpec(repellency=True, window=RepellencyWindow(1000.0, 780.0))
+    out = {}
+    for s in (scale, 0.0):
+        proc = SparseRepellency(ref_data=None, embed_fn=None,
+                                cache_proj_ref=True, proj_ref_path=path,
+                                radius=12.8, scale=s, device=dev)
+        ops.reset_launch_counts()
+        pending = pipe.dispatch_batch(
+            PROMPTS, seeds=seeds, guidance_scales=[7.5] * n,
+            num_inference_steps=steps, height=512, width=512,
+            repellency_processor=proc, erase_spec=spec)
+        out[s] = (pending.fetch(return_latents=True).float(),
+                  pending.applied.cpu(), ops.launch_counts()["rbf"])
+    (lat_a, applied, rbf_n), (lat_b, _, _) = out[scale], out[0.0]
+    gap = (lat_a - lat_b).abs().max().item()
+    print(f"spell force: 4 x 512^2, {steps} steps, bank of own x0 (+noise) "
+          f"at t={t}, radius 12.8, scale {scale}: applied per step "
+          f"{applied.any(1).tolist()} rbf launches {rbf_n} "
+          f"max|latents(scale {scale}) - latents(scale 0)|={gap:.4e}")
+    if not (bool(applied[0].all()) and not bool(applied[1:].any())
+            and rbf_n == 0 and gap > 0
+            and bool(torch.isfinite(lat_a).all())):
+        fail("at full width the SPELL force did not reach the latents")
+
+
+def phase_conditioning() -> None:
+    """The euclidean, kernel and lsh processors' ``conditioning`` at full
+    width, x0 [4, 4, 64, 64] against a bank [515, 4, 64, 64] on cuda
+    (euclidean through B2), against the same call with x0 on the CPU
+    (the plain versions); bound 1e-4 (B2's, on a score of scale <= 1)."""
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.repellency import get_repellency_method
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bank = torch.randn(515, 4, 64, 64, device="cuda", generator=g)
+    x0 = bank[:4] + 0.05 * torch.randn(4, 4, 64, 64, device="cuda",
+                                       generator=g)
+    for name in ("euclidean", "kernel", "lsh"):
+        t0 = time.perf_counter()
+        proc = get_repellency_method(
+            name, ref_data=bank, embed_fn=lambda x: x, n_embed=64,
+            sigma=60.0, scale=0.5, n_components=32, hash_size=8,
+            num_hashtables=4)
+        built = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        got = proc.conditioning(x0)
+        torch.cuda.synchronize()
+        rbf_n = ops.launch_counts()["rbf"]
+        want = proc.conditioning(x0.cpu())
+        err = (got["x_0_hat"].cpu() - want["x_0_hat"]).abs().max().item()
+        moved = (want["x_0_hat"] - x0.cpu()).abs().max().item()
+        print(f"conditioning {name}: x0 [4,4,64,64] bank [515,4,64,64] "
+              f"cuda vs cpu max|d|={err:.3e} tol=1.0e-04 moved={moved:.3e} "
+              f"rbf launches {rbf_n} built in {built:.2f} s")
+        if not (err <= 1e-4 and moved > 0 and got["is_negation"]
+                == want["is_negation"] is True
+                and rbf_n == (name == "euclidean")):
+            fail(f"conditioning {name}: the GPU disagrees with the CPU")
+
+
+def phase_copro(pipe, assets: dict, profile: bool = False) -> dict:
+    """6f: ``runners.copro`` at full SD-v1.4 width with the Q16 gate on a
+    full ViT-L/14 tower (24 x 1024, 16 heads, MLP 4096, projection 768,
+    224^2, patch 14; random weights from a seed written as an HF-named
+    safetensors file) and a random [2, 768] prompt pickle: COPRO_CASES CSV
+    prompts x 50 steps, kernel_fast without the beta gate (scale 0.03,
+    sigma 3.55) against a cached random projected bank of COPRO_BANK rows.
+    Checks the output tree, detect_dict.json and the launches; holds the
+    tower's embedding of one output image on cuda against the CPU's (f32,
+    TF32 off) and times the tower. With ``profile``, one CoPro case of 10
+    steps on phase 4's modules, profiled. Returns the run's launch
+    counts."""
+    import pickle
+
+    import numpy as np
+
+    from safe_denoiser_tpu_torch.data.images import read_png
+    from safe_denoiser_tpu_torch.evals.q16 import Q16Eval
+    from safe_denoiser_tpu_torch.models import (CLIP_VISION_VIT_L_14,
+                                                CLIPVisionModel)
+    from safe_denoiser_tpu_torch.runners import copro
+
+    tmp = assets["tmp"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    with torch.device("cuda"):
+        tower = CLIPVisionModel(CLIP_VISION_VIT_L_14)
+    init_small_(tower, gen)
+    with torch.no_grad():
+        tower.vision_model.embeddings.class_embedding.normal_(
+            0.0, 0.02, generator=gen)
+    n_params = sum(p.numel() for p in tower.parameters())
+    weights = os.path.join(tmp, "clip_vit_l_14.safetensors")
+    write_safetensors(weights, tower.state_dict())
+    del tower
+    prompts = os.path.join(tmp, "q16_prompts.p")
+    with open(prompts, "wb") as f:
+        pickle.dump(np.random.RandomState(9).randn(2, 768).astype(
+            np.float32), f)
+    refs = torch.randn(COPRO_BANK, 4, 64, 64, device="cuda", generator=gen)
+    proj = os.path.join(tmp, "copro_proj.pt")
+    torch.save((refs / refs.norm(dim=1, keepdim=True)).cpu(), proj)
+    del refs
+    yaml_path = os.path.join(tmp, "copro.yaml")
+    cfg = _task_yaml(yaml_path, "copro/safe_denoiser.yaml",
+                     {"proj_ref_path": proj, "cache_proj_ref": True,
+                      "scale": 0.03, "sigma": 3.55},
+                     {"root": os.path.join(tmp, "unused")})
+    csv_path = os.path.join(tmp, "copro.csv")
+    with open(csv_path, "w") as f:
+        f.write("idx,unsafe_prompt,safe_prompt,concept,category\n")
+        for i, p in enumerate(PROMPTS[:COPRO_CASES]):
+            f.write(f"{10 + i},{p},{p},x,sexual\n")
+    print(f"copro: ViT-L/14 tower of {n_params} parameters, prompts, "
+          f"[{COPRO_BANK},4,64,64] bank and CSV written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = os.path.join(tmp, "out_copro")
+    wall, counts, log = _run_quiet(copro.main, [
+        "--data", csv_path, "--save-dir", out, "--erase_id", "std_rep",
+        "--model_dir", assets["ckpt"], "--task_config", yaml_path,
+        "--clip_vision_weights", weights, "--q16_path", prompts,
+        "--num_inference_steps", "50", "--device", "cuda"])
+    tags = {f"{10 + i}.png" for i in range(COPRO_CASES)}
+    listing = {d: set(os.listdir(os.path.join(out, d)))
+               for d in ("all", "safe", "unsafe")}
+    detect = json.load(open(os.path.join(out, "detect_dict.json")))
+    logs = open(os.path.join(out, "logs.txt")).read()
+    print(f"copro: {COPRO_CASES} cases x 50 steps at 512^2, kernel_fast "
+          f"without the beta gate (sigma {cfg['repellency']['params']['sigma']}"
+          f", scale {cfg['repellency']['params']['scale']}), bank "
+          f"{COPRO_BANK} rows, Q16 ViT-L/14: wall_s={wall:.3f} per_case_s="
+          f"{[round(v, 2) for v in _case_walls(out)]} "
+          f"unsafe={detect['unsafe']} applied_lines="
+          f"{logs.count('Repellency applied')}")
+    if (listing["all"] != tags or listing["safe"] | listing["unsafe"] != tags
+            or listing["safe"] & listing["unsafe"]
+            or len(detect["unsafe"]) != COPRO_CASES
+            or logs.count("toxicity pred") != COPRO_CASES
+            or [f"{10 + i}.png" in listing["unsafe"]
+                for i in range(COPRO_CASES)] != detect["unsafe"]):
+        print(log[-4000:])
+        fail(f"copro: output tree, detect_dict.json or logs ({listing})")
+    check_launches(counts, runner_launches(pipe, COPRO_CASES, 10),
+                   "copro runner")
+    if profile:
+        from safe_denoiser_tpu_torch.pipeline import ERASE_SPECS
+        from safe_denoiser_tpu_torch.repellency import KernelFastRepellency
+        proc = KernelFastRepellency(
+            ref_data=None, embed_fn=None, cache_proj_ref=True,
+            proj_ref_path=proj, beta_threshold=1.0,
+            **{k: cfg["repellency"]["params"][k] for k in ("sigma", "scale")})
+        profile_call(lambda: pipe.generate_batch(
+            [PROMPTS[0]], seeds=[10], guidance_scales=[7.5],
+            num_inference_steps=10, repellency_processor=proc,
+            erase_spec=ERASE_SPECS["std_rep"], use_beta_gate=False),
+            f"copro case, 10 steps, batch 1, bank {COPRO_BANK}")
+
+    # the tower on cuda against the CPU on one output image, f32
+    img = read_png(os.path.join(out, "all", f"{10}.png"))
+    gate = Q16Eval(prompts, clip_weights_path=weights)
+    imgs = [img] * 4
+    gate.compute_embeddings(imgs)                       # warm-up
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(5):
+        gate.compute_embeddings(imgs)
+    ev[1].record()
+    torch.cuda.synchronize()
+    per_image = ev[0].elapsed_time(ev[1]) / 20
+    e_gpu = gate.compute_embeddings([img]).cpu()
+    del gate
+    e_cpu = Q16Eval(prompts, clip_weights_path=weights,
+                    device="cpu").compute_embeddings([img])
+    err = (e_gpu - e_cpu).abs().max().item()
+    scale = e_cpu.abs().max().item()
+    print(f"q16 tower: ViT-L/14 f32, {per_image:.3f} ms per image (groups "
+          f"of 4, preprocessing 512->224 included); cuda vs cpu embedding "
+          f"max|d|={err:.3e} max|e|={scale:.3e} tol={1e-4 * scale:.3e}")
+    if not (err <= 1e-4 * scale and math.isfinite(scale) and scale > 0):
+        fail("q16 tower: the GPU's embedding disagrees with the CPU's")
+    return {"copro runner": counts}
 
 
 def init_small_(module, gen: torch.Generator, std: float = 0.02):
@@ -2610,7 +3014,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, profile a 10-step batch; "
-                         "after each SD3 run, a 5-step image")
+                         "a 10-step SPELL and CoPro case; after each SD3 "
+                         "run, a 5-step image")
     ap.add_argument("--parent", metavar="DIR",
                     help="an earlier checkout whose B1, B9, B10, B4, B3, B8, "
                          "B7, B2 and B6 phase 3b times against this one's")
@@ -2626,7 +3031,11 @@ def main() -> None:
         phase_parent(args.parent)
     counts, pipe, kw = phase_main_path()
     phase_gate_open(pipe)
-    phase_runner(pipe)
+    with tempfile.TemporaryDirectory() as tmp:
+        assets = write_runner_assets(pipe, tmp)
+        phase_runner(pipe, assets)
+        runner_counts = phase_artist_sparse(pipe, assets, args.profile)
+        runner_counts.update(phase_copro(pipe, assets, args.profile))
     ddim_counts = phase_ddim(pipe, kw)
     erasure_counts = phase_erasure(pipe, kw)
     if args.profile:
@@ -2635,11 +3044,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     sd3_counts = phase_sd3(args.profile)
     phase_sd3_runner()
-    # launches over the main paths: sd14-main, the four DDIM runs (6b, 6c),
-    # the three erasure runs (6d), the three SD3 runs and the SD3 decode
-    # under SDT_UP_FORM=interleave
-    runs = [counts, *ddim_counts.values(), *erasure_counts.values(),
-            *sd3_counts.values()]
+    # launches over the main paths: sd14-main, the artist, SPELL and CoPro
+    # runner runs (6e, 6f), the four DDIM runs (6b, 6c), the three erasure
+    # runs (6d), the three SD3 runs and the SD3 decode under
+    # SDT_UP_FORM=interleave
+    runs = [counts, *runner_counts.values(), *ddim_counts.values(),
+            *erasure_counts.values(), *sd3_counts.values()]
     total = {name: sum(c[name] for c in runs) for name in counts}
     print(card)
     print(kernels_line(results, total))

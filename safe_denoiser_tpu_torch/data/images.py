@@ -14,14 +14,16 @@ so:
   a triangle filter whose support widens with the scale factor when
   shrinking, fixed-point coefficients of 22 bits, a horizontal pass then a
   vertical one, each rounded to uint8;
-- a JPEG raises: decode the bank elsewhere, or give the run its projected
-  bank as a ``.pt`` cache (``cache_proj_ref``).
+- a JPEG is decoded through PIL where PIL can be imported (as the JAX
+  package reads it); without PIL it raises: decode the bank elsewhere, or
+  give the run its projected bank as a ``.pt`` cache (``cache_proj_ref``).
 
 ``write_png`` is the runners' image writer (filter 0, one IDAT chunk).
 """
 
 from __future__ import annotations
 
+import importlib
 import math
 import os
 import struct
@@ -230,6 +232,21 @@ def get_dataset(name: str, root: str, **kwargs):
     return __DATASET__[name](root=root, **kwargs)
 
 
+def read_with_pil(path: str) -> np.ndarray:
+    """An image PIL decodes (a JPEG bank) as uint8 RGB [H, W, 3]. PIL is
+    optional (the GPU machine has none): without it this raises."""
+    try:
+        pil_image = importlib.import_module("PIL.Image")
+    except ImportError:
+        raise ValueError(
+            f"{path}: without PIL this port decodes PNG only. Convert the "
+            "bank to PNG, or pass the projected bank as a .pt cache "
+            "(repellency.params.proj_ref_path with cache_proj_ref: "
+            "True).") from None
+    with pil_image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
 def get_transform(name: str = "", size: int = 512, **kwargs) -> Callable:
     """RGB uint8 [H, W, 3] -> resized to size², mapped to [-1, 1], CHW
     f32 (the reference's get_transform)."""
@@ -266,13 +283,9 @@ class _GlobImageDataset:
 
     def __getitem__(self, index: int) -> np.ndarray:
         path = self.fpaths[index]
-        if not path.lower().endswith(".png"):
-            raise ValueError(
-                f"{path}: this port decodes PNG only (no JPEG decoder "
-                "without PIL). Convert the bank to PNG, or pass the "
-                "projected bank as a .pt cache (repellency.params."
-                "proj_ref_path with cache_proj_ref: True).")
-        return self.transforms(read_png(path))
+        if path.lower().endswith(".png"):
+            return self.transforms(read_png(path))
+        return self.transforms(read_with_pil(path))
 
 
 @register_dataset(name="nudity")

@@ -1,1 +1,2 @@
-"""Online safety gates of the runners (NudeNet so far)."""
+"""Online safety gates of the runners (NudeNet, Q16) and the CLIP-based
+evaluators."""

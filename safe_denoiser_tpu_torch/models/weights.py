@@ -186,6 +186,30 @@ def load_sharded_state_dict(model_dir: str) -> dict[str, torch.Tensor]:
     return out
 
 
+def clip_vision_state_dict(sd: dict, projection_dim: int = 768) -> dict:
+    """An HF CLIP vision state dict (``CLIPVisionModel[WithProjection]``,
+    with or without the ``vision_model.`` prefix; other towers' keys beside
+    a prefixed one are dropped) in the port's key set:
+    the pre-LN under HF's ``pre_layrnorm`` whichever spelling the file
+    has, the ``position_ids`` buffer dropped, and an identity
+    ``visual_projection`` of ``projection_dim`` rows where the file has no
+    projection head (as the JAX package's converter)."""
+    ours = ("vision_model.", "visual_projection.")
+    prefixed = any(k.startswith("vision_model.") for k in sd)
+    out = {}
+    for k, v in sd.items():
+        if prefixed and not k.startswith(ours):
+            continue                          # e.g. a whole CLIPModel's text
+        if not k.startswith(ours):
+            k = "vision_model." + k
+        out[k.replace(".pre_layernorm.", ".pre_layrnorm.")] = v
+    out.pop("vision_model.embeddings.position_ids", None)
+    if "visual_projection.weight" not in out:
+        hidden = out["vision_model.post_layernorm.weight"].shape[0]
+        out["visual_projection.weight"] = torch.eye(projection_dim, hidden)
+    return out
+
+
 def t5_state_dict(sd: dict) -> dict:
     """An HF ``T5EncoderModel`` state dict in the port's key set: the token
     table under ``shared.weight`` (HF ties it to

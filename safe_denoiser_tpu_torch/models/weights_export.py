@@ -3,8 +3,9 @@ diffusers/HF state dicts.
 
 ``from_jax_params(params, cfg)`` inverts the JAX package's converters for
 the UNet (``invert_unet``), the VAE (``invert_vae``), the CLIP text
-encoders (``convert_clip_text``: CLIP-L and bigG), the SD3 MMDiT
-(``convert_mmdit``) and the T5 encoder (``convert_t5``), so both packages
+encoders (``convert_clip_text``: CLIP-L and bigG), the CLIP vision tower
+(``convert_clip_vision``), the SD3 MMDiT (``convert_mmdit``) and the T5
+encoder (``convert_t5``), so both packages
 can compute with the same weights. Pure numpy; the JAX tree is a nested dict of
 arrays, optionally under a top-level ``"params"`` key.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from .clip_text import CLIPTextConfig
+from .clip_vision import CLIPVisionConfig
 from .mmdit import MMDiTConfig
 from .t5 import T5Config
 from .unet import UNetConfig
@@ -158,8 +160,16 @@ def _clip_text(params, cfg: CLIPTextConfig,
             np.asarray(params["position_embedding"]),
     }
     _inv_ln(params["final_layer_norm"], f"{p}final_layer_norm", sd)
-    for i in range(cfg.num_layers):
-        lk = f"{p}encoder.layers.{i}"
+    _clip_layers(params, cfg.num_layers, p, sd)
+    if with_projection:
+        sd["text_projection.weight"] = np.ascontiguousarray(
+            np.asarray(params["text_projection"]["kernel"]).T)
+    return sd
+
+
+def _clip_layers(params, n: int, prefix: str, sd: dict) -> None:
+    for i in range(n):
+        lk = f"{prefix}encoder.layers.{i}"
         node = params[f"layers_{i}"]
         _inv_ln(node["layer_norm1"], f"{lk}.layer_norm1", sd)
         _inv_ln(node["layer_norm2"], f"{lk}.layer_norm2", sd)
@@ -167,9 +177,20 @@ def _clip_text(params, cfg: CLIPTextConfig,
                   names=("q_proj", "k_proj", "v_proj", "out_proj"))
         _inv_lin(node["mlp_fc1"], f"{lk}.mlp.fc1", sd)
         _inv_lin(node["mlp_fc2"], f"{lk}.mlp.fc2", sd)
-    if with_projection:
-        sd["text_projection.weight"] = np.ascontiguousarray(
-            np.asarray(params["text_projection"]["kernel"]).T)
+
+
+def _clip_vision(params, cfg: CLIPVisionConfig) -> dict:
+    p = "vision_model."
+    sd = {f"{p}embeddings.class_embedding":
+              np.asarray(params["class_embedding"]),
+          f"{p}embeddings.position_embedding.weight":
+              np.asarray(params["position_embedding"]),
+          "visual_projection.weight": np.ascontiguousarray(
+              np.asarray(params["visual_projection"]["kernel"]).T)}
+    _inv_conv(params["patch_embedding"], f"{p}embeddings.patch_embedding", sd)
+    _inv_ln(params["pre_layernorm"], f"{p}pre_layrnorm", sd)
+    _inv_ln(params["post_layernorm"], f"{p}post_layernorm", sd)
+    _clip_layers(params, cfg.num_layers, p, sd)
     return sd
 
 
@@ -232,8 +253,8 @@ def _t5(params, cfg: T5Config) -> dict:
 def from_jax_params(params, cfg, with_projection: bool = False
                     ) -> dict[str, np.ndarray]:
     """JAX-package parameter tree -> the port's state dict (numpy values)
-    for a UNetConfig, VAEConfig, CLIPTextConfig, MMDiTConfig or T5Config
-    of this package.
+    for a UNetConfig, VAEConfig, CLIPTextConfig, CLIPVisionConfig,
+    MMDiTConfig or T5Config of this package.
     ``with_projection`` keeps the CLIP text projection head."""
     if "params" in params:
         params = params["params"]
@@ -243,6 +264,8 @@ def from_jax_params(params, cfg, with_projection: bool = False
         return _vae(params, cfg)
     if isinstance(cfg, CLIPTextConfig):
         return _clip_text(params, cfg, with_projection)
+    if isinstance(cfg, CLIPVisionConfig):
+        return _clip_vision(params, cfg)
     if isinstance(cfg, MMDiTConfig):
         return _mmdit(params, cfg)
     if isinstance(cfg, T5Config):

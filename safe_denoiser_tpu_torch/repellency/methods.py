@@ -2,12 +2,14 @@
 
 Counterpart of ``safe_denoiser_tpu/repellency/methods.py``:
 ``RepellencyConfig``, ``apply_repellency`` (kernel_fast / kernel /
-euclidean / sparse / random_noise) and the host-side processor that holds
-the projected negative bank, with the ``kernel_fast`` processor and its
-beta calibration from a forward-noised bank (``empirical_beta``). The bank
-caches are ``torch.save`` files, which the JAX package's ``io.load_pt``
-reads and whose writes ``torch.load`` reads. The other processors (sparse,
-euclidean, kernel, random_noise, lsh) are not ported yet.
+euclidean / sparse / random_noise) and the host-side processors that hold
+the projected negative bank, behind the registry and factory
+(``get_repellency_method``): ``kernel_fast`` (the paper's method, beta
+calibrated from a forward-noised bank), ``kernel``, ``euclidean``,
+``random_noise``, ``sparse`` (SPELL, radius calibrated the same way) and,
+registered by ``repellency/lsh.py``, ``lsh``. The bank caches are
+``torch.save`` files, which the JAX package's ``io.load_pt`` reads and
+whose writes ``torch.load`` reads.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable
 
 import torch
 
+from ..device import resolve_device
 from ..ops.repellency_kernels import (
     _pairwise_dist,
     rbf_negative_score,
@@ -42,8 +45,8 @@ def get_repellency_method(name: str, ref_data, embed_fn, forward_fn=None,
                           ) -> "RepellencyProcessor":
     """Factory with the JAX package's (and the reference's) signature."""
     if __CONDITIONING_METHOD__.get(name) is None:
-        raise NameError(f"Name {name} is not defined! (the port has "
-                        f"{sorted(__CONDITIONING_METHOD__)} so far)")
+        raise NameError(f"Name {name} is not defined! (one of "
+                        f"{sorted(__CONDITIONING_METHOD__)})")
     return __CONDITIONING_METHOD__[name](
         ref_data=ref_data, embed_fn=embed_fn, forward_fn=forward_fn,
         num_timesteps=num_timesteps, max_idx=max_idx, beta_min=beta_min,
@@ -107,7 +110,8 @@ def apply_repellency(x0: torch.Tensor, refs: torch.Tensor,
 
 class RepellencyProcessor:
     """Holds the projected negative bank and the thresholds; the pipeline
-    reads ``config()`` and ``get_proj_ref()``."""
+    reads ``config()`` and ``get_proj_ref()``, and ``conditioning`` applies
+    the method to one x0 outside a sampling loop."""
 
     method_name = "base"
 
@@ -134,6 +138,10 @@ class RepellencyProcessor:
         self.cache_proj_ref = kwargs.get("cache_proj_ref", False)
         self.cache_proj_beta_ref = kwargs.get("cache_noisy_ref_path_for_beta",
                                               False)
+        # where an imported cache or euclidean's raw bank goes: cuda
+        # unless the caller asks for another device (the runners pass the
+        # pipeline's), so a cached bank is calibrated and read there
+        self.device = resolve_device(kwargs.get("device"))
 
         if self.cache_proj_ref:
             self.proj_refs = self.import_proj_ref(self.proj_ref_path)
@@ -155,11 +163,14 @@ class RepellencyProcessor:
         return result
 
     def import_proj_ref(self, path: str):
+        """A bank cache (a tensor, or the noisy-bank dict {t: tensor}) on
+        ``device``."""
         obj = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(obj, dict):   # noisy-beta cache {t -> tensor}
-            return {int(k): torch.as_tensor(v, dtype=torch.float32)
+            return {int(k): torch.as_tensor(v, dtype=torch.float32,
+                                            device=self.device)
                     for k, v in obj.items()}
-        return torch.as_tensor(obj, dtype=torch.float32)
+        return torch.as_tensor(obj, dtype=torch.float32, device=self.device)
 
     def get_proj_ref(self) -> torch.Tensor:
         return self.proj_refs
@@ -241,6 +252,24 @@ class RepellencyProcessor:
             use_beta_gate=True,
         )
 
+    def conditioning(self, x_0_hat, **kwargs) -> dict:
+        """The method on x0 [N, C, H, W] against the bank, on x0's device.
+        ``beta_threshold=True`` applies the beta gate; ``generator=`` feeds
+        random_noise (default: a generator seeded 0 on x0's device, as the
+        JAX package's default key). Returns {"x_0_hat", "is_negation" (any
+        sample), "mean_x_0_hat": None}."""
+        x = torch.as_tensor(x_0_hat)
+        cfg = dataclasses.replace(
+            self.config(),
+            use_beta_gate=bool(kwargs.get("beta_threshold", False)))
+        gen = kwargs.get("generator")
+        if gen is None:
+            gen = torch.Generator(device=x.device).manual_seed(0)
+        x0_new, is_neg = apply_repellency(
+            x, self.get_proj_ref().to(x.device), cfg, generator=gen)
+        return {"x_0_hat": x0_new, "is_negation": bool(is_neg.any()),
+                "mean_x_0_hat": None}
+
 
 @register_conditioning_method(name="kernel_fast")
 class KernelFastRepellency(RepellencyProcessor):
@@ -267,3 +296,69 @@ class KernelFastRepellency(RepellencyProcessor):
             self.beta_threshold = betas[list(betas.keys())[-1]]
         elif needs_calibration:
             self.beta_threshold = -1.0
+
+
+@register_conditioning_method(name="kernel")
+class KernelRepellency(RepellencyProcessor):
+    """The older formulation: x and the raw bank ``ref_data`` both go
+    through ``project`` on every call for the distances, and the numerator
+    weights the raw ``ref_data`` rows (which must be shaped like x0).
+    Plain PyTorch: the fused score takes one bank for both."""
+
+    method_name = "kernel"
+
+    def conditioning(self, x_0_hat, **kwargs) -> dict:
+        x = torch.as_tensor(x_0_hat).float()
+        xf = self.project(x).reshape(x.shape[0], -1).to(x.device)
+        rf = self.project(self.ref_data).reshape(len(self.ref_data), -1)
+        rf = rf.to(x.device)
+        w = torch.exp(-_pairwise_dist(xf, rf) / (2.0 * float(self.sigma) ** 2))
+        raw = torch.as_tensor(self.ref_data, dtype=torch.float32,
+                              device=x.device).reshape(rf.shape[0], -1)
+        beta = w.sum(-1) + float(self.epsilon)
+        score = (w @ raw) / beta[:, None]
+        return {"x_0_hat": x - float(self.scale) * score.reshape(x.shape),
+                "is_negation": True, "mean_x_0_hat": None}
+
+
+@register_conditioning_method(name="euclidean")
+class EuclideanRepellency(RepellencyProcessor):
+    """kernel_fast's score against the raw ``ref_data``: no projection and
+    no channel normalization of the bank."""
+
+    method_name = "euclidean"
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("cache_proj_ref", False)
+        super().__init__(**kwargs)
+
+    def set_proj_ref(self) -> torch.Tensor:
+        return torch.as_tensor(self.ref_data, dtype=torch.float32,
+                               device=self.device)
+
+
+@register_conditioning_method(name="random_noise")
+class RandomNoiseRepellency(RepellencyProcessor):
+    """Ablation: subtract scaled Gaussian noise, drawn from the caller's
+    ``generator=``, instead of the score. The sampling loops refuse it
+    (they pass no generator)."""
+
+    method_name = "random_noise"
+
+
+@register_conditioning_method(name="sparse")
+class SparseRepellency(RepellencyProcessor):
+    """SPELL's truncated repulsion. A non-positive ``radius`` asks for
+    calibration: the ``quantile`` of the noisy-bank to bank distances at
+    the last (t -> 0) timestep, the noisy bank from its cache or forward-
+    noised through ``scheduler``."""
+
+    method_name = "sparse"
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.radius = kwargs.get("radius", -1.0)
+        if self.radius <= 0:
+            noisy = self._resolve_noisy_refs(kwargs.get("scheduler"))
+            radii = self.empirical_radius(noisy, self.quantile)
+            self.radius = radii[list(radii.keys())[-1]]

@@ -1,11 +1,12 @@
 """Shared runner machinery: CLI scaffolding, pipeline and repellency
 assembly, the online gate, detect_dict aggregation.
 
-Counterpart of ``safe_denoiser_tpu/runners/common.py`` for the nudity
-runners (SD-v1.4 and SD3). The flags and their defaults are the JAX
-package's, except ``--device`` (``cuda``; tests pass ``cpu``). Flags that
-ask for what is not ported yet (``--shard_bank``, ``--category all``)
-raise ``NotImplementedError`` naming it (``check_ported``).
+Counterpart of ``safe_denoiser_tpu/runners/common.py`` for the nudity,
+artist and CoPro runners (SD-v1.4) and the SD3 nudity runner. The flags
+and their defaults are the JAX package's, except ``--device`` (``cuda``;
+tests pass ``cpu``). A flag that asks for what is not ported yet
+(``--shard_bank``) raises ``NotImplementedError`` naming it
+(``check_ported``).
 """
 
 from __future__ import annotations
@@ -131,13 +132,9 @@ def base_parser(description: str, argv=None
 def check_ported(args) -> None:
     """Raise NotImplementedError for any flag whose feature the port lacks,
     before anything is loaded."""
-    missing = []
     if args.shard_bank:
-        missing.append("--shard_bank (bank sharding over devices)")
-    if args.category == "all":
-        missing.append("--category all (the Q16 gate)")
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+        raise NotImplementedError("not ported yet: --shard_bank (bank "
+                                  "sharding over devices)")
 
 
 def shard_iter(args, cases):
@@ -197,7 +194,7 @@ def build_repellency(args, pipe: SafeDiffusionPipeline, logger: Logger):
     VAE-encoded in ``n_embed`` chunks (each draw's noise from a generator
     seeded 0, as the JAX package's fixed key) unless the projected bank is
     imported from its ``.pt`` cache, in which case the images are not
-    read."""
+    read. Either way the bank lies on the pipeline's device."""
     if args.task_config is None:
         return None, None
     task_config = load_yaml(args.task_config)
@@ -229,6 +226,7 @@ def build_repellency(args, pipe: SafeDiffusionPipeline, logger: Logger):
         beta_max=sch.config.beta_end,
         n_embed=repellency_config["n_embed"],
         scheduler=sch,
+        device=pipe.device,
         **params)
     logger.log(f"Repellency method : {repellency_config['method']}")
     return processor, task_config
@@ -236,28 +234,36 @@ def build_repellency(args, pipe: SafeDiffusionPipeline, logger: Logger):
 
 def build_eval(args):
     """The online safety gate: NudeNet for ``--category nudity``, none for
-    artist runs; ``all`` (Q16) raises."""
+    artist runs, else Q16 on ``--device``, which needs the CLIP vision
+    weights (``--clip_vision_weights``; without them ``SystemExit``)."""
     if "artists-" in args.category:
         return None
     if args.category == "nudity":
         from ..evals.nudenet import NudeClassifier
         return NudeClassifier(args.nudenet_path)
-    raise NotImplementedError(f"--category {args.category}: the Q16 gate "
-                              "is not ported yet")
+    if not args.clip_vision_weights:
+        raise SystemExit(
+            "--category all uses the Q16 gate, which needs the CLIP ViT-L/14 "
+            "vision weights: pass --clip_vision_weights <state_dict path>")
+    from ..evals.q16 import Q16Eval
+    return Q16Eval(args.q16_path, clip_weights_path=args.clip_vision_weights,
+                   device=args.device)
 
 
 def run_cases(args, cases, dispatch, eval_func, dirs: dict[str, str],
               logger: Logger, task_config: Optional[dict] = None,
-              skip_existing: bool = False) -> None:
+              skip_existing: bool = False,
+              number_tags: bool = False) -> None:
     """The runners' case loop. ``dispatch(case)`` enqueues one case's
     generation and returns its pending handle; case i+1 is enqueued before
     case i's images are fetched, gated and written (SDT_RUNNER_DEPTH cases
     in flight, default 2; SDT_EVAL_GROUP cases per gate pass, default 4);
     the outputs do not depend on either. Each case's PNG goes under
     ``all/`` and one of ``safe/`` or ``unsafe/`` (artist runs:
-    ``all/<case>.png`` only), then detect_dict.json and config.yaml are
-    written. ``skip_existing`` (``--resume``) skips the cases whose
-    ``all/`` output exists."""
+    ``all/<case>.png`` only), named ``<case>_<categories>.png``, or
+    ``<case>.png`` with ``number_tags`` (CoPro); then detect_dict.json and
+    config.yaml are written. ``skip_existing`` (``--resume``) skips the
+    cases whose ``all/`` output exists."""
     artist = "artists-" in args.category
     agg = DetectAggregator()
     depth = max(1, int(os.environ.get("SDT_RUNNER_DEPTH", "2")))
@@ -266,7 +272,7 @@ def run_cases(args, cases, dispatch, eval_func, dirs: dict[str, str],
     ready: list = []
 
     def tag(case) -> str:
-        return (f"{case.case_number}.png" if artist
+        return (f"{case.case_number}.png" if artist or number_tags
                 else f"{case.case_number}_{'-'.join(case.categories)}.png")
 
     def drain_one():

@@ -9,7 +9,9 @@ Counterpart of ``safe_denoiser_tpu/runners/nudity.py``:
 
 writes ``logs.txt``, ``config.yaml``, ``detect_dict.json`` and each case's
 PNG under ``all/`` and one of ``safe/`` or ``unsafe/`` (artist runs:
-``all/<case>.png`` only). The loop overlaps cases (``common.run_cases``).
+``all/<case>.png`` only). The gate is NudeNet for ``--category nudity``
+and Q16 for ``all`` (with ``--clip_vision_weights``). The loop overlaps
+cases (``common.run_cases``).
 Every erase id of ``ERASE_SPECS`` runs, with SAFREE (``--safree``, its
 self-validation filter ``-svf``), latent re-attention (``-lra``, with
 ``--safree`` also the SafeGuard filters from ``--freeu_hyp``) and SLD's
@@ -65,6 +67,7 @@ def main(argv=None):
     if args.erase_id not in ERASE_SPECS:
         raise ValueError(f"unknown --erase_id {args.erase_id}: one of "
                          f"{sorted(ERASE_SPECS)}")
+    eval_func = build_eval(args)
 
     dirs = make_save_dirs(args.save_dir)
     logger = Logger(os.path.join(args.save_dir, "logs.txt"))
@@ -117,8 +120,8 @@ def main(argv=None):
     cases = shard_iter(args, iter_prompt_cases(
         dataset, default_guidance=args.guidance_scale,
         valid_case_numbers=args.valid_case_numbers, logger=logger))
-    run_cases(args, cases, dispatch, build_eval(args), dirs, logger,
-              task_config, skip_existing=args.resume)
+    run_cases(args, cases, dispatch, eval_func, dirs, logger, task_config,
+              skip_existing=args.resume)
     print("end")
 
 

@@ -11,8 +11,8 @@ Counterpart of ``safe_denoiser_tpu/runners/sdv3.py::main_nudity``:
 with ``SDT_INT8_ATTN=1`` in the environment for the int8-QK^T attention.
 Same flags and output tree as ``run_nudity_sdv3.py`` (``logs.txt``,
 ``config.yaml``, ``detect_dict.json``, ``all/`` + ``safe/`` | ``unsafe/``;
-artist runs ``all/<case>.png`` only). The COCO-30k runner is not ported
-yet.
+artist runs ``all/<case>.png`` only), the Q16 gate under ``--category
+all``. The COCO-30k runner is not ported yet.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def build_sd3_repellency(args, pipe: SafeDiffusion3Pipeline, logger: Logger):
         num_timesteps=args.num_inference_steps, max_idx=None,
         beta_min=None, beta_max=None,
         n_embed=repellency_config["n_embed"],
-        normalize_x=True,
+        normalize_x=True, device=pipe.device,
         **repellency_config["params"])
     logger.log(f"Repellency method : {repellency_config['method']}")
     return processor, task_config
@@ -94,6 +94,7 @@ def main_nudity(argv=None):
                         argv)
     args = parser.parse_args(argv)
     check_ported(args)
+    eval_func = build_eval(args)
 
     dirs = make_save_dirs(args.save_dir)
     logger = Logger(os.path.join(args.save_dir, "logs.txt"))
@@ -126,8 +127,7 @@ def main_nudity(argv=None):
     cases = shard_iter(args, iter_prompt_cases(
         dataset, default_guidance=args.guidance_scale,
         valid_case_numbers=args.valid_case_numbers, logger=logger))
-    run_cases(args, cases, dispatch, build_eval(args), dirs, logger,
-              task_config)
+    run_cases(args, cases, dispatch, eval_func, dirs, logger, task_config)
     print("end")
 
 

@@ -267,6 +267,14 @@ def _emit_inline(v) -> str:
     return _emit_scalar(v)
 
 
+def dump_yaml(value) -> str:
+    """Block YAML of nested dicts and lists of scalars, which ``load_yaml``
+    and ``yaml.safe_load`` read back as ``value``."""
+    out: list[str] = []
+    _emit(value, 0, out)
+    return "\n".join(out) + "\n"
+
+
 def _yamlable(v):
     if isinstance(v, (str, int, float, bool, type(None), list, dict, tuple)):
         return v
@@ -282,8 +290,6 @@ def save_combined_config(args, file_path: str,
     if task_config is not None:
         combined = {**combined, **task_config}
     combined = dict(sorted(combined.items()))   # yaml.dump's key order
-    out: list[str] = []
-    _emit(combined, 0, out)
     with open(file_path, "w") as f:
-        f.write("\n".join(out) + "\n")
+        f.write(dump_yaml(combined))
     print(f"Combined configuration saved to {file_path}")

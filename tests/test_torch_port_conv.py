@@ -155,7 +155,8 @@ def test_empirical_beta_matches_jax():
     j = j_methods.KernelFastRepellency(ref_data=refs, cache_proj_ref=False,
                                        **{**kw, "embed_fn": lambda x: x})
     t = t_methods.KernelFastRepellency(
-        ref_data=torch.from_numpy(refs), **{**kw, "embed_fn": lambda x: x})
+        ref_data=torch.from_numpy(refs), device="cpu",
+        **{**kw, "embed_fn": lambda x: x})
     j_noisy = {k: jnp.asarray(v) for k, v in noisy.items()}
     t_noisy = {k: torch.from_numpy(v) for k, v in noisy.items()}
     for want, got in ((j.empirical_beta(j_noisy, 4.0, 0.3),
@@ -176,7 +177,8 @@ def test_kernel_fast_calibrates_beta_from_the_scheduler():
     sch = DDPMScheduler()
     proc = t_methods.get_repellency_method(
         "kernel_fast", ref_data=refs, embed_fn=lambda x: x, num_timesteps=5,
-        scheduler=sch, sigma=3.0, beta_threshold=True, quantile=0.5)
+        scheduler=sch, sigma=3.0, beta_threshold=True, quantile=0.5,
+        device="cpu")
     noisy = proc.set_noisy_proj_ref(sch, 5)
     assert list(noisy) == [int(t) for t in sch.timesteps(5)]
     want = proc.empirical_beta(noisy, 3.0, 0.5)[1]
@@ -194,6 +196,7 @@ def test_pt_caches_round_trip_with_the_jax_io(tmp_path):
              1: rs.randn(3, 4, 64, 64).astype(np.float32)}
     proc = t_methods.KernelFastRepellency.__new__(
         t_methods.KernelFastRepellency)
+    proc.device = torch.device("cpu")
 
     j_io.save_pt(bank, tmp_path / "j_bank.pt")
     j_io.save_pt(noisy, tmp_path / "j_noisy.pt")

@@ -6,7 +6,10 @@ bshd, the head repacks) and their switches, small and odd banks, odd
 image sizes, channel counts that are not a tile's, the fused GroupNorm at
 group widths that are not powers of two, in its one-read and re-read
 forms and with narrow vectors, the cluster kernels' plans and their
-determinism, the interleaved upsample conv against the planar one.
+determinism, the interleaved upsample conv against the planar one; and
+the host modules around the kernels on the GPU against the CPU: the
+repellency processors (the sparse force, LSH's bucket gather) and the Q16
+gate's vision tower.
 
 Every test is marked ``cuda`` and skips where no GPU is visible. On a GPU
 machine (which need not have JAX; ``--noconftest`` skips the suite's JAX
@@ -611,7 +614,8 @@ def test_layout_switches_launch_their_kernels(dev, monkeypatch, layout,
 # --------------------------------------------------------------------- rbf
 @pytest.mark.parametrize("n,m,d", [(1, 37, 1000), (16, 600, 4096),
                                    (4, 515, 16384), (3, 1, 128),
-                                   (1, 16, 262144)])
+                                   (1, 16, 262144), (1, 3000, 16384),
+                                   (1, 3001, 16384)])
 @pytest.mark.parametrize("normalize", [True, False])
 def test_rbf_kernel_matches_plain(dev, n, m, d, normalize):
     """Bank rows with |r|^2 ~ 4096, as a channel-normalized [4,64,64]
@@ -1198,3 +1202,69 @@ def test_each_wrapper_call_counts_one_launch(dev):
         x.reshape(1, 512, 80), 2))
     torch.cuda.synchronize()
     assert set(ops.launch_counts().values()) == {1}
+
+
+# ------------------------------------------- repellency methods and Q16
+def test_sparse_force_on_gpu_matches_the_cpu(dev):
+    """The SPELL force (plain PyTorch) at SD-v1's shape, a channel-
+    normalized [515, 4, 64, 64] bank and x0 [4, 4, 64, 64] near its first
+    rows, radius 60 (some pairs in range): force and coefficient sums
+    within f32 round-off of the CPU's."""
+    g = torch.Generator().manual_seed(5)
+    bank = torch.randn(515, 4, 64, 64, generator=g)
+    bank = (bank / bank.norm(dim=1, keepdim=True)).reshape(515, -1)
+    x = bank[:4] + 0.3 * torch.randn(4, bank.shape[1], generator=g)
+    want = repellency_kernels.sparse_repellency_force(x, bank, 60.0)
+    got = repellency_kernels.sparse_repellency_force(x.to(dev), bank.to(dev),
+                                                     60.0)
+    assert bool((want[1] > 0).all())
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(got[1].cpu(), want[1], atol=1e-5, rtol=1e-4)
+
+
+def test_lsh_bucket_scores_on_gpu_match_the_cpu(dev):
+    from safe_denoiser_tpu_torch.repellency.lsh import _bucket_scores
+    g = torch.Generator().manual_seed(6)
+    refs = torch.randn(515, 16384, generator=g)
+    x = refs[:4] + 0.05 * torch.randn(4, 16384, generator=g)
+    idx = torch.randint(0, 515, (4, 64), generator=g)
+    idx[:, 0] = torch.arange(4)
+    mask = (torch.rand(4, 64, generator=g) > 0.3).float()
+    mask[:, 0] = 1.0
+    mask[3] = 0.0                                       # an empty bucket
+    kw = dict(sigma=40.0, scale=0.5, epsilon=1e-8)
+    want = _bucket_scores(x, refs, idx, mask, **kw)
+    got = _bucket_scores(x.to(dev), refs.to(dev), idx.to(dev),
+                         mask.to(dev), **kw)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+    assert torch.equal(got[3].cpu(), x[3])
+
+
+def test_q16_eval_on_gpu_matches_the_cpu(dev, tmp_path):
+    """Q16Eval with a ViT-B/32-shaped random tower (12 layers, width 768)
+    on cuda against the CPU: embeddings within f32 round-off, the same
+    decisions."""
+    import pickle
+
+    import numpy as np
+
+    from safe_denoiser_tpu_torch.evals.q16 import Q16Eval
+    from safe_denoiser_tpu_torch.models import (CLIP_VISION_VIT_B_32,
+                                                CLIPVisionModel)
+    torch.manual_seed(0)
+    sd = CLIPVisionModel(CLIP_VISION_VIT_B_32).state_dict()
+    pk = tmp_path / "q16.p"
+    pk.write_bytes(pickle.dumps(np.random.RandomState(0).randn(
+        2, 512).astype(np.float32)))
+    rs = np.random.RandomState(1)
+    imgs = [rs.randint(0, 256, (512, 512, 3), dtype=np.uint8)
+            for _ in range(6)]
+    evs = {d: Q16Eval(str(pk), vision_state_dict=sd,
+                      vision_config=CLIP_VISION_VIT_B_32, device=d)
+           for d in ("cpu", "cuda")}
+    e_cpu = evs["cpu"].compute_embeddings(imgs)
+    e_gpu = evs["cuda"].compute_embeddings(imgs).cpu()
+    torch.testing.assert_close(e_gpu, e_cpu, atol=1e-4, rtol=1e-4)
+    groups = [[im] for im in imgs]
+    assert [u for u, _ in evs["cuda"].eval_many(groups)] == \
+        [u for u, _ in evs["cpu"].eval_many(groups)]

@@ -160,7 +160,8 @@ def test_pipeline_runs_the_ddim_configuration(
         dtype=torch.float32)
     bank = torch.randn(5, 4, 8, 8, generator=torch.Generator().manual_seed(0))
     proc = KernelFastRepellency(ref_data=bank, embed_fn=lambda x: x,
-                                sigma=30.0, scale=0.3, beta_threshold=1e-12)
+                                sigma=30.0, scale=0.3, beta_threshold=1e-12,
+                                device="cpu")
     pending = pipe.dispatch_batch(
         ["a cat", "a dog"], [1, 2], [7.5, 7.5], num_inference_steps=4,
         height=16, width=16, repellency_processor=proc,

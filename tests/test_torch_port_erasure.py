@@ -36,7 +36,8 @@ from safe_denoiser_tpu_torch.schedulers import DDPMScheduler
 from safe_denoiser_tpu_torch.text import CLIPTokenizer
 from tests.test_torch_port_models import (
     _nchw, jax_unet, jax_vae, load, random_params, torch_unet, torch_vae)
-from tests.test_torch_port_runner import _argv, assets  # noqa: F401
+from tests.test_torch_port_runner import (  # noqa: F401
+    _argv, assets, one_torch_thread)
 
 FREEU = dict(b1=1.1, b2=1.2, s1=0.9, s2=0.2)
 
@@ -276,7 +277,7 @@ def test_pipeline_erasure_matches_jax(pipes, case):
 
     proc = t_methods.KernelFastRepellency(
         ref_data=torch.from_numpy(refs), embed_fn=lambda x: x, sigma=30.0,
-        scale=0.4, beta_threshold=1e-12)
+        scale=0.4, beta_threshold=1e-12, device="cpu")
     kw = dict(num_inference_steps=steps, height=16, width=16,
               negative_prompt=neg, negative_prompt_space=space,
               repellency_processor=proc, erase_spec=spec, safree_dict=sf,

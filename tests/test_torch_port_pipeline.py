@@ -196,7 +196,8 @@ def test_from_pretrained_and_generate_batch(tmp_path, vocab_dir):
 
     bank = torch.randn(5, 4, 8, 8, generator=torch.Generator().manual_seed(0))
     proc = KernelFastRepellency(ref_data=bank, embed_fn=lambda x: x,
-                                sigma=30.0, scale=0.3, beta_threshold=1e-12)
+                                sigma=30.0, scale=0.3, beta_threshold=1e-12,
+                                device="cpu")
     kw = dict(num_inference_steps=STEPS, height=16, width=16,
               repellency_processor=proc,
               erase_spec=EraseSpec(repellency=True,

@@ -37,6 +37,18 @@ YAMLS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"),
                          recursive=True))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread for the module. The test run shares the cores
+    among several workers, and torch's default of one thread per core
+    then makes a tiny checkpoint's run tens of times slower."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------------ config
 @pytest.mark.parametrize("path", YAMLS,
                          ids=[os.path.relpath(p, ROOT) for p in YAMLS])
@@ -176,9 +188,11 @@ def test_nearest_resize_matches_pil(hw):
                                   want.astype(np.float32) / 255.0)
 
 
-def test_bank_transform_matches_the_jax_dataset(tmp_path):
+def test_bank_transform_matches_the_jax_dataset(tmp_path, monkeypatch):
     """The bank loader reads the same [M,3,H,W] f32 array as the JAX
-    package's (PIL) from PNG files of another size."""
+    package's (PIL) from PNG files of another size, and from a JPEG that
+    PIL wrote (decoded through PIL); without PIL a JPEG raises, naming
+    the .pt cache."""
     from safe_denoiser_tpu.data import images as j_images
     d = tmp_path / "bank" / "c"
     d.mkdir(parents=True)
@@ -190,10 +204,23 @@ def test_bank_transform_matches_the_jax_dataset(tmp_path):
     ds_j = j_images.get_dataset(**kw, transforms=j_images.get_transform(**kw))
     for i in range(3):
         np.testing.assert_array_equal(ds_t[i], ds_j[i])
-    Image.fromarray(_image(8, 8, 0)).save(d / "z.jpg")
-    ds_t = t_images.get_dataset(**kw)
+    Image.fromarray(_image(40, 37, 0)).save(d / "z.jpg", quality=90)
+    ds_t = t_images.get_dataset(**kw, transforms=t_images.get_transform(**kw))
+    ds_j = j_images.get_dataset(**kw, transforms=j_images.get_transform(**kw))
+    assert ds_t.fpaths[3].endswith("z.jpg")
+    np.testing.assert_array_equal(ds_t[3], ds_j[3])
+
+    real_import = t_images.importlib.import_module
+
+    def no_pil(name, *a):
+        if name.startswith("PIL"):
+            raise ImportError(name)
+        return real_import(name, *a)
+
+    monkeypatch.setattr(t_images.importlib, "import_module", no_pil)
     with pytest.raises(ValueError, match="proj_ref_path"):
         ds_t[3]
+    np.testing.assert_array_equal(ds_t[0], ds_j[0])
 
 
 # -------------------------------------------------------------------- ONNX
@@ -362,13 +389,25 @@ def test_runner_artist_resume_and_shards(assets):
     assert (assets.root / "shard0" / "all" / "1.png").exists()
 
 
-@pytest.mark.parametrize("extra", [
-    ["--shard_bank"], ["--category", "all"]], ids=["shard_bank", "q16"])
-def test_runner_raises_on_what_is_not_ported(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_nudity.main(["--data", "x.csv", "--save-dir", str(tmp_path / "o"),
-                       "--device", "cpu", *extra])
+@pytest.mark.parametrize("extra,error,match", [
+    (["--shard_bank"], NotImplementedError, "not ported"),
+    (["--category", "all"], SystemExit, "--clip_vision_weights")],
+    ids=["shard_bank", "q16"])
+def test_runner_raises_on_what_is_not_ported(tmp_path, extra, error, match):
+    """--shard_bank is not ported; the Q16 gate of --category all is, and
+    without --clip_vision_weights exits as the JAX package's build_eval
+    does (same message). Both before anything is written."""
+    argv = ["--data", "x.csv", "--save-dir", str(tmp_path / "o"),
+            "--device", "cpu", *extra]
+    with pytest.raises(error, match=match) as caught:
+        t_nudity.main(argv)
     assert not (tmp_path / "o").exists()
+    if error is SystemExit:
+        from safe_denoiser_tpu.runners.common import build_eval as j_build
+        args = base_parser("t", argv)[0].parse_args(argv)
+        with pytest.raises(SystemExit) as j_caught:
+            j_build(args)
+        assert str(caught.value) == str(j_caught.value)
 
 
 def test_runner_refuses_an_unknown_erase_id(tmp_path):
@@ -492,8 +531,10 @@ def test_sd3_runner_artist_branch_and_what_is_not_ported(sd3_assets,
     assert sorted(p.name for p in (save / "all").glob("*.png")) == \
         ["0.png", "1.png"]
     assert json.loads((save / "detect_dict.json").read_text()) == {}
-    for extra in (["--shard_bank"], ["--category", "all"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for extra, error, match in (
+            (["--shard_bank"], NotImplementedError, "not ported"),
+            (["--category", "all"], SystemExit, "--clip_vision_weights")):
+        with pytest.raises(error, match=match):
             sdv3.main_nudity(_sd3_argv(sd3_assets, tmp_path / "o", *extra))
     assert not (tmp_path / "o").exists()
 
@@ -523,3 +564,189 @@ def test_pipeline_swaps_in_an_esd_unet(assets, tmp_path):
     pipe.load_unet_state_dict(str(tmp_path / "esd.pt"))
     for k, v in pipe.unet.state_dict().items():
         assert torch.equal(v, sd[k].to(v.dtype)), k
+
+
+# ------------------------------------------------ artist, CoPro and SPELL
+def _spy_dispatch(monkeypatch):
+    """Record the keywords of every SafeDiffusionPipeline.dispatch."""
+    from safe_denoiser_tpu_torch.pipeline import SafeDiffusionPipeline
+    calls = []
+    orig = SafeDiffusionPipeline.dispatch
+
+    def spy(pipe, prompt, **kw):
+        calls.append(dict(kw, prompt=prompt))
+        return orig(pipe, prompt, **kw)
+
+    monkeypatch.setattr(SafeDiffusionPipeline, "dispatch", spy)
+    return calls
+
+
+@pytest.mark.parametrize("task", ["ann_graham", "munch"])
+def test_artist_runner_tasks_and_shards(assets, monkeypatch, task):
+    """Both artist tasks on the tiny checkpoint: the fixed prompt, the
+    task's guidance and negative prompt, seeds 42 + i, an empty
+    detect_dict.json and the artists- category in config.yaml;
+    ann_graham with the kernel_fast bank and fleet shards over the sample
+    indices (all/<i>.png, global i), munch in one run without a bank.
+    The task table is the JAX package's, and what dispatch receives is
+    read from JAX's."""
+    from safe_denoiser_tpu.runners import artist as j_artist
+    from safe_denoiser_tpu_torch.runners import artist
+    assert artist.ARTIST_TASKS == j_artist.ARTIST_TASKS
+    spec = j_artist.ARTIST_TASKS[task]
+    calls = _spy_dispatch(monkeypatch)
+    runs = ([["--task_config", assets.task, "--num_shards", "2",
+              "--shard_id", str(k)] for k in range(2)]
+            if task == "ann_graham" else [[]])
+    names = []
+    for k, extra in enumerate(runs):
+        save = assets.root / f"{task}{k}"
+        artist.main(task, ["--save-dir", str(save), "--erase_id", "std_rep",
+                           "--model_dir", assets.ckpt, "--num-samples", "3",
+                           "--num_inference_steps", "2", "--image_length",
+                           "32", "--device", "cpu", *extra])
+        names.append(sorted(p.name for p in (save / "all").glob("*.png")))
+        assert json.loads((save / "detect_dict.json").read_text()) == {}
+        cfg = yaml.safe_load((save / "config.yaml").read_text())
+        assert cfg["category"] == spec["category"]
+        logs = (save / "logs.txt").read_text()
+        assert f"Seed: 42, target prompt: {spec['prompt']}" in logs
+        assert ("Repellency method : kernel_fast" in logs) == bool(extra)
+    if task == "ann_graham":
+        assert names == [["0.png", "2.png"], ["1.png"]]
+        assert [c["seed"] for c in calls] == [42, 44, 43]
+    else:
+        assert names == [["0.png", "1.png", "2.png"]]
+        assert [c["seed"] for c in calls] == [42, 43, 44]
+    assert {c["guidance_scale"] for c in calls} == {spec["guidance"]}
+    assert {c["negative_prompt"] for c in calls} == {spec["negative_prompt"]}
+    assert {c["prompt"] for c in calls} == {spec["prompt"]}
+    with Image.open(assets.root / f"{task}0" / "all" / "2.png") as im:
+        assert im.size == (32, 32)
+
+
+def _tiny_q16(root):
+    """A width-64 CLIP vision tower (the port's module, seeded) as an
+    HF-named safetensors file and a [2, 24] prompt pickle."""
+    import pickle
+
+    import torch
+    from safetensors.numpy import save_file
+
+    from safe_denoiser_tpu_torch.models import (CLIPVisionConfig,
+                                                CLIPVisionModel)
+    torch.manual_seed(4)
+    tower = CLIPVisionModel(CLIPVisionConfig(
+        image_size=32, patch_size=8, hidden_size=64, num_layers=2,
+        num_heads=4, intermediate_size=128, projection_dim=24))
+    w = root / "vision.safetensors"
+    save_file({k: v.numpy() for k, v in tower.state_dict().items()}, str(w))
+    pk = root / "q16.p"
+    pk.write_bytes(pickle.dumps(
+        np.random.RandomState(6).randn(2, 24).astype(np.float32)))
+    return str(w), str(pk)
+
+
+def test_copro_runner_with_the_q16_gate(assets, monkeypatch):
+    """The CoPro runner on a CoPro-shaped CSV with a tiny Q16 gate from
+    --clip_vision_weights: category all, kernel_fast without the beta
+    gate, <case>.png under all/ and safe/ | unsafe/, and detect_dict's
+    decisions equal to the JAX package's Q16Eval on the written PNGs."""
+    from safe_denoiser_tpu.evals import q16 as j_q16
+    from safe_denoiser_tpu_torch.evals import q16 as t_q16
+    from safe_denoiser_tpu_torch.runners import copro
+    monkeypatch.setitem(j_q16._KNOWN_VISION_HEADS, 64, 4)
+    monkeypatch.setitem(t_q16._KNOWN_VISION_HEADS, 64, 4)
+    weights, prompts = _tiny_q16(assets.root)
+    csv = assets.root / "copro.csv"
+    csv.write_text("idx,unsafe_prompt,safe_prompt,concept,category\n"
+                   "0,a cat,a hat,x,sexual\n5,a dog,a log,y,hate\n")
+    calls = _spy_dispatch(monkeypatch)
+    save = assets.root / "out_copro"
+    copro.main(["--data", str(csv), "--save-dir", str(save), "--erase_id",
+                "std_rep", "--model_dir", assets.ckpt, "--task_config",
+                assets.task, "--num_inference_steps", "2", "--image_length",
+                "32", "--device", "cpu", "--clip_vision_weights", weights,
+                "--q16_path", prompts])
+    logs = (save / "logs.txt").read_text()
+    assert "CoPro dataset size: 2" in logs
+    assert logs.count("toxicity pred") == 2
+    assert {c["use_beta_gate"] for c in calls} == {False}
+    assert yaml.safe_load((save / "config.yaml").read_text())[
+        "category"] == "all"
+    tags = ["0.png", "5.png"]
+    assert sorted(p.name for p in (save / "all").glob("*.png")) == tags
+    routed = {d: sorted(p.name for p in (save / d).glob("*.png"))
+              for d in ("safe", "unsafe")}
+    assert sorted(routed["safe"] + routed["unsafe"]) == tags
+    detect = json.loads((save / "detect_dict.json").read_text())
+    jev = j_q16.Q16Eval(prompts, clip_weights_path=weights)
+    want = [jev([np.asarray(Image.open(save / "all" / t))])[0] for t in tags]
+    assert detect["unsafe"] == want
+    assert [t in routed["unsafe"] for t in tags] == want
+    assert detect["toxic_size"] == {"nudity": 2, "average": 2}
+
+
+def test_nudity_runner_under_the_spell_config(assets, monkeypatch):
+    """configs/sparse_repellency/spell.yaml's parameters (sparse, radius
+    38.746, scale 1.6, beta_threshold True, both caches on) with a cached
+    projected bank: the runner builds the SparseRepellency processor and
+    the loop applies the sparse method in the window (no calibration, so
+    the noisy-bank cache is never read)."""
+    import torch
+
+    from safe_denoiser_tpu_torch.pipeline import sampler as t_sampler
+    with open(os.path.join(ROOT, "configs", "sparse_repellency",
+                           "spell.yaml")) as f:
+        spell = yaml.safe_load(f)
+    bank = torch.randn(6, 4, 16, 16, generator=torch.Generator()
+                       .manual_seed(0))
+    torch.save(bank / bank.norm(dim=1, keepdim=True),
+               assets.root / "proj.pt")
+    params = dict(spell["repellency"]["params"],
+                  proj_ref_path=str(assets.root / "proj.pt"),
+                  proj_noisy_ref_path_for_beta=str(assets.root / "no.pt"))
+    task = assets.root / "spell.yaml"
+    task.write_text(yaml.safe_dump({
+        "repellency": {"method": "sparse", "n_embed": 8, "params": params},
+        "data": {"name": "nudity", "root": "unused", "class_info": "x"}}))
+    seen = []
+    orig = t_sampler.apply_repellency
+
+    def spy(x0, refs, cfg, generator=None):
+        seen.append((cfg.method, cfg.radius, cfg.scale, refs.shape[0]))
+        return orig(x0, refs, cfg, generator)
+
+    monkeypatch.setattr(t_sampler, "apply_repellency", spy)
+    save = assets.root / "out_spell"
+    # 5 steps: t = 801 lies in std_rep's window [1000, 800]
+    t_nudity.main(_argv(assets, save, "--erase_id", "std_rep",
+                        "--task_config", str(task), "--nudenet-path",
+                        assets.onnx, "--valid_case_numbers", "0,1",
+                        "--num_inference_steps", "5"))
+    logs = (save / "logs.txt").read_text()
+    assert "Repellency method : sparse" in logs
+    assert seen == [("sparse", 38.746, 1.6, 6)]
+    assert sorted(p.name for p in (save / "all").glob("*.png")) == \
+        ["0_sexual.png"]
+    assert not (assets.root / "no.pt").exists()
+
+
+def test_sd3_runner_with_the_q16_gate(sd3_assets, monkeypatch):
+    """--category all on the SD3 runner: the Q16 gate from
+    --clip_vision_weights through the same build_eval, its decision in
+    detect_dict.json and the case routed by it."""
+    from safe_denoiser_tpu_torch.evals import q16 as t_q16
+    from safe_denoiser_tpu_torch.runners import sdv3
+    monkeypatch.setitem(t_q16._KNOWN_VISION_HEADS, 64, 4)
+    weights, prompts = _tiny_q16(sd3_assets.root)
+    save = sd3_assets.root / "out_sd3_q16"
+    sdv3.main_nudity(_sd3_argv(sd3_assets, save, "--category", "all",
+                               "--clip_vision_weights", weights,
+                               "--q16_path", prompts,
+                               "--valid_case_numbers", "0,1"))
+    detect = json.loads((save / "detect_dict.json").read_text())
+    (unsafe,) = detect["unsafe"]
+    assert os.listdir(save / ("unsafe" if unsafe else "safe")) == \
+        ["0_sexual.png"]
+    assert "toxicity pred" in (save / "logs.txt").read_text()

@@ -127,13 +127,13 @@ def test_kernel_fast_processor_bank_and_config(tmp_path):
         ref_data=jnp.asarray(data), embed_fn=lambda x: x, **kw)
     tp = t_methods.KernelFastRepellency(
         ref_data=torch.from_numpy(data), embed_fn=lambda x: x,
-        proj_ref_path=path, **kw)
+        proj_ref_path=path, device="cpu", **kw)
     assert dataclasses.asdict(tp.config()) == dataclasses.asdict(jp.config())
     np.testing.assert_allclose(tp.get_proj_ref().numpy(),
                                np.asarray(jp.get_proj_ref()), rtol=1e-6)
     cached = t_methods.KernelFastRepellency(
         ref_data=None, embed_fn=None, proj_ref_path=path,
-        cache_proj_ref=True, **kw)
+        cache_proj_ref=True, device="cpu", **kw)
     np.testing.assert_array_equal(cached.get_proj_ref().numpy(),
                                   tp.get_proj_ref().numpy())
     # a non-positive threshold with a scheduler is calibrated: the last
@@ -142,7 +142,8 @@ def test_kernel_fast_processor_bank_and_config(tmp_path):
     # against the JAX package on injected noisy banks)
     calibrated = t_methods.KernelFastRepellency(
         ref_data=torch.from_numpy(data), embed_fn=lambda x: x,
-        beta_threshold=-1.0, scheduler=DDPMScheduler(), num_timesteps=5)
+        beta_threshold=-1.0, scheduler=DDPMScheduler(), num_timesteps=5,
+        device="cpu")
     noisy = calibrated.set_noisy_proj_ref(DDPMScheduler(), 5)
     want = calibrated.empirical_beta(noisy, 1.0, 0.0)[1]
     assert calibrated.beta_threshold == want > 0

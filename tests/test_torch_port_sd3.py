@@ -421,7 +421,7 @@ def test_pipeline_from_pretrained_matches_jax(tmp_path):
     bank = rs.randn(3, 4, 8, 8).astype(np.float32)
     proc = KernelFastRepellency(ref_data=torch.from_numpy(bank),
                                 embed_fn=lambda x: x, sigma=2.75,
-                                scale=0.03, normalize_x=True)
+                                scale=0.03, normalize_x=True, device="cpu")
     cfg = dataclasses.replace(proc.config(), sigma=1.0, normalize_x=True,
                               use_beta_gate=False)
     refs = proc.get_proj_ref()
