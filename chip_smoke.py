@@ -63,6 +63,20 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      x 50 steps, kernel_fast without the beta gate against a cached
      3000-row bank (B2 at M = 3000); the tower's embedding on cuda against
      the CPU's, and its time per image;
+  6g. COCO (BASELINE #2): ``runners.coco30k`` on phase 6's checkpoint with
+     the in-loop CLIPScore on a random full CLIP ViT-B/32 (an HF-named
+     sharded directory, the tiny vocab as its tokenizer): 4 CSV prompts x
+     50 steps at batch 1 with CFG 7.5, vanilla; the same 4 with
+     --batch_size 4 (``dispatch_batch``); 2 under configs/coco/
+     safe_denoiser.yaml's kernel_fast (beta calibrated on the GPU) against
+     a cached random [515,4,64,64] bank; output trees, CLIP lines, launches;
+  6h. offline evaluators on 6g's and 6f's outputs: ``runners.evaluate
+     coco30k_fid_clip --allow_random_init`` (FID, KID, log-KID against 8
+     random reference PNGs, then CLIPScore), ``runners.evaluate
+     copro_aes_clip`` (6f's ViT-L/14, a random AES MLP), the image-image
+     similarity on a random full OpenCLIP ViT-H-14 vision tower; no kernel
+     launched; the Inception on cuda against the CPU; each tower's time
+     per image and the host seconds of FID's 2048^2 sqrtm;
   6b. DDIM: the 10-step DDIM configuration (BASELINE.md #1) at full SD-v1.4
      width on phase 4's modules -- 4 prompts, 512x512, CFG 7.5, kernel_fast
      in [1000, 780] -- under bhsd, nt with the repacks and bshd; stage
@@ -91,7 +105,11 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      --int8 and SDT_INT8_ATTN=1 on an HF-layout checkpoint at the published
      widths (depth cut: MMDiT 6 of 24 blocks, T5 2 of 24, bigG 4 of 32), 16
      random 1024^2 bank PNGs, SAFREE on, 2 CSV prompts x 50 steps; its
-     output tree and launch counts.
+     output tree and launch counts;
+  8b. SD3 COCO: ``runners.sdv3 coco30k`` in bf16 on that checkpoint under
+     configs/coco/safe_denoiser_sdv3.yaml against a cached random
+     [16,16,128,128] bank, 2 CSV prompts x 50 steps at 1024^2; its output
+     tree and launch counts (B1 at SD3's shape, B2, the decode's kernels).
 The last line of standard output is the result, {"ok": true, "device": ...};
 the line before it lists the kernels as JSON.
 """
@@ -148,6 +166,13 @@ ARTIST_SAMPLES, ARTIST_BANK = 2, 16
 SPELL_CASES, SPELL_COPIES = 4, 8
 # 6f: the CoPro run's cases and its bank (BASELINE #4's 3k-image bank)
 COPRO_CASES, COPRO_BANK = 4, 3000
+# 6g: BASELINE #2's COCO cases (each coco_id is its case number, since the
+# offline CLIPScore keys an image by its file's stem), the batched run's
+# batch, the safe run's cases (against a bank of sd14-main's 515 rows)
+COCO_IDS = (391895, 522418, 184613, 318219)
+COCO_BATCH, COCO_SAFE_CASES = 4, 2
+# 6h: the reference images of FID/KID and the image-image similarity
+COCO_REFS = 8
 
 # SD3 (bench.py's sd3 legs: SD3-medium, 1 prompt with CFG, 1024^2, 50
 # flow-match steps, CFG 2.5, kernel_fast against a 16-latent bank)
@@ -156,6 +181,8 @@ SD3_STEPS, SD3_SIDE, SD3_BANK = 50, 1024, 16
 # the runner phase: its checkpoint's depth cuts, cases and bank
 SD3_RUNNER_LAYERS = {"mmdit": 6, "t5": 2, "clip_g": 4}
 SD3_RUNNER_CASES, SD3_RUNNER_N_EMBED = 2, 8
+# 8b: the SD3 COCO run's cases on the runner's checkpoint
+SD3_COCO_CASES = 2
 
 # B6's phase-3 shapes: the UNet's admitted GroupNorms with 32 groups (the
 # largest, a 1280-wide one, the 2560-wide one at S = 64) in bf16, then the
@@ -2167,16 +2194,17 @@ data:
 
 
 def runner_launches(pipe, cases: int, in_window: int, chunks: int = 0,
-                    n_embed: int = 0) -> dict:
+                    n_embed: int = 0, batch: int = 1) -> dict:
     """Each kernel's launches in a runner run under the default switches:
-    ``cases`` batch-1 cases of 50 steps at 512^2 (10 self-attentions with
-    S >= 512 a step, B3 a step, the UNet's GroupNorm kernels a step, one
-    decode each), B2 on ``in_window`` steps of each case, after a bank
-    encode in ``chunks`` chunks of ``n_embed`` 512^2 images."""
+    ``cases`` dispatches of ``batch`` rows, 50 steps at 512^2 (10
+    self-attentions with S >= 512 a step, B3 a step, the UNet's GroupNorm
+    kernels a step, one decode of the batch each), B2 on ``in_window``
+    steps of each, after a bank encode in ``chunks`` chunks of ``n_embed``
+    512^2 images."""
     want = dict.fromkeys(EXPECTED_LAUNCHES, 0)
     want["attention"] = 500 * cases
     want["rbf"] = in_window * cases
-    dec = vae_kernel_plan(pipe.vae.config, 1, 64, 64)[0]
+    dec = vae_kernel_plan(pipe.vae.config, batch, 64, 64)[0]
     enc = (vae_kernel_plan(pipe.vae.config, n_embed, 512, 512,
                            "encoder")[0] if chunks else {})
     for k in dec:
@@ -2565,6 +2593,390 @@ def phase_copro(pipe, assets: dict, profile: bool = False) -> dict:
     return {"copro runner": counts}
 
 
+def open_clip_state_dict(vision_sd: dict, text_sd: dict = None) -> dict:
+    """The port's HF-named CLIP tower state dicts (tensors) in OpenCLIP's
+    layout, as OpenCLIP checkpoints hold them: ``visual.*`` and the text
+    keys, q/k/v packed into ``in_proj``, the projections right-multiplied
+    ([width, out])."""
+    def layers(sd, src, dst, out):
+        i = 0
+        while f"{src}.{i}.layer_norm1.weight" in sd:
+            s, d = f"{src}.{i}", f"{dst}.{i}"
+            for part in ("weight", "bias"):
+                out[f"{d}.attn.in_proj_{part}"] = torch.cat(
+                    [sd[f"{s}.self_attn.{n}_proj.{part}"] for n in "qkv"])
+                for mine, theirs in (("layer_norm1", "ln_1"),
+                                     ("layer_norm2", "ln_2"),
+                                     ("self_attn.out_proj", "attn.out_proj"),
+                                     ("mlp.fc1", "mlp.c_fc"),
+                                     ("mlp.fc2", "mlp.c_proj")):
+                    out[f"{d}.{theirs}.{part}"] = sd[f"{s}.{mine}.{part}"]
+            i += 1
+
+    v = "vision_model."
+    out = {"visual.class_embedding": vision_sd[
+               f"{v}embeddings.class_embedding"],
+           "visual.positional_embedding": vision_sd[
+               f"{v}embeddings.position_embedding.weight"],
+           "visual.conv1.weight": vision_sd[
+               f"{v}embeddings.patch_embedding.weight"],
+           "visual.proj": vision_sd["visual_projection.weight"].T
+           .contiguous()}
+    for mine, theirs in (("pre_layrnorm", "ln_pre"),
+                         ("post_layernorm", "ln_post")):
+        for part in ("weight", "bias"):
+            out[f"visual.{theirs}.{part}"] = vision_sd[f"{v}{mine}.{part}"]
+    layers(vision_sd, f"{v}encoder.layers", "visual.transformer.resblocks",
+           out)
+    if text_sd is not None:
+        t = "text_model."
+        out.update({
+            "token_embedding.weight":
+                text_sd[f"{t}embeddings.token_embedding.weight"],
+            "positional_embedding":
+                text_sd[f"{t}embeddings.position_embedding.weight"],
+            "ln_final.weight": text_sd[f"{t}final_layer_norm.weight"],
+            "ln_final.bias": text_sd[f"{t}final_layer_norm.bias"],
+            "text_projection": text_sd["text_projection.weight"].T
+            .contiguous()})
+        layers(text_sd, f"{t}encoder.layers", "transformer.resblocks", out)
+    return out
+
+
+def write_clip_b32(root: str, vocab_src: str, seed: int) -> int:
+    """A random full CLIP ViT-B/32 (text 12 x 512, 8 heads; vision 12 x
+    768; projections 512) as an HF-named sharded checkpoint directory (text
+    and vision in two safetensors shards and their index) with the tiny
+    vocab as tokenizer/. Both towers' final LayerNorms share one bias
+    direction and the text projection is the vision one's first 512
+    columns, so image-text cosines sit above CLIPScore's clamp at 0.
+    Returns the parameter count."""
+    from safe_denoiser_tpu_torch.models import (CLIP_VISION_VIT_B_32,
+                                                CLIPTextModel,
+                                                CLIPVisionModel)
+    from safe_denoiser_tpu_torch.runners.coco30k import CLIP_TEXT_VIT_B_32
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        vision = init_small_(CLIPVisionModel(CLIP_VISION_VIT_B_32), gen)
+        text = init_small_(CLIPTextModel(CLIP_TEXT_VIT_B_32,
+                                         with_projection=True), gen)
+    dt, dv = CLIP_TEXT_VIT_B_32.hidden_size, CLIP_VISION_VIT_B_32.hidden_size
+    with torch.no_grad():
+        vision.vision_model.embeddings.class_embedding.normal_(
+            0.0, 0.02, generator=gen)
+        shared = torch.randn(dt, device="cuda", generator=gen)
+        post, final = (vision.vision_model.post_layernorm,
+                       text.text_model.final_layer_norm)
+        post.weight.fill_(0.5)
+        final.weight.fill_(0.5)
+        post.bias.copy_(torch.cat([shared,
+                                   torch.zeros(dv - dt, device="cuda")]))
+        final.bias.copy_(shared)
+        text.text_projection.weight.copy_(
+            vision.visual_projection.weight[:, :dt])
+    os.makedirs(root)
+    shards = {"model-00001-of-00002.safetensors": text.state_dict(),
+              "model-00002-of-00002.safetensors": vision.state_dict()}
+    for name, sd in shards.items():
+        write_safetensors(os.path.join(root, name), sd)
+    with open(os.path.join(root, "model.safetensors.index.json"), "w") as f:
+        json.dump({"weight_map": {k: name for name, sd in shards.items()
+                                  for k in sd}}, f)
+    copy_vocab(vocab_src, os.path.join(root, "tokenizer"))
+    return sum(p.numel() for m in (vision, text) for p in m.parameters())
+
+
+def phase_coco(pipe, assets: dict) -> tuple:
+    """6g: BASELINE #2, ``runners.coco30k`` at full SD-v1.4 width on the
+    checkpoint of ``assets``, with the in-loop CLIPScore on a random full
+    CLIP ViT-B/32 (``write_clip_b32``):
+
+    - vanilla (no task config): the COCO_IDS cases x 50 DDPM steps at
+      batch 1 with CFG 7.5, 512^2 (``pipe.dispatch``);
+    - the same cases with ``--batch_size`` COCO_BATCH, one
+      ``dispatch_batch`` with each row's seed;
+    - configs/coco/safe_denoiser.yaml's kernel_fast (sigma 3.15, scale
+      0.33, beta margin 1.6 calibrated on the GPU from a cached random
+      [515,4,64,64] bank), ``--erase_id std_rep``, COCO_SAFE_CASES cases:
+      B2 on the 10 in-window steps of each.
+
+    Checks each output tree (all/<case>.png; logs.txt with one CLIP line
+    a case, finite, and their mean; config.yaml in per-case mode only)
+    and every kernel's launches. Returns (the runs' launch counts, what
+    6h reads: the CLIP directory, the CSV, the vanilla run's all/)."""
+    import re
+
+    from safe_denoiser_tpu_torch.data.images import read_png
+    from safe_denoiser_tpu_torch.runners import coco30k
+    from safe_denoiser_tpu_torch.utils.config import load_yaml
+
+    tmp, ckpt = assets["tmp"], assets["ckpt"]
+    t0 = time.perf_counter()
+    clip_dir = os.path.join(tmp, "clip_vit_b_32")
+    n_params = write_clip_b32(clip_dir, os.path.join(tmp, "vocab"), seed=10)
+    csv_path = os.path.join(tmp, "coco.csv")
+    with open(csv_path, "w") as f:
+        f.write("coco_id,prompt,evaluation_seed,case_number\n")
+        for i, (cid, p) in enumerate(zip(COCO_IDS, PROMPTS)):
+            f.write(f"{cid},{p},{300 + i},{cid}\n")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    refs = torch.randn(515, 4, 64, 64, device="cuda", generator=g)
+    proj = os.path.join(tmp, "coco_proj.pt")
+    torch.save((refs / refs.norm(dim=1, keepdim=True)).cpu(), proj)
+    del refs
+    yaml_path = os.path.join(tmp, "coco.yaml")
+    _task_yaml(yaml_path, "coco/safe_denoiser.yaml",
+               {"proj_ref_path": proj, "proj_noisy_ref_path_for_beta":
+                os.path.join(tmp, "coco_noisy.pt")},
+               {"root": os.path.join(tmp, "unused")})
+    print(f"coco: CLIP ViT-B/32 of {n_params} parameters (sharded, "
+          f"HF names), CSV and [515,4,64,64] bank written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    n, n_safe = len(COCO_IDS), COCO_SAFE_CASES
+    runs = (("coco per case", [], n,
+             runner_launches(pipe, n, 0)),
+            ("coco batched", ["--batch_size", str(COCO_BATCH)], n,
+             runner_launches(pipe, n // COCO_BATCH, 0, batch=COCO_BATCH)),
+            ("coco safe", ["--task_config", yaml_path, "--erase_id",
+                           "std_rep", "--valid_case_numbers", f"0,{n_safe}"],
+             n_safe, runner_launches(pipe, n_safe, 10)))
+    counts_out, outs = {}, {}
+    for name, extra, cases, want in runs:
+        out = os.path.join(tmp, "out_" + name.replace(" ", "_"))
+        wall, counts, log = _run_quiet(coco30k.main, [
+            "--data", csv_path, "--save-dir", out, "--model_dir", ckpt,
+            "--clip_weights_dir", clip_dir, "--num_inference_steps", "50",
+            "--device", "cuda", *extra])
+        logs = open(os.path.join(out, "logs.txt")).read()
+        scores = [float(v) for v in re.findall(
+            r"CLIP score \(Case#: \d+\): (\S+)", logs)]
+        mean = re.findall(r"mean CLIP score: (\S+) over (\d+) images", logs)
+        walls = [float(v) for v in re.findall(
+            r"Wall-Clock Time for (?:image generation \(Case#: \d+\)|batch "
+            r"of \d+): ([0-9.]+) seconds", logs)]
+        names = sorted(os.listdir(os.path.join(out, "all")))
+        print(f"{name}: {cases} cases x 50 steps at 512^2: wall_s="
+              f"{wall:.3f} walls_s={walls} clip_scores={scores} "
+              f"mean={mean}")
+        problems = []
+        if names != sorted(f"{c}.png" for c in COCO_IDS[:cases]):
+            problems.append(f"all/ holds {names}")
+        if (len(scores) != cases or not all(map(math.isfinite, scores))
+                or [n for _, n in mean] != [str(cases)]
+                or not math.isfinite(float(mean[0][0]))):
+            problems.append("CLIP score lines")
+        per_case = name != "coco batched"
+        if os.path.exists(os.path.join(out, "config.yaml")) != per_case:
+            problems.append("config.yaml (per-case mode only)")
+        if len(walls) != (cases if per_case else cases // COCO_BATCH):
+            problems.append("wall-clock lines")
+        if name == "coco safe" and (
+                "Repellency method : kernel_fast" not in logs
+                or load_yaml(os.path.join(out, "config.yaml"))[
+                    "repellency"]["params"]["beta_threshold_margin"] != 1.6):
+            problems.append("the safe run's repellency")
+        img = read_png(os.path.join(out, "all", names[0])) if names else None
+        if img is None or img.shape != (512, 512, 3):
+            problems.append("image")
+        if problems:
+            print(log[-4000:])
+            fail(f"{name}: " + "; ".join(problems))
+        check_launches(counts, want, name)
+        counts_out[name] = counts
+        outs[name] = out
+    info = {"clip_dir": clip_dir, "csv": csv_path,
+            "samples": os.path.join(outs["coco per case"], "all")}
+    return counts_out, info
+
+
+def phase_offline_eval(assets: dict, coco: dict) -> None:
+    """6h: the offline evaluators on the card over 6g's and 6f's outputs,
+    f32 without TF32 (each tower's switch), with no port kernel launched:
+
+    - ``runners.evaluate coco30k_fid_clip --allow_random_init`` on 6g's
+      vanilla all/ against COCO_REFS random 512^2 reference PNGs: FID, KID
+      and log-KID (the 2048^2 sqrtm on the host, timed), then CLIPScore
+      with 6g's ViT-B/32 directory;
+    - ``runners.evaluate copro_aes_clip`` on 6f's all/ with 6f's ViT-L/14
+      file and a random AES MLP .pth, CLIPScore by CoPro's columns;
+    - ``evaluate_image_similarity`` with a random full OpenCLIP ViT-H-14
+      vision tower (32 x 1280, an OpenCLIP-named safetensors file, written
+      and read once) between 6g's all/ and the references of their ids;
+    - the Inception's (pool3, logits) on cuda against the CPU's within
+      1e-4 of the largest magnitude.
+
+    Prints each tower's time per image on the card."""
+    import numpy as np
+
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.data.images import write_png
+    from safe_denoiser_tpu_torch.device import ieee_f32
+    from safe_denoiser_tpu_torch.evals import offline
+    from safe_denoiser_tpu_torch.models import (CLIP_VISION_VIT_H_14,
+                                                CLIP_VISION_VIT_L_14,
+                                                CLIPVisionModel,
+                                                preprocess_clip)
+    from safe_denoiser_tpu_torch.runners import evaluate
+    from safe_denoiser_tpu_torch.runners.coco30k import InLoopClipScore
+    from safe_denoiser_tpu_torch.utils.config import load_yaml
+
+    tmp = assets["tmp"]
+    t0 = time.perf_counter()
+    refs = os.path.join(tmp, "coco_refs")
+    os.makedirs(refs)
+    rs = np.random.RandomState(12)
+    ref_ids = list(COCO_IDS) + [100 + i for i in range(COCO_REFS
+                                                        - len(COCO_IDS))]
+    for cid in ref_ids:
+        write_png(rs.randint(0, 256, (512, 512, 3), dtype=np.uint8),
+                  os.path.join(refs, f"{cid}.png"))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    aes = torch.nn.Sequential(
+        torch.nn.Linear(768, 1024), torch.nn.Dropout(0.2),
+        torch.nn.Linear(1024, 128), torch.nn.Dropout(0.2),
+        torch.nn.Linear(128, 64), torch.nn.Dropout(0.1),
+        torch.nn.Linear(64, 16), torch.nn.Linear(16, 1)).cuda()
+    init_small_(aes, gen, std=0.05)
+    aes_path = os.path.join(tmp, "aes.pth")
+    torch.save({f"layers.{k}": v.cpu() for k, v in aes.state_dict().items()},
+               aes_path)
+    with torch.device("cuda"):
+        h14 = CLIPVisionModel(CLIP_VISION_VIT_H_14).eval()
+    init_small_(h14, gen)
+    px = torch.rand(1, 3, 224, 224, device="cuda", generator=gen)
+    with torch.no_grad():
+        h14.vision_model.embeddings.class_embedding.normal_(0.0, 0.02,
+                                                            generator=gen)
+        with ieee_f32():    # timed here: the file is written and read once
+            tower_ms = {"H/14": device_ms(lambda: h14(px))}
+    n_h14 = sum(p.numel() for p in h14.parameters())
+    h14_path = os.path.join(tmp, "open_clip_vit_h_14.safetensors")
+    write_safetensors(h14_path, open_clip_state_dict(h14.state_dict()))
+    del h14
+    torch.cuda.empty_cache()
+    print(f"offline eval: {COCO_REFS} reference PNGs, AES MLP and OpenCLIP "
+          f"ViT-H-14 vision tower ({n_h14} parameters) written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    sqrtm_s = []
+    frechet = offline.frechet_distance
+
+    def timed_frechet(*a, **k):
+        t = time.perf_counter()
+        try:
+            return frechet(*a, **k)
+        finally:
+            sqrtm_s.append(time.perf_counter() - t)
+
+    samples = coco["samples"]
+    ops.reset_launch_counts()
+    offline.frechet_distance = timed_frechet
+    t0 = time.perf_counter()
+    try:
+        evaluate.main(["coco30k_fid_clip", "--sample_dir", samples,
+                       "--dataset_root", refs, "--allow_random_init",
+                       "--prompts_csv", coco["csv"], "--clip_weights_dir",
+                       coco["clip_dir"], "--device", "cuda"])
+    finally:
+        offline.frechet_distance = frechet
+    wall_fid = time.perf_counter() - t0
+    parent = os.path.dirname(samples)
+    fid = load_yaml(os.path.join(parent, "metrics_org_coco30k_10k.yaml"))
+    clip = load_yaml(os.path.join(parent, "metrics_clip_score.yaml"))
+    print(f"offline coco30k_fid_clip: {fid} {clip} wall_s={wall_fid:.3f} "
+          f"frechet_distance host_s={[round(v, 3) for v in sqrtm_s]} "
+          "(sqrtm of a 2048^2 product)")
+    if not (set(fid) == {"fid", "kid", "log_kid"}
+            and all(math.isfinite(v) for v in fid.values())
+            and clip["n"] == len(COCO_IDS) and math.isfinite(
+                clip["clip_score"])):
+        fail("offline coco30k_fid_clip: metrics files")
+
+    copro_all = os.path.join(tmp, "out_copro", "all")
+    t0 = time.perf_counter()
+    evaluate.main(["copro_aes_clip", "--sample_dir", copro_all,
+                   "--prompts_csv", os.path.join(tmp, "copro.csv"),
+                   "--aes_weights", aes_path, "--clip_vision_weights",
+                   os.path.join(tmp, "clip_vit_l_14.safetensors"),
+                   "--clip_weights_dir", coco["clip_dir"],
+                   "--device", "cuda"])
+    wall_aes = time.perf_counter() - t0
+    parent = os.path.dirname(copro_all)
+    aes_res = load_yaml(os.path.join(parent, "metrics_aes.yaml"))
+    clip = load_yaml(os.path.join(parent, "metrics_clip_score.yaml"))
+    print(f"offline copro_aes_clip: {aes_res} {clip} wall_s={wall_aes:.3f}")
+    if not (aes_res["n"] == COPRO_CASES and math.isfinite(aes_res["aes_score"])
+            and clip["n"] == COPRO_CASES
+            and math.isfinite(clip["clip_score"])):
+        fail("offline copro_aes_clip: metrics files")
+
+    t0 = time.perf_counter()
+    sim = offline.evaluate_image_similarity(samples, refs, h14_path,
+                                            device="cuda")
+    wall_sim = time.perf_counter() - t0
+    print(f"offline image similarity, OpenCLIP ViT-H-14: {sim} "
+          f"wall_s={wall_sim:.3f} (file read included)")
+    if sim["n"] != len(COCO_IDS) or not math.isfinite(
+            sim["image_clip_similarity"]):
+        fail("offline image similarity: metrics")
+    check_launches(ops.launch_counts(),
+                   dict.fromkeys(EXPECTED_LAUNCHES, 0), "offline evaluators")
+
+    # the towers' time per image on the card: Inception at batch 32 (device
+    # time of the forward), the ViTs at batch 1 as the evaluators run them
+    # (device time of the forward; the in-loop score also paced, with its
+    # preprocessing and tokenization)
+    x = torch.rand(32, 299, 299, 3, device="cuda", generator=gen)
+    feats = offline.InceptionFeatures(allow_random_init=True, device="cuda")
+    with torch.no_grad(), ieee_f32():
+        inc_ms = device_ms(lambda: feats.model(x), reps=5) / 32
+    got = feats.features(x[:2].cpu().numpy())
+    del feats
+    want = offline.InceptionFeatures(allow_random_init=True,
+                                     device="cpu").features(
+        x[:2].cpu().numpy())
+    errs = [((a.cpu() - b).abs().max().item(), b.abs().max().item())
+            for a, b in zip(got, want)]
+    print(f"inception: {inc_ms:.4f} ms an image (device, batch 32, f32); "
+          f"cuda vs cpu pool3 max|d|={errs[0][0]:.3e} (max {errs[0][1]:.3e})"
+          f", logits max|d|={errs[1][0]:.3e} (max {errs[1][1]:.3e}), "
+          f"tol 1e-4 x max")
+    if not all(e <= 1e-4 * m and math.isfinite(m) and m > 0
+               for e, m in errs):
+        fail("inception: the GPU's features disagree with the CPU's")
+
+    scorer = InLoopClipScore(coco["clip_dir"], device="cuda")
+    img = rs.randint(0, 256, (512, 512, 3), dtype=np.uint8)
+    b32_paced = cuda_ms(lambda: scorer(img, PROMPTS[0]), reps=20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        scorer.tokenizer([PROMPTS[0]])
+    tok_ms = (time.perf_counter() - t0) * 50
+    ids = torch.as_tensor(scorer.tokenizer([PROMPTS[0]])["input_ids"],
+                          device="cuda")
+    pre_ms = cuda_ms(lambda: preprocess_clip(torch.as_tensor(
+        img[None], device="cuda")), reps=20)
+    with torch.no_grad(), ieee_f32():
+        towers_paced = cuda_ms(lambda: (scorer.vision_model(px),
+                                        scorer.text_model(ids)), reps=20)
+        tower_ms["B/32 vision + text"] = device_ms(
+            lambda: (scorer.vision_model(px), scorer.text_model(ids)))
+        del scorer
+        with torch.device("cuda"):
+            l14 = CLIPVisionModel(CLIP_VISION_VIT_L_14).eval()
+        tower_ms["L/14"] = device_ms(lambda: l14(px))
+        del l14
+        torch.cuda.empty_cache()
+    print(f"clip towers, ms an image on the card (device, batch 1, f32): "
+          f"{json.dumps({k: round(v, 4) for k, v in tower_ms.items()})}; "
+          f"in-loop B/32 score paced {b32_paced:.4f} ms (512^2 image, "
+          f"preprocessing and tokenization included): tokenizer "
+          f"{tok_ms:.4f} ms host, preprocessing {pre_ms:.4f} ms paced, "
+          f"both towers {towers_paced:.4f} ms paced")
+
+
 def init_small_(module, gen: torch.Generator, std: float = 0.02):
     """Every parameter of two or more dims ~ N(0, std^2), drawn from
     ``gen``: random towers kept as small as bench.py's SD3 set-up keeps its
@@ -2815,12 +3227,13 @@ def phase_sd3(profile: bool = False) -> dict:
     return counts
 
 
-def phase_sd3_runner() -> None:
+def phase_sd3_runner() -> dict:
     """The SD3 runner on cuda with --int8 and SDT_INT8_ATTN=1 on an
     HF-layout checkpoint at the published widths with the depth cut of
     SD3_RUNNER_LAYERS: 16 bank PNGs VAE-encoded in chunks, SAFREE on, 2
     cases of 50 steps, the NudeNet-shaped gate. Checks the output tree and
-    every kernel's launch count."""
+    every kernel's launch count; then 8b (``phase_sd3_coco``) on the same
+    checkpoint, whose launch counts it returns."""
     import contextlib
     import dataclasses
     import io
@@ -2855,6 +3268,13 @@ def phase_sd3_runner() -> None:
                                      RepellencyWindow(1000.0, 780.0),
                                      cut["mmdit"], True)
         want = {k: v * SD3_RUNNER_CASES for k, v in want.items()}
+        want_coco = sd3_expected_launches(pipe, SD3_STEPS,
+                                          RepellencyWindow(1000.0, 780.0),
+                                          cut["mmdit"], False)
+        want_coco = {k: v * SD3_COCO_CASES for k, v in want_coco.items()}
+        coco_bank = (SD3_BANK, pipe.transformer.config.in_channels,
+                     SD3_SIDE // pipe.vae_scale_factor,
+                     SD3_SIDE // pipe.vae_scale_factor)
         enc = vae_kernel_plan(pipe.vae.config, SD3_RUNNER_N_EMBED, SD3_SIDE,
                               SD3_SIDE, "encoder")[0]
         for k, v in enc.items():
@@ -2950,6 +3370,76 @@ data:
         if problems:
             print(log.getvalue()[-4000:])
             fail("sd3 runner phase: " + "; ".join(problems))
+        return phase_sd3_coco(tmp, ckpt, want_coco, coco_bank)
+
+
+def phase_sd3_coco(tmp: str, ckpt: str, want: dict, bank: tuple) -> dict:
+    """8b: ``runners.sdv3 coco30k`` in bf16 (B1 at SD3's joint-attention
+    shape, not B8) on phase 8's checkpoint under
+    configs/coco/safe_denoiser_sdv3.yaml (kernel_fast renoising, no beta
+    gate) against a cached random bank of shape ``bank`` ([16,16,128,128]):
+    SD3_COCO_CASES CSV cases x 50 steps at 1024^2, SAFREE on. Checks the
+    output tree (all/<case>.png, logs.txt, config.yaml without the task
+    config, no gate files) and the launches ``want``; returns them."""
+    import re
+
+    from safe_denoiser_tpu_torch.data.images import read_png
+    from safe_denoiser_tpu_torch.runners.sdv3 import main_coco30k
+    from safe_denoiser_tpu_torch.utils.config import load_yaml
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    refs = torch.randn(*bank, device="cuda", generator=g)
+    proj = os.path.join(tmp, "coco_sd3_proj.pt")
+    torch.save((refs / refs.norm(dim=1, keepdim=True)).cpu(), proj)
+    del refs
+    yaml_path = os.path.join(tmp, "coco_sd3.yaml")
+    _task_yaml(yaml_path, "coco/safe_denoiser_sdv3.yaml",
+               {"proj_ref_path": proj}, {"root": os.path.join(tmp, "unused")})
+    csv_path = os.path.join(tmp, "coco_sd3.csv")
+    ids = COCO_IDS[:SD3_COCO_CASES]
+    with open(csv_path, "w") as f:
+        f.write("coco_id,prompt,evaluation_seed,case_number\n")
+        for i, (cid, p) in enumerate(zip(ids, PROMPTS)):
+            f.write(f"{cid},{p},{400 + i},{cid}\n")
+    out = os.path.join(tmp, "out_coco")
+    wall, counts, log = _run_quiet(main_coco30k, [
+        "--data", csv_path, "--save-dir", out, "--model_dir", ckpt,
+        "--task_config", yaml_path, "--num_inference_steps", str(SD3_STEPS),
+        "--image_length", str(SD3_SIDE), "--device", "cuda"])
+    logs = open(os.path.join(out, "logs.txt")).read()
+    per_case = [float(v) for v in re.findall(
+        r"Wall-Clock Time for image generation \(Case#: \d+\): "
+        r"([0-9.]+) seconds", logs)]
+    names = sorted(os.listdir(os.path.join(out, "all")))
+    print(f"sd3 coco: {SD3_COCO_CASES} cases x {SD3_STEPS} steps at "
+          f"{SD3_SIDE}^2, bf16, SAFREE, kernel_fast against a cached "
+          f"{list(bank)} bank: wall_s={wall:.3f} "
+          f"per_case_s={per_case} applied_lines="
+          f"{logs.count('Repellency applied')}")
+    problems = []
+    if names != sorted(f"{c}.png" for c in ids):
+        problems.append(f"all/ holds {names}")
+    if len(per_case) != SD3_COCO_CASES:
+        problems.append("wall-clock lines")
+    for line in ("Repellency method : kernel_fast", "we remove",
+                 "Repellency applied at timestep"):
+        if line not in logs:
+            problems.append(f"logs.txt lacks {line!r}")
+    cfg_path = os.path.join(out, "config.yaml")
+    if not os.path.exists(cfg_path) or "repellency" in load_yaml(cfg_path):
+        problems.append("config.yaml (the flags alone)")
+    if (os.path.exists(os.path.join(out, "detect_dict.json"))
+            or os.listdir(os.path.join(out, "safe"))
+            or os.listdir(os.path.join(out, "unsafe"))):
+        problems.append("gate outputs in a COCO run")
+    if read_png(os.path.join(out, "all", names[0])).shape != \
+            (SD3_SIDE, SD3_SIDE, 3):
+        problems.append("image")
+    if problems:
+        print(log[-4000:])
+        fail("sd3 coco: " + "; ".join(problems))
+    check_launches(counts, want, "sd3 coco")
+    return {"sd3 coco": counts}
 
 
 def profile_call(fn, label: str) -> None:
@@ -3036,6 +3526,9 @@ def main() -> None:
         phase_runner(pipe, assets)
         runner_counts = phase_artist_sparse(pipe, assets, args.profile)
         runner_counts.update(phase_copro(pipe, assets, args.profile))
+        coco_counts, coco = phase_coco(pipe, assets)
+        runner_counts.update(coco_counts)
+        phase_offline_eval(assets, coco)
     ddim_counts = phase_ddim(pipe, kw)
     erasure_counts = phase_erasure(pipe, kw)
     if args.profile:
@@ -3043,11 +3536,11 @@ def main() -> None:
     del pipe, kw
     torch.cuda.empty_cache()
     sd3_counts = phase_sd3(args.profile)
-    phase_sd3_runner()
-    # launches over the main paths: sd14-main, the artist, SPELL and CoPro
-    # runner runs (6e, 6f), the four DDIM runs (6b, 6c), the three erasure
-    # runs (6d), the three SD3 runs and the SD3 decode under
-    # SDT_UP_FORM=interleave
+    sd3_counts.update(phase_sd3_runner())
+    # launches over the main paths: sd14-main, the artist, SPELL, CoPro and
+    # three COCO runner runs (6e, 6f, 6g), the four DDIM runs (6b, 6c), the
+    # three erasure runs (6d), the three SD3 runs, the SD3 decode under
+    # SDT_UP_FORM=interleave and the SD3 COCO run (8b)
     runs = [counts, *runner_counts.values(), *ddim_counts.values(),
             *erasure_counts.values(), *sd3_counts.values()]
     total = {name: sum(c[name] for c in runs) for name in counts}

@@ -4,9 +4,10 @@ Runs the SD-v1.4 safe-denoiser generation path (CLIP tokenize + encode, a
 DDPM UNet loop with CFG and ``kernel_fast`` repellency, VAE decode) and
 the SD3-medium one (CLIP-L + CLIP-bigG + T5-XXL encode, SAFREE, a
 flow-match MMDiT loop with the renoising repellency, VAE decode), with
-optional W8A8 int8, all six repellency methods, and the nudity, artist
-and CoPro runners with their NudeNet and Q16 gates, on one NVIDIA Hopper
-GPU.
+optional W8A8 int8, all six repellency methods, the nudity, artist, CoPro
+and COCO-30k runners with their NudeNet and Q16 gates and the in-loop
+CLIPScore, and the offline FID/KID/IS/CLIPScore/AES evaluators, on one
+NVIDIA Hopper GPU.
 Module paths mirror the JAX package so each counterpart is easy to find;
 the JAX package stays the numerical reference.
 

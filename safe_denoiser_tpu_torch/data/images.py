@@ -1,5 +1,5 @@
-"""Negative-image banks, with a PNG codec and PIL's BILINEAR resize in
-numpy.
+"""Negative-image banks, with a PNG codec and PIL's BILINEAR and BICUBIC
+resizes in numpy.
 
 Counterpart of ``safe_denoiser_tpu/data/images.py``: the dataset registry
 (nudity / inappropriate / artists), the sorted png+jpg glob under
@@ -10,10 +10,11 @@ so:
 - PNG is decoded with ``zlib`` (8-bit gray, gray+alpha, RGB, RGBA and
   palette images, filters 0-4, not interlaced) and converted to RGB as
   PIL's ``convert("RGB")`` does (alpha dropped, gray repeated);
-- the resize reproduces ``Image.resize(..., Image.BILINEAR)`` exactly:
-  a triangle filter whose support widens with the scale factor when
-  shrinking, fixed-point coefficients of 22 bits, a horizontal pass then a
-  vertical one, each rounded to uint8;
+- the resizes reproduce ``Image.resize(..., Image.BILINEAR)`` and
+  ``Image.BICUBIC`` exactly: a triangle or cubic (a = -0.5) filter whose
+  support widens with the scale factor when shrinking, fixed-point
+  coefficients of 22 bits, a horizontal pass then a vertical one, each
+  rounded and clipped to uint8;
 - a JPEG is decoded through PIL where PIL can be imported (as the JAX
   package reads it); without PIL it raises: decode the bank elsewhere, or
   give the run its projected bank as a ``.pt`` cache (``cache_proj_ref``).
@@ -151,24 +152,42 @@ def read_png(path: str) -> np.ndarray:
 _PRECISION_BITS = 32 - 8 - 2          # Pillow's Resample.c
 
 
-def _bilinear_coeffs(in_size: int, out_size: int) -> np.ndarray:
-    """[out, in] fixed-point weights of Pillow's BILINEAR (support 1,
-    widened by the scale factor when shrinking)."""
+def _bilinear(x: float) -> float:
+    return max(0.0, 1.0 - abs(x))
+
+
+def _bicubic(x: float) -> float:
+    """Pillow's cubic convolution kernel, a = -0.5."""
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+def _coeffs(in_size: int, out_size: int, kernel, support: float
+            ) -> np.ndarray:
+    """[out, in] fixed-point weights of Pillow's resampling filter
+    ``kernel`` (Resample.c's ``precompute_coeffs``): its support widened
+    by the scale factor when shrinking, each row normalized to sum 1, then
+    rounded half away from zero to ``_PRECISION_BITS`` bits."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = support * filterscale
     ss = 1.0 / filterscale
     k = np.zeros((out_size, in_size), np.float64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        ws = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) * ss))
-              for x in range(xmax)]
+        ws = [kernel((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         total = sum(ws)
         for x, wv in enumerate(ws):
             wv = wv / total if total != 0.0 else wv
-            k[xx, xmin + x] = math.floor(0.5 + wv * (1 << _PRECISION_BITS))
+            k[xx, xmin + x] = int(wv * (1 << _PRECISION_BITS)
+                                  + (0.5 if wv >= 0 else -0.5))
     return k
 
 
@@ -182,19 +201,31 @@ def _resample_pass(img: np.ndarray, coeffs: np.ndarray, axis: int
     return np.moveaxis(out.astype(np.uint8), -1, axis)
 
 
-def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """uint8 [H, W, C] -> [size[1], size[0], C], equal to PIL's
-    ``Image.resize(size, Image.BILINEAR)`` (size is (width, height))."""
+def _resize(img: np.ndarray, size: tuple[int, int], kernel,
+            support: float) -> np.ndarray:
     w_out, h_out = size
     h, w = img.shape[:2]
     if (w_out, h_out) == (w, h):
         return img.copy()
     out = img
     if w_out != w:
-        out = _resample_pass(out, _bilinear_coeffs(w, w_out), 1)
+        out = _resample_pass(out, _coeffs(w, w_out, kernel, support), 1)
     if h_out != h:
-        out = _resample_pass(out, _bilinear_coeffs(h, h_out), 0)
+        out = _resample_pass(out, _coeffs(h, h_out, kernel, support), 0)
     return out
+
+
+def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """uint8 [H, W, C] -> [size[1], size[0], C], equal to PIL's
+    ``Image.resize(size, Image.BILINEAR)`` (size is (width, height))."""
+    return _resize(img, size, _bilinear, 1.0)
+
+
+def resize_bicubic(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """uint8 [H, W, C] -> [size[1], size[0], C], equal to PIL's
+    ``Image.resize(size, Image.BICUBIC)``: support 2, clipped to uint8
+    after each pass (the OpenCLIP preprocess's resize)."""
+    return _resize(img, size, _bicubic, 2.0)
 
 
 def resize_nearest(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:

@@ -15,7 +15,8 @@ reads a CSV with ``pandas.read_csv`` and sniffs each row of
   column is numeric (float when any column is), else each column's own.
 
 So a float seed (a seed column with a gap) makes its row skip, as a NaN
-prompt does.
+prompt does. ``load_hf_coco_dataset`` gives the COCO runner's local
+Recap-COCO-30K copy the same table form.
 """
 
 from __future__ import annotations
@@ -132,6 +133,67 @@ def read_csv(path: str) -> PromptTable:
     rows = [{col: typed[j][i] for j, col in enumerate(columns)}
             for i in range(len(body))]
     return PromptTable(columns, rows, list(range(len(body))))
+
+
+def load_hf_coco_dataset(path: str, limit: int = 10000) -> PromptTable:
+    """The COCO runner's local Recap-COCO-30K copy (the JAX package's
+    ``load_hf_coco_dataset``; the reference loads
+    ``UCSC-VLAA/Recap-COCO-30K`` from the hub and selects its first 10000
+    rows): ``path`` is a ``datasets.save_to_disk`` directory, a parquet
+    file or a directory of parquet shards. Its first ``limit`` rows come
+    back with the HF schema (``caption``/``recaption``/``image_id``;
+    ``image`` dropped), so ``iter_prompt_cases``' recaption branch applies.
+    Missing cells read as pandas' ``to_pandas`` gives them to the sniffing
+    rules: an int column with a gap becomes float with NaN there, other
+    gaps NaN. Needs the ``datasets`` package."""
+    import glob
+    import os
+
+    try:
+        import datasets
+    except ImportError:
+        raise ImportError("load_hf_coco_dataset needs the 'datasets' "
+                          "package; without it, export the prompts to a "
+                          "CSV and pass --data") from None
+
+    if os.path.isdir(path) and (
+            os.path.exists(os.path.join(path, "dataset_info.json"))
+            or os.path.exists(os.path.join(path, "dataset_dict.json"))):
+        ds = datasets.load_from_disk(path)
+        if isinstance(ds, datasets.DatasetDict):
+            if "train" in ds:
+                ds = ds["train"]
+            elif len(ds) == 1:
+                ds = next(iter(ds.values()))
+            else:
+                raise ValueError(
+                    f"{path} holds splits {sorted(ds.keys())} and none is "
+                    "'train' — save the split you want with save_to_disk, "
+                    "or point at its subdirectory")
+    else:
+        files = ([path] if path.endswith(".parquet")
+                 else sorted(glob.glob(os.path.join(path, "*.parquet"))))
+        if not files:
+            raise FileNotFoundError(
+                f"{path} is neither a datasets.save_to_disk dir nor a "
+                "parquet file/dir")
+        ds = datasets.load_dataset("parquet", data_files=files,
+                                   split="train")
+    ds = ds.select(range(min(limit, len(ds))))
+    if "image" in ds.column_names:
+        ds = ds.remove_columns(["image"])
+    columns = list(ds.column_names)
+    typed = []
+    for col in columns:
+        cells = ds[col]
+        present = [v for v in cells if v is not None]
+        if (len(present) < len(cells) and present
+                and all(type(v) is int for v in present)):
+            cells = [math.nan if v is None else float(v) for v in cells]
+        typed.append([math.nan if v is None else v for v in cells])
+    rows = [{col: typed[j][i] for j, col in enumerate(columns)}
+            for i in range(len(ds))]
+    return PromptTable(columns, rows, list(range(len(ds))))
 
 
 def iter_prompt_cases(dataset: PromptTable,

@@ -7,6 +7,8 @@ carry-on.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -24,3 +26,17 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
     return device
+
+
+@contextlib.contextmanager
+def ieee_f32():
+    """f32 convolutions and matrix products without TF32 inside the block
+    (cuDNN's switch defaults to TF32 on), as the JAX package's evaluators
+    compute; both switches are restored on exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

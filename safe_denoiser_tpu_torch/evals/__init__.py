@@ -1,2 +1,3 @@
-"""Online safety gates of the runners (NudeNet, Q16) and the CLIP-based
-evaluators."""
+"""Online safety gates of the runners (NudeNet, Q16), the CLIP-based
+evaluators, and the offline metrics (FID/KID/IS on the FID InceptionV3,
+CLIPScore, image similarity, style, AES)."""

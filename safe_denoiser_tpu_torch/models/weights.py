@@ -220,3 +220,99 @@ def t5_state_dict(sd: dict) -> dict:
     if "shared.weight" not in sd and tied is not None:
         sd["shared.weight"] = tied
     return sd
+
+
+def clip_text_state_dict(sd: dict, projection_dim: int) -> dict:
+    """An HF CLIP text state dict (``CLIPTextModel[WithProjection]``, with
+    or without the ``text_model.`` prefix; other towers' keys beside a
+    prefixed one are dropped) in the key set of ``CLIPTextModel(...,
+    with_projection=True)``: the ``position_ids`` buffer dropped, and an
+    identity ``text_projection`` of ``projection_dim`` rows where the file
+    has no projection head (as the JAX package's converter)."""
+    ours = ("text_model.", "text_projection.")
+    prefixed = any(k.startswith("text_model.") for k in sd)
+    out = {}
+    for k, v in sd.items():
+        if prefixed and not k.startswith(ours):
+            continue                          # e.g. a whole CLIPModel's vision
+        out[k if k.startswith(ours) else "text_model." + k] = v
+    out.pop("text_model.embeddings.position_ids", None)
+    if "text_projection.weight" not in out:
+        hidden = out["text_model.final_layer_norm.weight"].shape[0]
+        out["text_projection.weight"] = torch.eye(projection_dim, hidden)
+    return out
+
+
+def _tensor(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+
+
+def as_tensors(sd: dict) -> dict[str, torch.Tensor]:
+    """A state dict of numpy arrays and/or tensors (any dtype) as tensors,
+    for ``Module.load_state_dict``, which casts them to the module's."""
+    return {k: _tensor(v) for k, v in sd.items()}
+
+
+def _open_clip_layers(sd: dict, src: str, dst: str, n: int) -> dict:
+    """OpenCLIP residual blocks ``<src>.i`` as HF encoder layers
+    ``<dst>.i``: the packed ``in_proj`` split into q, k and v."""
+    out = {}
+    for i in range(n):
+        s, d = f"{src}.{i}", f"{dst}.{i}"
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            for part in ("weight", "bias"):
+                packed = _tensor(sd[f"{s}.attn.in_proj_{part}"])
+                out[f"{d}.self_attn.{name}.{part}"] = packed.chunk(3)[j]
+        for theirs, mine in (("ln_1", "layer_norm1"), ("ln_2", "layer_norm2"),
+                             ("attn.out_proj", "self_attn.out_proj"),
+                             ("mlp.c_fc", "mlp.fc1"),
+                             ("mlp.c_proj", "mlp.fc2")):
+            for part in ("weight", "bias"):
+                out[f"{d}.{mine}.{part}"] = sd[f"{s}.{theirs}.{part}"]
+    return out
+
+
+def open_clip_vision_state_dict(sd: dict, cfg) -> dict:
+    """An OpenCLIP/OpenAI-CLIP checkpoint's ``visual.*`` keys as a
+    ``CLIPVisionModel`` state dict (the JAX package's
+    ``convert_open_clip_vision``). ``visual.proj`` is right-multiplied,
+    [width, out], so it goes in transposed as an HF Linear weight."""
+    p = "visual."
+    out = {
+        "vision_model.embeddings.class_embedding":
+            _tensor(sd[f"{p}class_embedding"]).reshape(-1),
+        "vision_model.embeddings.position_embedding.weight":
+            sd[f"{p}positional_embedding"],
+        "vision_model.embeddings.patch_embedding.weight":
+            sd[f"{p}conv1.weight"],
+        "visual_projection.weight":
+            _tensor(sd[f"{p}proj"]).T.contiguous(),
+    }
+    for theirs, mine in (("ln_pre", "pre_layrnorm"),
+                         ("ln_post", "post_layernorm")):
+        for part in ("weight", "bias"):
+            out[f"vision_model.{mine}.{part}"] = sd[f"{p}{theirs}.{part}"]
+    out.update(_open_clip_layers(sd, f"{p}transformer.resblocks",
+                                 "vision_model.encoder.layers",
+                                 cfg.num_layers))
+    return out
+
+
+def open_clip_text_state_dict(sd: dict, cfg) -> dict:
+    """An OpenCLIP/OpenAI-CLIP checkpoint's text keys as a
+    ``CLIPTextModel(..., with_projection=True)`` state dict (the JAX
+    package's ``convert_open_clip_text``); ``text_projection`` [width,
+    out] goes in transposed."""
+    out = {
+        "text_model.embeddings.token_embedding.weight":
+            sd["token_embedding.weight"],
+        "text_model.embeddings.position_embedding.weight":
+            sd["positional_embedding"],
+        "text_model.final_layer_norm.weight": sd["ln_final.weight"],
+        "text_model.final_layer_norm.bias": sd["ln_final.bias"],
+        "text_projection.weight":
+            _tensor(sd["text_projection"]).T.contiguous(),
+    }
+    out.update(_open_clip_layers(sd, "transformer.resblocks",
+                                 "text_model.encoder.layers", cfg.num_layers))
+    return out

@@ -4,8 +4,9 @@ diffusers/HF state dicts.
 ``from_jax_params(params, cfg)`` inverts the JAX package's converters for
 the UNet (``invert_unet``), the VAE (``invert_vae``), the CLIP text
 encoders (``convert_clip_text``: CLIP-L and bigG), the CLIP vision tower
-(``convert_clip_vision``), the SD3 MMDiT (``convert_mmdit``) and the T5
-encoder (``convert_t5``), so both packages
+(``convert_clip_vision``), the SD3 MMDiT (``convert_mmdit``), the T5
+encoder (``convert_t5``) and the FID InceptionV3
+(``evals/inception.py::convert_inception``), so both packages
 can compute with the same weights. Pure numpy; the JAX tree is a nested dict of
 arrays, optionally under a top-level ``"params"`` key.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..evals.inception import InceptionConfig
 from .clip_text import CLIPTextConfig
 from .clip_vision import CLIPVisionConfig
 from .mmdit import MMDiTConfig
@@ -250,11 +252,32 @@ def _t5(params, cfg: T5Config) -> dict:
     return sd
 
 
+def _inception(params) -> dict:
+    """pt_inception names: each BasicConv2d's ``conv`` kernel and its
+    ``bn_*`` leaves under ``<path>.conv`` / ``<path>.bn``, then ``fc``."""
+    sd: dict = {}
+    bn = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+          "bn_var": "running_var"}
+
+    def walk(node, path):
+        if "conv" in node:
+            _inv_conv(node["conv"], f"{path}.conv", sd)
+            for src, dst in bn.items():
+                sd[f"{path}.bn.{dst}"] = np.asarray(node[src])
+            return
+        for name, child in node.items():
+            walk(child, f"{path}.{name}" if path else name)
+
+    walk({k: v for k, v in params.items() if k != "fc"}, "")
+    _inv_lin(params["fc"], "fc", sd)
+    return sd
+
+
 def from_jax_params(params, cfg, with_projection: bool = False
                     ) -> dict[str, np.ndarray]:
     """JAX-package parameter tree -> the port's state dict (numpy values)
     for a UNetConfig, VAEConfig, CLIPTextConfig, CLIPVisionConfig,
-    MMDiTConfig or T5Config of this package.
+    MMDiTConfig, T5Config or InceptionConfig of this package.
     ``with_projection`` keeps the CLIP text projection head."""
     if "params" in params:
         params = params["params"]
@@ -270,4 +293,6 @@ def from_jax_params(params, cfg, with_projection: bool = False
         return _mmdit(params, cfg)
     if isinstance(cfg, T5Config):
         return _t5(params, cfg)
+    if isinstance(cfg, InceptionConfig):
+        return _inception(params)
     raise TypeError(f"no bridge for {type(cfg).__name__}")

@@ -8,8 +8,9 @@ group widths that are not powers of two, in its one-read and re-read
 forms and with narrow vectors, the cluster kernels' plans and their
 determinism, the interleaved upsample conv against the planar one; and
 the host modules around the kernels on the GPU against the CPU: the
-repellency processors (the sparse force, LSH's bucket gather) and the Q16
-gate's vision tower.
+repellency processors (the sparse force, LSH's bucket gather), the Q16
+gate's vision tower, and the evaluators' towers (FID Inception, OpenCLIP,
+the in-loop CLIPScore) in f32 with PyTorch's TF32 switches on.
 
 Every test is marked ``cuda`` and skips where no GPU is visible. On a GPU
 machine (which need not have JAX; ``--noconftest`` skips the suite's JAX
@@ -1268,3 +1269,96 @@ def test_q16_eval_on_gpu_matches_the_cpu(dev, tmp_path):
     groups = [[im] for im in imgs]
     assert [u for u, _ in evs["cuda"].eval_many(groups)] == \
         [u for u, _ in evs["cpu"].eval_many(groups)]
+
+
+@pytest.fixture
+def tf32_on():
+    """PyTorch's TF32 switches on (cuDNN's default) around the test; the
+    evaluators must compute in f32 all the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _rel_close(a, b, rtol=1e-4):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    assert (a - b).abs().max().item() <= rtol * b.abs().max().item()
+
+
+def _tiny_clip(seed):
+    """A tiny CLIP text tower (the tiny BPE vocab's 521 ids) with its
+    projection and a tiny 224^2 vision tower, seeded."""
+    from safe_denoiser_tpu_torch.models import (CLIPTextConfig,
+                                                CLIPTextModel,
+                                                CLIPVisionConfig,
+                                                CLIPVisionModel)
+    vcfg = CLIPVisionConfig(patch_size=56, hidden_size=32, num_layers=2,
+                            num_heads=2, intermediate_size=64,
+                            projection_dim=16, hidden_act="gelu")
+    tcfg = CLIPTextConfig(vocab_size=521, hidden_size=32, num_layers=2,
+                          num_heads=2, intermediate_size=64,
+                          projection_dim=16, eos_token_id=520,
+                          hidden_act="gelu")
+    torch.manual_seed(seed)
+    return (vcfg, tcfg, CLIPVisionModel(vcfg).state_dict(),
+            CLIPTextModel(tcfg, with_projection=True).state_dict())
+
+
+def test_evaluator_towers_compute_in_f32_under_tf32_switches(tf32_on):
+    """InceptionFeatures (94 cuDNN convs) and OpenCLIPModel (cuBLAS) on
+    cuda with TF32 allowed globally, against the CPU: within 1e-4 of the
+    largest magnitude (TF32's 10-bit mantissa would miss it), and the
+    switches are as they were afterwards."""
+    import numpy as np
+
+    from safe_denoiser_tpu_torch.evals.offline import InceptionFeatures
+    from safe_denoiser_tpu_torch.models.openclip_factory import OpenCLIPModel
+    x = np.random.RandomState(0).rand(2, 299, 299, 3).astype(np.float32)
+    feats = {d: InceptionFeatures(allow_random_init=True,
+                                  device=d).features(x)
+             for d in ("cpu", "cuda")}
+    for got, want in zip(feats["cuda"], feats["cpu"]):
+        _rel_close(got, want)
+    vcfg, tcfg, vsd, tsd = _tiny_clip(1)
+    px = torch.randn(3, 3, 224, 224, generator=torch.Generator()
+                     .manual_seed(2))
+    ids = torch.tensor([[519, 70, 71, 520] + [520] * 73])
+    models = {d: OpenCLIPModel(vcfg, tcfg, vsd, tsd, device=d)
+              for d in ("cpu", "cuda")}
+    _rel_close(models["cuda"].encode_image(px),
+               models["cpu"].encode_image(px))
+    _rel_close(models["cuda"].encode_text(ids), models["cpu"].encode_text(ids))
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+
+
+def test_in_loop_clip_score_on_gpu_matches_the_cpu(tf32_on, tmp_path,
+                                                   monkeypatch):
+    """InLoopClipScore from an HF-named directory of tiny towers (in place
+    of ViT-B/32's configs) with the tiny vocab as tokenizer/: the scores
+    of 512^2 images (bicubic to 224) on cuda within 1e-4 of the CPU's."""
+    import numpy as np
+
+    import chip_smoke
+    from safe_denoiser_tpu_torch.runners import coco30k
+    vcfg, tcfg, vsd, tsd = _tiny_clip(3)
+    monkeypatch.setattr(coco30k, "CLIP_VISION_VIT_B_32", vcfg)
+    monkeypatch.setattr(coco30k, "CLIP_TEXT_VIT_B_32", tcfg)
+    chip_smoke.write_safetensors(str(tmp_path / "model.safetensors"),
+                                 {**vsd, **tsd})
+    (tmp_path / "tokenizer").mkdir()
+    chip_smoke.write_tiny_vocab(str(tmp_path / "tokenizer"))
+    scorers = {d: coco30k.InLoopClipScore(str(tmp_path), device=d)
+               for d in ("cpu", "cuda")}
+    rs = np.random.RandomState(4)
+    for prompt in ("a cat", "a dog on the beach"):
+        img = rs.randint(0, 256, (512, 512, 3), dtype=np.uint8)
+        want = scorers["cpu"](img, prompt)
+        assert abs(scorers["cuda"](img, prompt) - want) <= \
+            1e-4 * max(abs(want), 1.0)
