@@ -40,7 +40,11 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      repellency against a [515,4,64,64] bank in the window [1000, 780], VAE
      decode -- and the launch count of every kernel; every main path
      checks that the attention wrappers copied no q/k/v for their tensor
-     maps;
+     maps. The pipelines run the loop and the decode from CUDA graphs
+     (pipeline/graph.py; launches are counted per replay): the graph
+     check holds sd14-main's graphed batch against the eager loop body on
+     the same buffers, latents, rep_applied and image bit for bit, and
+     prints both loop times;
   5. gate check: the same pipeline for 5 steps with a bank built from the
      run's own x0, so the beta gate opens at full width and B2's score
      must reach the latents;
@@ -90,8 +94,10 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      prompts x 512^2 x 50 steps through dispatch_batch: sld_rep (SLD
      STRONG), safree_rep with SAFREE and its self-validation filter,
      std_rep with latent re-attention and the SafeGuard filters; finite
-     images, stage times, launch counts. Phase 6's runner also runs
-     --erase_id sld_rep on 2 cases under the two switches of 6c;
+     images, stage times, launch counts, and the graph check of each
+     (safree_rep's svf windows must differ between prompts). Phase 6's
+     runner also runs --erase_id sld_rep on 2 cases under the two switches
+     of 6c;
   7. SD3: SafeDiffusion3Pipeline on cuda at full SD3-medium width and
      depth with seeded random weights (CLIP-L, CLIP-bigG, T5-XXL, the
      24-block MMDiT, the 16-channel VAE) -- 1 prompt, 1024x1024, 50
@@ -99,8 +105,9 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      [16,16,128,128] bank in [1000, 780] -- three times: bf16 (attention
      kernel), bf16 under nt with the repacks (B9, B11, B12), and with
      enable_int8() and SDT_INT8_ATTN=1 (W8A8 MMDiT, int8-QK^T attention
-     kernel); stage times, images and launch counts; then the bf16 latents
-     decoded again under SDT_UP_FORM=interleave (B7 3, B3 0);
+     kernel); stage times, images and launch counts, the graph check of
+     the bf16 run; then the bf16 latents decoded again under
+     SDT_UP_FORM=interleave (B7 3, B3 0);
   8. SD3 runner: ``safe_denoiser_tpu_torch.runners.sdv3.main_nudity`` with
      --int8 and SDT_INT8_ATTN=1 on an HF-layout checkpoint at the published
      widths (depth cut: MMDiT 6 of 24 blocks, T5 2 of 24, bigG 4 of 32), 16
@@ -109,7 +116,18 @@ Phases, each of which ends the run with a non-zero exit code on failure:
   8b. SD3 COCO: ``runners.sdv3 coco30k`` in bf16 on that checkpoint under
      configs/coco/safe_denoiser_sdv3.yaml against a cached random
      [16,16,128,128] bank, 2 CSV prompts x 50 steps at 1024^2; its output
-     tree and launch counts (B1 at SD3's shape, B2, the decode's kernels).
+     tree and launch counts (B1 at SD3's shape, B2, the decode's kernels);
+  9. serving: ``runners.serve`` on phase 6's checkpoint with
+     configs/nudity/safe_denoiser.yaml's kernel_fast against a cached
+     random [515,4,64,64] bank (std_rep), --batch_size 4, in a thread on
+     an ephemeral port: its warm-up batch captures the graphs, /healthz,
+     then 6 concurrent /generate requests (a full batch and a padded one),
+     each PNG equal bit for bit to ``generate_batch`` on phase 4's
+     pipeline over the batch the batcher formed; ms a request and images/s
+     under load; --export_aot, then --aot_bundle with the same flags (its
+     batch equal to the live one) and refusals of other steps and of
+     another task YAML; after phase 8b, ``--sd3`` on phase 8's checkpoint
+     with 2 requests at 1024^2. Launch counts of every kernel.
 The last line of standard output is the result, {"ok": true, "device": ...};
 the line before it lists the kernels as JSON.
 """
@@ -117,6 +135,7 @@ the line before it lists the kernels as JSON.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import ctypes
 import json
@@ -125,6 +144,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -183,6 +203,10 @@ SD3_RUNNER_LAYERS = {"mmdit": 6, "t5": 2, "clip_g": 4}
 SD3_RUNNER_CASES, SD3_RUNNER_N_EMBED = 2, 8
 # 8b: the SD3 COCO run's cases on the runner's checkpoint
 SD3_COCO_CASES = 2
+# 9: the server's batch size and concurrent requests (a full batch and a
+# padded one), its batching deadline; the SD3 server's requests
+SERVE_BATCH, SERVE_REQUESTS, SERVE_DELAY_MS = 4, 6, 2000
+SD3_SERVE_REQUESTS = 2
 
 # B6's phase-3 shapes: the UNet's admitted GroupNorms with 32 groups (the
 # largest, a 1280-wide one, the 2560-wide one at S = 64) in bf16, then the
@@ -365,6 +389,51 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def graph_check(pipe, label: str, prompts, seeds, windows=None,
+                **kw) -> None:
+    """One batch through the pipeline's CUDA graphs (``_launch``) against
+    the eager loop body and decode on the same buffers (``Program.loop`` /
+    ``decode``: the same inputs and noise): latents, rep_applied and image
+    must be equal bit for bit. ``windows``: SAFREE's window of each prompt
+    in steps, written into its mask buffer in place of the one the text
+    preparation gave. Prints the graphed and the eager loop and decode
+    times (CUDA events) and, where SAFREE's mask is an input, its steps per
+    prompt."""
+    program, bufs = pipe._prepare_batch(prompts, seeds, **kw)
+    if windows is not None:
+        steps = torch.arange(bufs["use_alt"].shape[0], device=pipe.device)
+        bufs["use_alt"] = steps[:, None] < torch.tensor(windows,
+                                                        device=pipe.device)
+    pending = pipe._launch(program, bufs)
+    pending.fetch()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with torch.no_grad():
+        ev[0].record()
+        lat, applied = program.loop(bufs)
+        ev[1].record()
+        image = program.decode(lat)
+        ev[2].record()
+    torch.cuda.synchronize()
+    st = pending.stage_ms
+    same = {"latents": torch.equal(pending.latents, lat),
+            "applied": torch.equal(pending.applied, applied),
+            "image": torch.equal(pending.image, image)}
+    times = {"graph_loop_ms": st["loop"], "graph_decode_ms": st["decode"],
+             "eager_loop_ms": ev[0].elapsed_time(ev[1]),
+             "eager_decode_ms": ev[1].elapsed_time(ev[2])}
+    safree = ("" if "use_alt" not in bufs else
+              f" safree steps per prompt {bufs['use_alt'].sum(0).tolist()}")
+    print(f"graph check {label}: " + " ".join(
+        f"{k}={v:.2f}" for k, v in times.items())
+        + f" capture_ms={st.get('capture', 0.0):.2f} rep_applied_steps="
+        f"{int(applied.any(1).sum())} equal={json.dumps(same)}{safree}")
+    if not all(same.values()):
+        d = (pending.latents.float() - lat.float()).abs().max().item()
+        fail(f"graph check {label}: the graphed batch differs from the "
+             f"eager loop on the same buffers ({same}; max|d| latents "
+             f"{d:.3e})")
 
 
 def vae_kernel_plan(cfg, b: int, h: int, w: int, part: str = "decoder"):
@@ -1692,6 +1761,14 @@ def phase_main_path() -> dict:
               repellency_processor=proc, erase_spec=spec)
     pipe.generate_batch(PROMPTS, seeds=[0, 1, 2, 3], num_inference_steps=2,
                         **kw)                                   # warm-up
+    # the first 50-step batch captures the loop's and the decode's graphs
+    t0 = time.perf_counter()
+    first = pipe.dispatch_batch(PROMPTS, seeds=[0, 1, 2, 3],
+                                num_inference_steps=50, **kw)
+    first.fetch()
+    print(f"main path graphs: warm-up step and capture "
+          f"{first.stage_ms['capture']:.2f} ms, first batch wall_s="
+          f"{time.perf_counter() - t0:.3f}")
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1716,6 +1793,8 @@ def phase_main_path() -> dict:
           f"(B4) in the resnets; with cuDNN resnet convs it took "
           f"{DECODE_MS_CUDNN} ms")
     check_launches(counts, EXPECTED_LAUNCHES, "main path")
+    graph_check(pipe, "sd14-main", PROMPTS, [0, 1, 2, 3],
+                num_inference_steps=50, **kw)
     return counts, pipe, kw
 
 
@@ -1916,6 +1995,15 @@ def phase_erasure(pipe, kw) -> dict:
                            for i, t in enumerate(ts))}
         check_launches(counts, want, f"erasure {label}")
         out[f"erasure {label}"] = counts
+        graph_check(pipe, f"erasure {label}", PROMPTS, [0, 1, 2, 3],
+                    num_inference_steps=50, **run_kw)
+        # svf's window follows each prompt's beta, which on random weights
+        # (beta ~ 0.85) saturates at up_t for every prompt: the graph's
+        # SAFREE mask is held again with windows that differ by prompt
+        if sf.get("svf"):
+            graph_check(pipe, f"erasure {label}, windows 11/8/5/2", PROMPTS,
+                        [0, 1, 2, 3], windows=[11, 8, 5, 2],
+                        num_inference_steps=50, **run_kw)
     return out
 
 
@@ -3183,6 +3271,12 @@ def phase_sd3(profile: bool = False) -> dict:
                   f"image_mean={images[0].mean():.3f}")
             check_launches(counts, want, f"sd3 {mode}")
             out[mode] = (counts, images[0], pending.latents.float())
+            if mode == "bf16":
+                graph_check(pipe, "sd3 bf16", [SD3_PROMPT], [0],
+                            guidance_scales=[2.5],
+                            num_inference_steps=SD3_STEPS,
+                            height=SD3_SIDE, width=SD3_SIDE,
+                            repellency_processor=proc, window=window)
             if profile:
                 with layout_env(layout):
                     profile_call(lambda: pipe.dispatch(
@@ -3370,7 +3464,9 @@ data:
         if problems:
             print(log.getvalue()[-4000:])
             fail("sd3 runner phase: " + "; ".join(problems))
-        return phase_sd3_coco(tmp, ckpt, want_coco, coco_bank)
+        counts = phase_sd3_coco(tmp, ckpt, want_coco, coco_bank)
+        counts.update(phase_serve_sd3(tmp, ckpt, task))
+        return counts
 
 
 def phase_sd3_coco(tmp: str, ckpt: str, want: dict, bank: tuple) -> dict:
@@ -3442,6 +3538,270 @@ def phase_sd3_coco(tmp: str, ckpt: str, want: dict, bank: tuple) -> dict:
     return {"sd3 coco": counts}
 
 
+def _post_generate(port: int, body: dict, out: dict) -> None:
+    """POST ``body`` to /generate; out[seed] = (status, JSON, seconds)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    conn.request("POST", "/generate", body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    r = conn.getresponse()
+    data = json.loads(r.read())
+    conn.close()
+    out[body["seed"]] = (r.status, data, time.perf_counter() - t0)
+
+
+def serve_requests(args, run_batch, logger, bodies: list) -> dict:
+    """``runners.serve.start_server`` around ``run_batch`` (its warm-up
+    batch captures the graphs), served from a thread on the ephemeral
+    port: /healthz, then ``bodies`` POSTed to /generate all at once. The
+    launch counters are zeroed after the warm-up. Returns the responses by
+    seed, the padded batches the batcher dispatched and their handles,
+    the warm-up and request walls, /healthz's JSON and the counts."""
+    import http.client
+
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.runners import serve
+
+    import io
+
+    groups, handles, spans, dispatch = [], [], [], run_batch.dispatch_batch
+
+    def recording(reqs):
+        groups.append(list(reqs))
+        t = time.perf_counter()
+        handles.append(dispatch(reqs))
+        spans.append((t, time.perf_counter()))
+        return handles[-1]
+
+    run_batch.dispatch_batch = recording
+    # the server's log lines (HTTP, repellency steps) stay out of stdout
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    quiet.__enter__()
+    t0 = time.perf_counter()
+    batcher, server = serve.start_server(args, run_batch, logger)
+    warm = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port, out = server.server_address[1], {}
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        posts = [threading.Thread(target=_post_generate,
+                                  args=(port, body, out)) for body in bodies]
+        t0 = time.perf_counter()
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=60)
+        run_batch.dispatch_batch = dispatch
+        quiet.__exit__(None, None, None)
+    if any(t.is_alive() for t in posts) or len(out) != len(bodies):
+        fail(f"serve: {len(out)} of {len(bodies)} requests answered")
+    return {"out": out, "groups": groups, "handles": handles, "warm": warm,
+            "wall": wall, "health": health, "counts": counts,
+            "dispatch_s": [(round(a - t0, 3), round(b - t0, 3))
+                           for a, b in spans]}
+
+
+def _served_images(res: dict, side: int, what: str) -> dict:
+    """The served PNGs decoded, by seed; fails on an error response, a
+    wrong size or non-finite latents or images in a served batch."""
+    from safe_denoiser_tpu_torch.data.images import decode_png
+
+    imgs = {}
+    for seed, (status, data, _) in res["out"].items():
+        if status != 200:
+            fail(f"{what}: request {seed} answered {status}: {data}")
+        imgs[seed] = decode_png(base64.b64decode(data["image_png_base64"]))
+        if imgs[seed].shape != (side, side, 3):
+            fail(f"{what}: image {imgs[seed].shape}")
+    for h in res["handles"]:
+        if not bool(torch.isfinite(h.latents).all()
+                    and torch.isfinite(h.image).all()):
+            fail(f"{what}: non-finite latents or images in a batch")
+    secs = sorted(v[2] for v in res["out"].values())
+    stages = [{k: round(v, 2) for k, v in h.stage_ms.items()}
+              for h in res["handles"]]
+    print(f"{what}: warm-up batch (capture) {res['warm']:.3f} s; "
+          f"{len(imgs)} concurrent requests answered in {res['wall']:.3f} "
+          f"s: s a request {[round(v, 3) for v in secs]} images_per_s="
+          f"{len(imgs) / res['wall']:.4f}; batches "
+          f"{[[r.seed for r in g] for g in res['groups']]} with stage ms "
+          f"{stages}, dispatched at s {res['dispatch_s']}; /healthz "
+          f"{json.dumps(res['health'])}")
+    return imgs
+
+
+def phase_serve(pipe, assets: dict) -> dict:
+    """9: the server at full SD-v1.4 width on the checkpoint of ``assets``
+    (``runners.serve``'s parse_args and build functions, as its main composes
+    them), kernel_fast from configs/nudity/safe_denoiser.yaml against a
+    cached random [515,4,64,64] bank (beta calibrated on the GPU),
+    std_rep, batch SERVE_BATCH: SERVE_REQUESTS concurrent requests, each
+    PNG equal to phase 4's pipeline's ``generate_batch`` over the batch the
+    server formed; then the deployment bundle (--export_aot through
+    ``main``, --aot_bundle: equal to the live batch; other steps and
+    another task YAML refused). Returns the requests' launch counts."""
+    import numpy as np
+
+    from safe_denoiser_tpu_torch.pipeline import ERASE_SPECS
+    from safe_denoiser_tpu_torch.runners import serve
+    from safe_denoiser_tpu_torch.runners.common import (build_pipeline,
+                                                        build_repellency)
+    from safe_denoiser_tpu_torch.serving import GenRequest
+    from safe_denoiser_tpu_torch.utils.logging import Logger
+
+    tmp, ckpt = assets["tmp"], assets["ckpt"]
+    lat = pipe.unet.config.sample_size                  # 64: 512^2 images
+    side = lat * pipe.vae_scale_factor
+    g = torch.Generator(device="cuda").manual_seed(12)
+    refs = torch.randn(515, 4, lat, lat, device="cuda", generator=g)
+    proj = os.path.join(tmp, "serve_proj.pt")
+    torch.save((refs / refs.norm(dim=1, keepdim=True)).cpu(), proj)
+    del refs
+    tasks = {}
+    for name, scale in (("a", 0.33), ("b", 0.2)):
+        tasks[name] = os.path.join(tmp, f"serve_{name}.yaml")
+        _task_yaml(tasks[name], "nudity/safe_denoiser.yaml",
+                   {"proj_ref_path": proj, "scale": scale,
+                    "proj_noisy_ref_path_for_beta": None},
+                   {"root": os.path.join(tmp, "unused")})
+    save = os.path.join(tmp, "serve")
+    os.makedirs(save)
+    argv = ["--model_dir", ckpt, "--erase_id", "std_rep", "--batch_size",
+            str(SERVE_BATCH), "--port", "0", "--max_delay_ms",
+            str(SERVE_DELAY_MS), "--image_length", str(side), "--save-dir",
+            save, "--device", "cuda"]
+    args = serve.parse_args(argv + ["--task_config", tasks["a"]])
+    logger = Logger(os.path.join(save, "serve_logs.txt"))
+    spec = ERASE_SPECS[args.erase_id]
+    t0 = time.perf_counter()
+    served = build_pipeline(args, logger)
+    proc, _ = build_repellency(args, served, logger)
+    run_batch = serve.build_generate_fn(args, served, proc, spec, logger)
+    print(f"serve: checkpoint loaded and bank calibrated in "
+          f"{time.perf_counter() - t0:.1f} s (beta threshold "
+          f"{proc.beta_threshold:.4g})")
+    bodies = [{"prompt": PROMPTS[i % len(PROMPTS)], "seed": 400 + i,
+               "guidance_scale": 7.5 if i % 2 == 0 else 5.0}
+              for i in range(SERVE_REQUESTS)]
+    res = serve_requests(args, run_batch, logger, bodies)
+    imgs = _served_images(res, side, "serve sd14")
+    problems = []
+    if res["health"] != {"status": "ok", "batch_size": SERVE_BATCH}:
+        problems.append(f"/healthz {res['health']}")
+    if sorted(len({r.seed for r in grp}) for grp in res["groups"]) != \
+            [SERVE_REQUESTS - SERVE_BATCH, SERVE_BATCH]:
+        problems.append("not one full batch and one padded batch")
+    kw = dict(num_inference_steps=50, height=side, width=side,
+              repellency_processor=proc, erase_spec=spec)
+    for grp in res["groups"]:
+        want = pipe.generate_batch([r.prompt for r in grp],
+                                   [r.seed for r in grp],
+                                   [r.guidance_scale for r in grp], **kw)
+        # a request is answered from its own row; the padding rows repeat
+        # the last request, and in bf16 a row's bits depend on its place
+        # in the batch (the GEMMs' tiling), so only the first is compared
+        for row, r in enumerate(grp):
+            if grp.index(r) == row and not np.array_equal(imgs[r.seed],
+                                                          want[row]):
+                problems.append(f"request {r.seed} differs from "
+                                "generate_batch")
+    want = runner_launches(pipe, len(res["groups"]), 10, batch=SERVE_BATCH)
+    if problems:
+        fail("serve sd14: " + "; ".join(problems))
+    check_launches(res["counts"], want, "serve sd14")
+
+    path = os.path.join(tmp, "serve_bundle.sdt")
+    _run_quiet(serve.main, argv + ["--task_config", tasks["a"],
+                                   "--export_aot", path])
+    run_aot = serve.build_aot_generate_fn(serve.parse_args(
+        argv + ["--task_config", tasks["a"], "--aot_bundle", path]),
+        served, proc, spec, logger)
+    reqs = [GenRequest(**b) for b in bodies[:SERVE_BATCH]]
+    same = all(np.array_equal(a, b)
+               for a, b in zip(run_aot(reqs), run_batch(reqs)))
+    refused = {}
+    for what, task, extra in (("steps", tasks["a"],
+                               ["--num_inference_steps", "40"]),
+                              ("task YAML", tasks["b"], [])):
+        other = serve.parse_args(argv + ["--task_config", task,
+                                         "--aot_bundle", path, *extra])
+        try:
+            serve.build_aot_generate_fn(
+                other, served, build_repellency(other, served, logger)[0],
+                spec, logger)
+            refused[what] = None
+        except SystemExit as e:
+            refused[what] = str(e)[:90]
+    print(f"serve sd14 bundle: {os.path.getsize(path)} bytes; its batch "
+          f"equal to the live one: {same}; refused: {json.dumps(refused)}")
+    if not same or not all(refused.values()):
+        fail("serve sd14 bundle: the bundle's batch differs from the live "
+             "one, or a mismatched server was not refused")
+    served._graphs.release()
+    return {"serve sd14": res["counts"]}
+
+
+def phase_serve_sd3(tmp: str, ckpt: str, task: str) -> dict:
+    """9 (SD3): ``runners.serve --sd3`` on phase 8's checkpoint in bf16,
+    std_rep with phase 8's kernel_fast task YAML, batch
+    SD3_SERVE_REQUESTS: that many concurrent requests at 1024^2, finite;
+    launch counts from the gates (B1 per block and step, B2 per step in
+    std_rep's window, the decode of the batch)."""
+    from safe_denoiser_tpu_torch.models.weights import load_component_config
+    from safe_denoiser_tpu_torch.pipeline import ERASE_SPECS
+    from safe_denoiser_tpu_torch.runners import serve
+    from safe_denoiser_tpu_torch.schedulers.flow_match import (
+        FlowMatchEulerScheduler, flow_match_config_from_checkpoint)
+    from safe_denoiser_tpu_torch.utils.logging import Logger
+
+    save = os.path.join(tmp, "serve_sd3")
+    os.makedirs(save)
+    args = serve.parse_args([
+        "--sd3", "--model_dir", ckpt, "--task_config", task, "--erase_id",
+        "std_rep", "--batch_size", str(SD3_SERVE_REQUESTS), "--port", "0",
+        "--max_delay_ms", str(SERVE_DELAY_MS), "--image_length",
+        str(SD3_SIDE), "--save-dir", save, "--device", "cuda"])
+    logger = Logger(os.path.join(save, "serve_logs.txt"))
+    t0 = time.perf_counter()
+    run_batch = serve.build_run_batch(args, logger)
+    print(f"serve sd3: checkpoint loaded and bank encoded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    bodies = [{"prompt": PROMPTS[i], "seed": 500 + i}
+              for i in range(SD3_SERVE_REQUESTS)]
+    res = serve_requests(args, run_batch, logger, bodies)
+    _served_images(res, SD3_SIDE, "serve sd3")
+    window = ERASE_SPECS[args.erase_id].window
+    ts, _ = FlowMatchEulerScheduler(flow_match_config_from_checkpoint(
+        os.path.join(ckpt, "scheduler"))).timesteps_and_sigmas(SD3_STEPS)
+    vcfg = load_component_config(os.path.join(ckpt, "vae"), "vae")
+    side = SD3_SIDE // 2 ** (len(vcfg.block_out_channels) - 1)
+    n = len(res["groups"])
+    want = {**attention_launches(
+        "bhsd", n * SD3_RUNNER_LAYERS["mmdit"] * SD3_STEPS),
+        "rbf": n * sum(bool(window.mask(i, float(t)))
+                       for i, t in enumerate(ts)),
+        **{k: n * v for k, v in vae_kernel_plan(
+            vcfg, SD3_SERVE_REQUESTS, side, side)[0].items()}}
+    check_launches(res["counts"], want, "serve sd3")
+    return {"serve sd3": res["counts"]}
+
+
 def profile_call(fn, label: str) -> None:
     """torch.profiler over ``fn()`` (which ends in a device sync): device
     time by kernel, this port's kernels against the rest, and the device's
@@ -3494,10 +3854,18 @@ def profile_call(fn, label: str) -> None:
 
 
 def phase_profile(pipe, kw, steps: int = 10) -> None:
-    """One batch of the main path at ``steps`` DDPM steps, profiled."""
-    profile_call(lambda: pipe.generate_batch(
-        PROMPTS, seeds=[0, 1, 2, 3], num_inference_steps=steps, **kw),
-        f"{steps} steps, batch 4")
+    """One batch of the main path at ``steps`` DDPM steps, profiled twice on
+    the same buffers: replayed from its CUDA graphs (captured first), then
+    the eager loop body and decode -- the device's idle share of each."""
+    from safe_denoiser_tpu_torch.pipeline import graph
+
+    program, bufs = pipe._prepare_batch(PROMPTS, [0, 1, 2, 3],
+                                        num_inference_steps=steps, **kw)
+    pipe._launch(program, bufs).fetch()
+    profile_call(lambda: pipe._launch(program, bufs),
+                 f"graphed, {steps} steps, batch 4")
+    profile_call(lambda: graph._run_eager(program, bufs),
+                 f"eager, {steps} steps, batch 4")
 
 
 def main() -> None:
@@ -3529,6 +3897,7 @@ def main() -> None:
         coco_counts, coco = phase_coco(pipe, assets)
         runner_counts.update(coco_counts)
         phase_offline_eval(assets, coco)
+        runner_counts.update(phase_serve(pipe, assets))
     ddim_counts = phase_ddim(pipe, kw)
     erasure_counts = phase_erasure(pipe, kw)
     if args.profile:
@@ -3538,9 +3907,10 @@ def main() -> None:
     sd3_counts = phase_sd3(args.profile)
     sd3_counts.update(phase_sd3_runner())
     # launches over the main paths: sd14-main, the artist, SPELL, CoPro and
-    # three COCO runner runs (6e, 6f, 6g), the four DDIM runs (6b, 6c), the
-    # three erasure runs (6d), the three SD3 runs, the SD3 decode under
-    # SDT_UP_FORM=interleave and the SD3 COCO run (8b)
+    # three COCO runner runs (6e, 6f, 6g), the SD-v1 server's requests (9),
+    # the four DDIM runs (6b, 6c), the three erasure runs (6d), the three
+    # SD3 runs, the SD3 decode under SDT_UP_FORM=interleave, the SD3 COCO
+    # run (8b) and the SD3 server's requests (9)
     runs = [counts, *runner_counts.values(), *ddim_counts.values(),
             *erasure_counts.values(), *sd3_counts.values()]
     total = {name: sum(c[name] for c in runs) for name in counts}

@@ -6,8 +6,11 @@ the SD3-medium one (CLIP-L + CLIP-bigG + T5-XXL encode, SAFREE, a
 flow-match MMDiT loop with the renoising repellency, VAE decode), with
 optional W8A8 int8, all six repellency methods, the nudity, artist, CoPro
 and COCO-30k runners with their NudeNet and Q16 gates and the in-loop
-CLIPScore, and the offline FID/KID/IS/CLIPScore/AES evaluators, on one
-NVIDIA Hopper GPU.
+CLIPScore, the offline FID/KID/IS/CLIPScore/AES evaluators, and serving
+(``serving/``: a dynamic batcher behind an HTTP server and the deployment
+bundle; ``runners/serve.py``), with the sampling loop and the decode
+replayed from CUDA graphs (``pipeline/graph.py``), on one NVIDIA Hopper
+GPU.
 Module paths mirror the JAX package so each counterpart is easy to find;
 the JAX package stays the numerical reference.
 

@@ -15,7 +15,12 @@
 | gn_stats              | ops/group_norm.py  | Triton | ops/group_norm.py::_gn_stats_kernel    |
 | gn_fused              | ops/group_norm.py  | CUDA   | ops/group_norm.py::_gn_kernel          |
 
-Each wrapper counts its launches in a module-level integer (``COUNTERS``).
+Each wrapper counts its launches in a module-level integer (``COUNTERS``),
+where it launches its kernel. Under a CUDA graph (``pipeline/graph.py``) a
+wrapper runs once, at capture, and its kernel launches at every replay: the
+graph takes the counters' change over its warm-up and capture out again
+(set-up, as a capture records and does not launch) and adds the change its
+capture recorded at every replay, so a batch counts what it launched.
 """
 
 from __future__ import annotations
@@ -47,3 +52,11 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (kernel name -> launches, negative to take some out)
+    to the counters."""
+    for name, n in delta.items():
+        mod, attr = COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)

@@ -13,7 +13,9 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that request they raise. Each prompt row draws
 its initial latents and its per-step noise from its own
 ``torch.Generator`` seeded with the row's seed, so a row's result does not
-depend on the rest of the batch.
+depend on the rest of the batch. The noise is drawn before the loop, in
+the loop's order; on ``cuda`` the loop and the decode then replay from
+CUDA graphs (``graph.py``), on the CPU they run eagerly.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ..models import (AutoencoderKL, CLIPTextModel, FreeUConfig,
 from ..schedulers import DDPMConfig, DDPMScheduler
 from .safree import (f_beta, projection_and_orthogonal, projection_matrix,
                      safree_projection, svf_beta)
+from . import graph
 from .sampler import GuidanceConfig, RepellencyWindow, sample_sd
 
 # Safe Latent Diffusion's safety levels (the sld package's SafetyConfig)
@@ -144,6 +147,7 @@ class SafeDiffusionPipeline:
         self._uncond_memo = None
         self._int8_min_dim = None
         self.int8_layers = 0
+        self._graphs = graph.GraphSlot()
 
     @classmethod
     def from_pretrained(cls, model_dir: str, scheduler=None, device=None,
@@ -323,7 +327,7 @@ class SafeDiffusionPipeline:
                 use_alt, guidance)
 
     # -- generation ---------------------------------------------------------
-    def dispatch_batch(self, prompts: Sequence[str], seeds: Sequence[int],
+    def _prepare_batch(self, prompts: Sequence[str], seeds: Sequence[int],
                        guidance_scales: Sequence[float],
                        num_inference_steps: int = 50,
                        negative_prompt: Optional[str] = None,
@@ -334,11 +338,10 @@ class SafeDiffusionPipeline:
                        negative_prompt_space: Optional[Sequence[str]] = None,
                        safree_dict: Optional[dict] = None,
                        safe_config: Optional[dict] = None,
-                       freeu: Optional[FreeUConfig] = None
-                       ) -> "PendingGeneration":
-        """Enqueue text preparation, the sampling loop and the VAE decode
-        for a batch of prompts (CUDA runs them asynchronously); ``fetch()``
-        on the returned handle waits and returns the images.
+                       freeu: Optional[FreeUConfig] = None,
+                       mark=lambda name: None):
+        """Text preparation (then ``mark("encode")``) and the batch's
+        inputs: ``(graph.Program, buffers)`` (``_batch_inputs``).
         ``safree_dict``: ``safree`` (the projection; its window from
         ``re_attn_t`` or, with ``svf``, from beta with ``up_t`` and
         ``category``), ``alpha``, ``lra`` (the 3-way re-attention batch).
@@ -357,48 +360,109 @@ class SafeDiffusionPipeline:
         b = len(prompts)
         if len(seeds) != b or len(guidance_scales) != b:
             raise ValueError("one seed and one guidance scale per prompt")
-        timer = _StageTimer(self.device)
         with torch.no_grad():
             per = [self._prepare_text(p, negative_prompt,
                                       negative_prompt_space, sf, erase_spec,
                                       safe_config, num_inference_steps)
                    for p in prompts]
             text = torch.cat([t for t, _, _, _ in per], dim=1)  # [br,B,L,D]
-            alt = torch.cat([a for _, a, _, _ in per], dim=1)
-            use_alt = torch.stack([u for _, _, u, _ in per], dim=1)
-            guidance = per[0][3]
-            timer.mark("encode")
-
-            gens = [torch.Generator(device=self.device).manual_seed(int(s))
-                    for s in seeds]
-            c = self.unet.config.in_channels
-            single = (c, height // self.vae_scale_factor,
-                      width // self.vae_scale_factor)
-
-            def draw():
-                return torch.stack([
-                    torch.randn(single, generator=g, device=self.device)
-                    for g in gens])
-
-            latents = draw() * self.scheduler.init_noise_sigma
+            alt = use_alt = None
+            if sf.get("safree"):
+                alt = torch.cat([a for _, a, _, _ in per], dim=1)
+                use_alt = torch.stack([u for _, _, u, _ in per], dim=1)
+            mark("encode")
             rep_cfg, refs = None, None
             if repellency_processor is not None and erase_spec.repellency:
                 rep_cfg = dataclasses.replace(repellency_processor.config(),
                                               use_beta_gate=use_beta_gate)
-                refs = repellency_processor.get_proj_ref().to(self.device)
-            gs = torch.tensor(list(guidance_scales), dtype=torch.float32,
-                              device=self.device)
-            latents, applied = sample_sd(
-                self.unet, self.scheduler, text, latents,
-                lambda i, salt: draw(), num_inference_steps,
-                guidance=guidance, repellency=rep_cfg, refs=refs,
-                window=erase_spec.window, guidance_scale=gs,
-                text_embeds_alt=alt, use_alt_per_step=use_alt, freeu=freeu)
-            timer.mark("loop")
-            image = self.vae.decode(latents / self.vae.config.scaling_factor)
-            timer.mark("decode")
-        return PendingGeneration(self, self.scheduler.timesteps(
-            num_inference_steps), latents, image, applied, timer)
+                refs = repellency_processor.get_proj_ref()
+            return self._batch_inputs(
+                text, alt, use_alt, seeds, guidance_scales,
+                num_inference_steps, height, width, per[0][3], rep_cfg,
+                refs, erase_spec.window, freeu)
+
+    def _batch_inputs(self, text, alt, use_alt, seeds, guidance_scales,
+                      num_inference_steps: int, height: int, width: int,
+                      guidance: GuidanceConfig, rep_cfg, refs,
+                      window: RepellencyWindow, freeu):
+        """The sampling program of these statics and the batch's buffers:
+        initial latents and every noise draw of the loop (``graph.
+        noise_slots``) from per-row generators seeded with ``seeds``, the
+        text (``alt``/``use_alt``: SAFREE's, or None), guidance scales,
+        the bank, the timestep table."""
+        dev = self.device
+        b = len(seeds)
+        gens = [torch.Generator(device=dev).manual_seed(int(s))
+                for s in seeds]
+        single = (self.unet.config.in_channels,
+                  height // self.vae_scale_factor,
+                  width // self.vae_scale_factor)
+
+        def draw():
+            return torch.stack([torch.randn(single, generator=g, device=dev)
+                                for g in gens])
+
+        timesteps = self.scheduler.timesteps(num_inference_steps)
+        in_window = [rep_cfg is not None and window.mask(i, int(t))
+                     for i, t in enumerate(timesteps)]
+        slots = graph.noise_slots(in_window, step_noise=True)
+        latents = draw() * self.scheduler.init_noise_sigma
+        bufs = {"latents": latents,
+                "noise": graph.draw_noise(draw, len(slots), latents),
+                "text": text.to(dev),
+                "gs": torch.tensor(list(guidance_scales), dtype=torch.float32,
+                                   device=dev),
+                "timesteps": torch.as_tensor(timesteps, device=dev)}
+        if alt is not None:
+            bufs["alt"] = alt.to(dev)
+            bufs["use_alt"] = torch.as_tensor(use_alt, dtype=torch.bool,
+                                              device=dev)
+        if rep_cfg is not None:
+            bufs["refs"] = refs.to(device=dev, dtype=torch.float32)
+        unet, vae, sch = self.unet, self.vae, self.scheduler
+
+        def loop(bufs, steps=None):
+            noise = bufs["noise"]
+            return sample_sd(
+                unet, sch, bufs["text"], bufs["latents"],
+                lambda i, salt: noise[slots[i, salt]], num_inference_steps,
+                guidance=guidance, repellency=rep_cfg, refs=bufs.get("refs"),
+                window=window, guidance_scale=bufs["gs"],
+                text_embeds_alt=bufs.get("alt"),
+                use_alt_per_step=bufs.get("use_alt"), freeu=freeu,
+                t_table=bufs["timesteps"], steps=steps)
+
+        def decode(latents):
+            return vae.decode(latents / vae.config.scaling_factor)
+
+        key = ("sd", id(unet), id(vae), unet.conv_in.weight.dtype,
+               self._int8_min_dim, type(sch).__name__, sch.config,
+               num_inference_steps, guidance, rep_cfg, window, freeu)
+        return (graph.Program(key, loop, decode, graph.warm_step(in_window),
+                              timesteps), bufs)
+
+    def _launch(self, program, bufs, timer=None) -> "PendingGeneration":
+        """Run a prepared batch: through the CUDA graphs on ``cuda``,
+        eagerly on the CPU (``graph.GraphSlot.run``)."""
+        timer = timer or _StageTimer(self.device)
+        latents, applied, image = self._graphs.run(program, bufs,
+                                                   timer.mark)
+        return PendingGeneration(self, program.timesteps, latents, image,
+                                 applied, timer)
+
+    def dispatch_batch(self, prompts: Sequence[str], seeds: Sequence[int],
+                       guidance_scales: Sequence[float], **kwargs
+                       ) -> "PendingGeneration":
+        """Enqueue text preparation, the sampling loop and the VAE decode
+        for a batch of prompts (CUDA runs them asynchronously; the loop and
+        the decode from CUDA graphs, ``graph.py``); ``fetch()`` on the
+        returned handle waits and returns the images. Keywords: those of
+        ``_prepare_batch`` (steps, size, repellency, erase spec, SAFREE,
+        SLD, FreeU)."""
+        timer = _StageTimer(self.device)
+        program, bufs = self._prepare_batch(prompts, seeds, guidance_scales,
+                                            mark=timer.mark, **kwargs)
+        return self._launch(program, bufs, timer)
 
     def generate_batch(self, prompts: Sequence[str], seeds: Sequence[int],
                        guidance_scales: Sequence[float], **kwargs):

@@ -18,8 +18,9 @@ The towers compute as in the JAX package: the CLIP towers in f32, T5, the
 MMDiT and the VAE in ``dtype`` (bf16). Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``. Each prompt row draws its initial
 latents and its renoise noise from its own ``torch.Generator`` seeded with
-the row's seed. LoRA, the data mesh and bank sharding are not ported and
-raise ``NotImplementedError``.
+the row's seed, before the loop; on ``cuda`` the loop and the decode
+replay from CUDA graphs (``graph.py``). LoRA, the data mesh and bank
+sharding are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..schedulers.flow_match import (FlowMatchEulerScheduler,
 from .diffusion import PendingGeneration, _StageTimer
 from .safree import (NUDITY_NEGATIVE_PROMPT_SPACE, projection_matrix,
                      safree_projection)
+from . import graph
 from .sampler import RepellencyWindow, sample_sd3
 
 SD3_NUDITY_NEGATIVE_PROMPT = ", ".join(NUDITY_NEGATIVE_PROMPT_SPACE)
@@ -90,6 +92,7 @@ class SafeDiffusion3Pipeline:
         self.vae_scale_factor = 2 ** (len(vae.config.block_out_channels) - 1)
         self.joint_dim = transformer.config.joint_attention_dim
         self.int8_layers = 0
+        self._graphs = graph.GraphSlot()
 
     @classmethod
     def from_pretrained(cls, model_dir: str, device=None,
@@ -211,7 +214,7 @@ class SafeDiffusion3Pipeline:
         return torch.stack(rows, dim=1), pooled
 
     # -- generation ---------------------------------------------------------
-    def dispatch_batch(self, prompts: Sequence[str], seeds: Sequence[int],
+    def _prepare_batch(self, prompts: Sequence[str], seeds: Sequence[int],
                        guidance_scales: Sequence[float],
                        num_inference_steps: int = 50,
                        negative_prompt: Optional[str] = None,
@@ -220,53 +223,100 @@ class SafeDiffusion3Pipeline:
                        safree: bool = False, sf_alpha: float = 0.01,
                        repellency_processor=None,
                        window: RepellencyWindow = RepellencyWindow(
-                           1000.0, 780.0)) -> PendingGeneration:
-        """Enqueue the text encode, the flow-match loop and the VAE decode
-        for a batch (CUDA runs them asynchronously); ``fetch()`` on the
-        handle waits and returns the images."""
+                           1000.0, 780.0), mark=lambda name: None):
+        """The text encode (then ``mark("encode")``) and the batch's
+        inputs: ``(graph.Program, buffers)`` (``_batch_inputs``)."""
         b = len(prompts)
         if len(seeds) != b or len(guidance_scales) != b:
             raise ValueError("one seed and one guidance scale per prompt")
-        timer = _StageTimer(self.device)
         with torch.no_grad():
             embeds, pooled = self._prepare_batch_embeds(
                 prompts, negative_prompt, negative_prompt2, safree, sf_alpha)
-            timer.mark("encode")
-            gens = [torch.Generator(device=self.device).manual_seed(int(s))
-                    for s in seeds]
-            single = (self.transformer.config.in_channels,
-                      height // self.vae_scale_factor,
-                      width // self.vae_scale_factor)
+        mark("encode")
+        rep_cfg, refs = None, None
+        if repellency_processor is not None:
+            # the reference's fast SD3 module: channel-normalized x, no
+            # beta gate, and its default sigma 1.0 whatever the config
+            rep_cfg = dataclasses.replace(
+                repellency_processor.config(), sigma=1.0,
+                normalize_x=True, use_beta_gate=False)
+            refs = repellency_processor.get_proj_ref()
+        return self._batch_inputs(embeds, pooled, seeds, guidance_scales,
+                                  num_inference_steps, height, width,
+                                  rep_cfg, refs, window)
 
-            def draw(*_):
-                return torch.stack([
-                    torch.randn(single, generator=g, device=self.device)
-                    for g in gens])
+    def _batch_inputs(self, embeds, pooled, seeds, guidance_scales,
+                      num_inference_steps: int, height: int, width: int,
+                      rep_cfg, refs, window: RepellencyWindow):
+        """The sampling program of these statics and the batch's buffers:
+        initial latents and the renoise draws inside the window (``graph.
+        noise_slots``) from per-row generators seeded with ``seeds``, the
+        embeddings, guidance scales, the bank."""
+        dev = self.device
+        gens = [torch.Generator(device=dev).manual_seed(int(s))
+                for s in seeds]
+        single = (self.transformer.config.in_channels,
+                  height // self.vae_scale_factor,
+                  width // self.vae_scale_factor)
 
-            latents = draw()
-            rep_cfg, refs = None, None
-            if repellency_processor is not None:
-                # the reference's fast SD3 module: channel-normalized x, no
-                # beta gate, and its default sigma 1.0 whatever the config
-                rep_cfg = dataclasses.replace(
-                    repellency_processor.config(), sigma=1.0,
-                    normalize_x=True, use_beta_gate=False)
-                refs = repellency_processor.get_proj_ref().to(self.device)
-            gs = torch.tensor(list(guidance_scales), dtype=torch.float32,
-                              device=self.device)
-            latents, applied = sample_sd3(
-                self.transformer, self.scheduler, embeds, pooled, latents,
-                draw, num_inference_steps, guidance_scale=gs,
-                repellency=rep_cfg, refs=refs, window=window)
-            timer.mark("loop")
-            vcfg = self.vae.config
-            image = self.vae.decode(latents / vcfg.scaling_factor
-                                    + vcfg.shift_factor)
-            timer.mark("decode")
+        def draw():
+            return torch.stack([torch.randn(single, generator=g, device=dev)
+                                for g in gens])
+
         timesteps, _ = self.scheduler.timesteps_and_sigmas(
             num_inference_steps)
-        return PendingGeneration(self, timesteps, latents, image, applied,
-                                 timer)
+        in_window = [rep_cfg is not None and window.mask(i, float(t))
+                     for i, t in enumerate(timesteps)]
+        slots = graph.noise_slots(in_window, step_noise=False)
+        latents = draw()
+        bufs = {"latents": latents,
+                "noise": graph.draw_noise(draw, len(slots), latents),
+                "embeds": embeds.to(dev), "pooled": pooled.to(dev),
+                "gs": torch.tensor(list(guidance_scales), dtype=torch.float32,
+                                   device=dev)}
+        if rep_cfg is not None:
+            bufs["refs"] = refs.to(device=dev, dtype=torch.float32)
+        tf, vae, sch = self.transformer, self.vae, self.scheduler
+
+        def loop(bufs, steps=None):
+            noise = bufs["noise"]
+            return sample_sd3(
+                tf, sch, bufs["embeds"], bufs["pooled"], bufs["latents"],
+                lambda i, salt: noise[slots[i, salt]], num_inference_steps,
+                guidance_scale=bufs["gs"], repellency=rep_cfg,
+                refs=bufs.get("refs"), window=window, steps=steps)
+
+        def decode(latents):
+            vcfg = vae.config
+            return vae.decode(latents / vcfg.scaling_factor
+                              + vcfg.shift_factor)
+
+        key = ("sd3", id(tf), id(vae), tf.context_embedder.weight.dtype,
+               self.int8_layers, sch.config, num_inference_steps, rep_cfg,
+               window)
+        return (graph.Program(key, loop, decode, graph.warm_step(in_window),
+                              timesteps), bufs)
+
+    def _launch(self, program, bufs, timer=None) -> PendingGeneration:
+        """Run a prepared batch: through the CUDA graphs on ``cuda``,
+        eagerly on the CPU (``graph.GraphSlot.run``)."""
+        timer = timer or _StageTimer(self.device)
+        latents, applied, image = self._graphs.run(program, bufs,
+                                                   timer.mark)
+        return PendingGeneration(self, program.timesteps, latents, image,
+                                 applied, timer)
+
+    def dispatch_batch(self, prompts: Sequence[str], seeds: Sequence[int],
+                       guidance_scales: Sequence[float], **kwargs
+                       ) -> PendingGeneration:
+        """Enqueue the text encode, the flow-match loop and the VAE decode
+        for a batch (CUDA runs them asynchronously; the loop and the decode
+        from CUDA graphs, ``graph.py``); ``fetch()`` on the handle waits
+        and returns the images. Keywords: those of ``_prepare_batch``."""
+        timer = _StageTimer(self.device)
+        program, bufs = self._prepare_batch(prompts, seeds, guidance_scales,
+                                            mark=timer.mark, **kwargs)
+        return self._launch(program, bufs, timer)
 
     def generate_batch(self, prompts: Sequence[str], seeds: Sequence[int],
                        guidance_scales: Sequence[float], **kwargs):

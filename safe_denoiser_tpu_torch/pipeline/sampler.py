@@ -10,13 +10,20 @@ Counterpart of ``safe_denoiser_tpu/pipeline/sampler.py::sample_sd`` and
 the window the bank is never read. Noise is injected: ``noise_fn(i,
 salt)`` returns the step's noise ([B, C, H, W]; salt 1 = the repellency
 renoise, 2 = the scheduler's step), so tests can feed the JAX package's
-stream and the pipelines their own per-seed generators.
+stream and the pipelines their draws from per-seed generators.
+
+The loops can be captured whole into one CUDA graph (``graph.py``): each
+step reads its timestep from a device table (``t_table``) and SAFREE's
+per-sample mask from the device, and no step copies from the host or
+branches on per-request data. The host branches that remain -- the
+repellency window (``RepellencyWindow.mask``) and SLD's warm-up -- depend
+on the step index alone, so a graph keeps them as it recorded them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,6 +58,8 @@ class RepellencyWindow:
     by_timestep: bool = True
 
     def mask(self, i: int, t: int) -> bool:
+        # a function of the step (i and its timestep) alone, the same for
+        # every request: a CUDA graph of the loop keeps the branch
         if self.by_timestep:
             return self.t_end <= t <= self.t_start
         return self.step_start <= i <= self.step_end
@@ -81,7 +90,7 @@ def _combine_guidance(noise_pred: torch.Tensor, i: int,
     guidance_safety = guidance_safety + guidance.sld_momentum_scale * momentum
     momentum = (guidance.sld_mom_beta * momentum
                 + (1.0 - guidance.sld_mom_beta) * guidance_safety)
-    if i >= guidance.sld_warmup_steps:
+    if i >= guidance.sld_warmup_steps:   # step index only: graph-safe
         noise_guidance = noise_guidance - guidance_safety
     return uncond + g * noise_guidance, momentum
 
@@ -123,44 +132,56 @@ def sample_sd(unet_fn: Callable[..., torch.Tensor],
               guidance_scale=None,
               text_embeds_alt: Optional[torch.Tensor] = None,
               use_alt_per_step: Optional[torch.Tensor] = None,
-              freeu=None):
+              freeu=None,
+              t_table: Optional[torch.Tensor] = None,
+              steps: Optional[Sequence[int]] = None):
     """Run the reverse diffusion for SD-v1.x.
 
     unet_fn: ``(latents [B', C, H, W], t, context [B', S, D], freeu=)
-    -> eps``, the UNet's signature.
+    -> eps``, the UNet's signature; t is step i's entry of ``t_table``.
     text_embeds: [branches, B, S, D], branch order [uncond, cond, extra]
     (extra: the original cond for 'lra', the safety concept for 'sld').
     latents: [B, C, H, W] initial noise, scaled by init_noise_sigma.
     noise_fn: ``(step index, salt) -> [B, C, H, W]`` noise.
     text_embeds_alt / use_alt_per_step: SAFREE's adaptive window; at step i
     a sample takes its context from ``text_embeds_alt`` where
-    ``use_alt_per_step[i]`` ([steps] or [steps, B] bool) holds.
+    ``use_alt_per_step[i]`` ([steps] or [steps, B] bool) holds. The mask
+    moves to the device once, and every step selects with it
+    (``torch.where``: exactly ``text_embeds`` where it is false).
     freeu: a ``FreeUConfig`` for the UNet.
+    t_table: the timesteps as an int64 tensor on the latents' device,
+    built once (default: here, before the first step).
+    steps: the step indices to run (default all of them; a graph's warm-up
+    runs one).
     Returns (final latents [B, C, H, W], rep_applied [steps, B] bool).
     """
     timesteps = scheduler.timesteps(num_inference_steps)
+    if t_table is None:
+        t_table = torch.as_tensor(timesteps, device=latents.device)
     n_br, b = text_embeds.shape[0], text_embeds.shape[1]
     if n_br != guidance.branches:
         raise ValueError(f"{n_br} text branches for guidance mode "
                          f"{guidance.mode}")
     ctx = text_embeds.reshape(n_br * b, *text_embeds.shape[2:])
-    swap = None
+    alt = use = None
     if text_embeds_alt is not None and use_alt_per_step is not None:
-        use = torch.as_tensor(use_alt_per_step, dtype=torch.bool)
+        use = torch.as_tensor(use_alt_per_step, dtype=torch.bool,
+                              device=ctx.device)
         if use.dim() == 1:
             use = use[:, None].expand(num_inference_steps, b)
-        swap = (text_embeds_alt.reshape(ctx.shape), use.cpu())
+        alt = text_embeds_alt.reshape(ctx.shape)
     momentum = torch.zeros_like(latents)
     applied = torch.zeros((num_inference_steps, b), dtype=torch.bool,
                           device=latents.device)
-    for i, t in enumerate(int(t) for t in timesteps):
+    for i in range(num_inference_steps) if steps is None else steps:
+        t = int(timesteps[i])
         latent_in = scheduler.scale_model_input(
             torch.cat([latents] * n_br, dim=0), t)
         step_ctx = ctx
-        if swap is not None and bool(swap[1][i].any()):
-            rows = swap[1][i].repeat(n_br).to(ctx.device)
-            step_ctx = torch.where(rows[:, None, None], swap[0], ctx)
-        eps = unet_fn(latent_in, t, step_ctx, freeu=freeu)
+        if alt is not None:
+            rows = use[i].repeat(n_br)
+            step_ctx = torch.where(rows[:, None, None], alt, ctx)
+        eps = unet_fn(latent_in, t_table[i], step_ctx, freeu=freeu)
         eps = eps.reshape(n_br, b, *eps.shape[1:])
         eps, momentum = _combine_guidance(eps, i, guidance, momentum,
                                           guidance_scale)
@@ -183,7 +204,8 @@ def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
                guidance_scale=7.0,
                repellency: Optional[RepellencyConfig] = None,
                refs: Optional[torch.Tensor] = None,
-               window: RepellencyWindow = RepellencyWindow()):
+               window: RepellencyWindow = RepellencyWindow(),
+               steps: Optional[Sequence[int]] = None):
     """The SD3 flow-matching loop with the safe denoiser's renoising.
     Inside the window, with sigma_+ the next sigma:
 
@@ -197,6 +219,8 @@ def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
     pooled [2B, P]) -> v`` (f32). text_embeds [2, B, S, D] and pooled
     [2, B, P] are (uncond, cond). ``guidance_scale`` is a scalar or a [B]
     tensor. ``noise_fn(i, 1)`` gives step i's renoise eps [B, C, H, W].
+    Each step's t is a ``torch.full`` on the device (a fill, no host copy).
+    ``steps``: the step indices to run (default all of them).
     Returns (final latents [B, C, H, W], rep_applied [steps, B] bool)."""
     timesteps, sigmas = scheduler.timesteps_and_sigmas(num_inference_steps)
     b = latents.shape[0]
@@ -208,7 +232,7 @@ def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
     applied = torch.zeros((num_inference_steps, b), dtype=torch.bool,
                           device=latents.device)
     f32 = np.float32
-    for i in range(num_inference_steps):
+    for i in range(num_inference_steps) if steps is None else steps:
         t, sigma, sigma_next = timesteps[i], sigmas[i], sigmas[i + 1]
         t_in = torch.full((2 * b,), float(t), dtype=torch.float32,
                           device=latents.device)

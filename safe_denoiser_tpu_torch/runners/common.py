@@ -5,7 +5,7 @@ Counterpart of ``safe_denoiser_tpu/runners/common.py`` for the nudity,
 artist and CoPro runners (SD-v1.4) and the SD3 nudity runner. The flags
 and their defaults are the JAX package's, except ``--device`` (``cuda``;
 tests pass ``cpu``). A flag that asks for what is not ported yet
-(``--shard_bank``) raises ``NotImplementedError`` naming it
+(``--shard_bank``, the server's ``--mesh``) raises ``NotImplementedError`` naming it
 (``check_ported``).
 """
 
@@ -135,6 +135,10 @@ def check_ported(args) -> None:
     if args.shard_bank:
         raise NotImplementedError("not ported yet: --shard_bank (bank "
                                   "sharding over devices)")
+    if getattr(args, "mesh", None):
+        raise NotImplementedError(
+            "not ported yet: --mesh (serving over a data mesh of devices; "
+            "the parallel slice, ROADMAP.md A16)")
 
 
 def shard_iter(args, cases):

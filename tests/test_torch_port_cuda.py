@@ -10,7 +10,10 @@ determinism, the interleaved upsample conv against the planar one; and
 the host modules around the kernels on the GPU against the CPU: the
 repellency processors (the sparse force, LSH's bucket gather), the Q16
 gate's vision tower, and the evaluators' towers (FID Inception, OpenCLIP,
-the in-loop CLIPScore) in f32 with PyTorch's TF32 switches on.
+the in-loop CLIPScore) in f32 with PyTorch's TF32 switches on; and the
+CUDA graphs of the sampling loop and the decode (``pipeline/graph.py``)
+against the eager body on the same buffers, bit for bit, with the launch
+counters per replay and outputs that survive the next replay.
 
 Every test is marked ``cuda`` and skips where no GPU is visible. On a GPU
 machine (which need not have JAX; ``--noconftest`` skips the suite's JAX
@@ -19,6 +22,7 @@ set-up):
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1362,3 +1366,129 @@ def test_in_loop_clip_score_on_gpu_matches_the_cpu(tf32_on, tmp_path,
         want = scorers["cpu"](img, prompt)
         assert abs(scorers["cuda"](img, prompt) - want) <= \
             1e-4 * max(abs(want), 1.0)
+
+
+# ------------------------------------------------------------ CUDA graphs
+@pytest.fixture
+def graph_pipe(dev, tmp_path):
+    """A tiny f32 SD-v1 pipeline on the GPU at 32^2 latents (S = 1024 at
+    the UNet's first level and the VAE's mid-block: B1's f32 entry), with
+    kernel_fast against a random bank, and its batch arguments."""
+    import chip_smoke
+    from safe_denoiser_tpu_torch.models import (CLIPTextConfig, UNetConfig,
+                                                VAEConfig)
+    from safe_denoiser_tpu_torch.pipeline import EraseSpec, RepellencyWindow
+    from safe_denoiser_tpu_torch.repellency import KernelFastRepellency
+
+    chip_smoke.write_tiny_vocab(str(tmp_path))
+    pipe = chip_smoke.build_random_pipeline(
+        dev, str(tmp_path),
+        UNetConfig(sample_size=32, block_out_channels=(32, 64),
+                   layers_per_block=1, cross_attention_dim=32,
+                   num_attention_heads=2, norm_num_groups=8),
+        VAEConfig(block_out_channels=(32, 64), layers_per_block=1,
+                  norm_num_groups=8),
+        CLIPTextConfig(vocab_size=528, hidden_size=32, num_layers=2,
+                       num_heads=2, intermediate_size=64),
+        dtype=torch.float32)
+    bank = torch.randn(6, 4, 32, 32, device=dev, generator=_gen(1))
+    proc = KernelFastRepellency(ref_data=bank, embed_fn=lambda x: x,
+                                sigma=30.0, scale=0.4, beta_threshold=1e-12)
+    kw = dict(num_inference_steps=4, height=64, width=64,
+              repellency_processor=proc,
+              erase_spec=EraseSpec(repellency=True,
+                                   window=RepellencyWindow(1000.0, 300.0)))
+    return pipe, kw
+
+
+def test_graph_equals_eager_bit_for_bit(graph_pipe):
+    """The graphed loop and decode against the eager body on the same
+    buffers (same inputs, same noise): equal bit for bit; the replay's
+    launch counts equal the eager run's."""
+    from safe_denoiser_tpu_torch.pipeline import graph
+
+    pipe, kw = graph_pipe
+    program, bufs = pipe._prepare_batch(["a cat", "a dog"], [3, 4],
+                                        [7.5, 5.0], **kw)
+    ops.reset_launch_counts()
+    pending = pipe._launch(program, bufs)
+    pending.fetch()
+    graphed = ops.launch_counts()
+    ops.reset_launch_counts()
+    lat, applied, image = graph._run_eager(program, bufs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == graphed
+    # 4 DDPM steps (t = 751, 501, 251, 1): 2 inside [1000, 300]
+    assert graphed["attention"] > 0 and graphed["rbf"] == 2
+    assert "capture" in pending.stage_ms
+    assert torch.equal(pending.latents, lat)
+    assert torch.equal(pending.applied, applied) and bool(applied.any())
+    assert torch.equal(pending.image, image)
+
+
+def test_graph_counts_per_replay_and_keeps_outputs(graph_pipe):
+    """Each replay adds one batch's launches (none counted at capture);
+    a batch's outputs survive the next batch's replay (they are clones);
+    a new key captures anew."""
+    pipe, kw = graph_pipe
+    ops.reset_launch_counts()
+    first = pipe.dispatch_batch(["a cat", "a dog"], [3, 4], [7.5, 5.0], **kw)
+    one = ops.launch_counts()
+    kept = first.latents.clone()
+    second = pipe.dispatch_batch(["a cat", "a dog"], [5, 6], [7.5, 5.0],
+                                 **kw)
+    first.fetch(), second.fetch()
+    assert ops.launch_counts() == {k: 2 * v for k, v in one.items()}
+    assert "capture" in first.stage_ms and "capture" not in second.stage_ms
+    assert torch.equal(first.latents, kept)
+    assert not torch.equal(first.latents, second.latents)
+    again = pipe.dispatch_batch(["a cat", "a dog"], [3, 4], [7.5, 5.0], **kw)
+    assert torch.equal(again.latents, kept)
+    three = pipe.dispatch_batch(["a cat", "a dog"], [3, 4], [7.5, 5.0],
+                                **{**kw, "num_inference_steps": 3})
+    three.fetch()
+    assert "capture" in three.stage_ms
+
+
+def test_graph_replays_weights_loaded_in_place(graph_pipe):
+    """A graph captured before ``load_state_dict`` replays the new weights
+    (they are copied into the same tensors): equal to the eager body on
+    them."""
+    from safe_denoiser_tpu_torch.pipeline import graph
+
+    pipe, kw = graph_pipe
+    args = (["a cat", "a dog"], [3, 4], [7.5, 5.0])
+    before = pipe.dispatch_batch(*args, **kw).fetch(return_latents=True)
+    sd = {k: v + 0.01 if v.is_floating_point() else v
+          for k, v in pipe.unet.state_dict().items()}
+    pipe.unet.load_state_dict(sd)
+    program, bufs = pipe._prepare_batch(*args, **kw)
+    after = pipe._launch(program, bufs)
+    after.fetch()
+    assert "capture" not in after.stage_ms
+    want = graph._run_eager(program, bufs)[0]
+    assert torch.equal(after.fetch(return_latents=True), want)
+    assert not torch.equal(before, want)
+
+
+def test_graph_capture_failure_raises(dev):
+    """A loop that syncs with the host cannot be captured: the slot
+    raises, and runs nothing eagerly in its place."""
+    from safe_denoiser_tpu_torch.pipeline import graph
+
+    calls = []
+
+    def loop(bufs, steps=None):
+        calls.append(steps)
+        x = bufs["latents"] * 2
+        if steps is None and x.sum().item() > 1e30:  # a host sync
+            x = x + 1
+        return x, torch.zeros(1, dtype=torch.bool, device=x.device)
+
+    program = graph.Program(("sync",), loop, lambda x: x, 0,
+                            np.zeros(1, np.int64))
+    bufs = {"latents": torch.ones(4, device=dev)}
+    with pytest.raises(RuntimeError):
+        graph.GraphSlot().run(program, bufs)
+    assert calls == [(0,), None]
+    torch.cuda.synchronize()
