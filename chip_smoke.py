@@ -23,7 +23,11 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      where one exists (``device_ms``: calls captured into a CUDA graph and
      replayed), the bound the card could reach, and the wrapper-paced
      times of the kernel, the library call and the plain version
-     (``cuda_ms``: events around Python calls);
+     (``cuda_ms``: events around Python calls); then the backward kernels
+     (B1b, B5b, B3b-dx, B3b-dw) at the training slice's shapes against
+     their plain backward in f32, with the autograd backward of the
+     PyTorch call as the library time, and two calls of B1b and B3b-dw
+     equal bit for bit;
   3b. with --parent DIR (the root of an earlier checkout, unpacked with
      ``git archive``): its attention.cu, attention_nt.cu, attention_bshd.cu,
      conv3x3.cu, conv3x3_up.cu, attention_i8.cu, conv3x3_up_interleave.cu
@@ -128,6 +132,20 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      batch equal to the live one) and refusals of other steps and of
      another task YAML; after phase 8b, ``--sd3`` on phase 8's checkpoint
      with 2 requests at 1024^2. Launch counts of every kernel.
+  10. training (after phase 9, on phase 6's checkpoint): ``runners.
+     train_esd`` at full SD-v1.4 width, batch 1, 512^2 -- noxattn for 3
+     iterations with a snapshot at 2, the same run resumed from it (equal
+     bit for bit), a LoRA run (rank 4, xattn, the adapter saved) --
+     and ``runners.edit_concepts`` (RECE); the losses, the changed
+     subsets, the export through ``load_unet_state_dict`` and
+     ``load_lora`` against the in-memory merge, the B1/B1b, B5/B5b and
+     B3/B3b launches per iteration, an iteration's device ms by part, the
+     peak memory, and one ESD loss's gradient on the card (bf16, the
+     kernels) against the CPU (f32, the plain versions) per parameter
+     group (``phase_grad_check``);
+  10b. after phase 9's SD3 server: SD3 flow matching under LoRA on phase
+     8's checkpoint (MMDiT 1536 wide, 6 blocks), 1024^2, batch 1, 2 steps
+     (B1/B1b at [1,4429,24,64]); finite losses, the adapter moved.
 The last line of standard output is the result, {"ok": true, "device": ...};
 the line before it lists the kernels as JSON.
 """
@@ -1266,6 +1284,178 @@ def phase_kernels() -> dict:
     return results
 
 
+# The backward kernels' phase-3 shapes, those of the training slice
+# (phase 10, batch 1): B1b at the SD-v1 student's two self-attentions and
+# SD3's joint attention (flow matching, phase 10b); B5b at the UNet's two
+# largest statistics-kernel GroupNorms at 64^2; B3b at the UNet's 640-
+# channel 32 -> 64 upsample conv (h [B, H2, W2, Ci])
+BWD_B1 = ((1, 4096, 8, 40), (1, 1024, 8, 80), (1, 4429, 24, 64))
+BWD_B5 = ((1, 4096, 640), (1, 4096, 960))
+BWD_B3 = ((1, 32, 32, 640, 640),)
+# bounds of the backward rows, max|kernel - plain| / max|plain| per output
+# on the same inputs, plain in f32: B1b rounds P and dS to bf16 for its
+# products and writes bf16 (2^-9 and 2^-8 relative a step); B3b-dx folds
+# up to four taps into one bf16 weight and writes bf16; B3b-dw sums exact
+# bf16 products in f32 in another order (a dropped tap or lost Delta is
+# O(1))
+BWD_B1_RTOL, BWD_DX_RTOL, BWD_DW_RTOL = 2e-2, 1e-2, 1e-3
+BWD_KERNELS = ("attention_bwd", "gn_stats_bwd", "conv3x3_up_bwd_dx",
+               "conv3x3_up_bwd_dw")
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want| (f32)."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def phase_backward_kernels() -> dict:
+    """Each backward kernel against its plain backward on the same inputs
+    (the plain one in f32) at the training slice's shapes, with its device
+    time, a library call's (the autograd backward of the PyTorch call that
+    computes the forward: events around the call, as its autograd graph is
+    not captured), the plain version's and the bound."""
+    import torch.nn.functional as F
+
+    from safe_denoiser_tpu_torch.ops import attention, conv3x3, group_norm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    results = {}
+
+    def keep(name, row):
+        if name not in results:
+            results[name] = row
+        results[name]["err"] = max(results[name]["err"], row["err"])
+
+    # B1b: q, k, v, dO ~ N(0, 1) in bf16, O from B1; plain from the same
+    # bf16 values in f32. Library: SDPA's backward (flash) on the
+    # [B, H, S, D] views
+    for b, s, h, d in BWD_B1:
+        q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g)
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = d ** -0.5
+        o = attention.self_attention(q, k, v, scale)
+        got = attention._attention_bwd_cuda(q, k, v, o, do, scale)
+        want = attention.attention_bwd_ref(*(t.float() for t in
+                                             (q, k, v, o, do)), scale)
+        err = max(_rel_err(x, y) for x, y in zip(got, want))
+        del got, want
+
+        def kernel():
+            return attention._attention_bwd_cuda(q, k, v, o, do, scale)
+
+        ms = cuda_ms(kernel, reps=5)
+        plain = cuda_ms(lambda: attention.attention_bwd_ref(
+            q, k, v, o, do, scale), reps=2, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), reps=5)
+        dtm = (device_ms(kernel, reps=5), lib)
+        bnd = bound_ms(8 * b * s * h * d * 2, attention.bwd_flops(b, s, h, d),
+                       PEAK_BF16)
+        _report("attention_bwd", [b, s, h, d], err, BWD_B1_RTOL, ms, plain,
+                lib, bnd, "autograd of F.scaled_dot_product_attention; "
+                "library_device_ms from events around the call", dtm,
+                metric="max|d|/max|plain|")
+        del qt, kt, vt, ot
+        keep("attention_bwd", dict(err=err, ms=ms, plain=plain, lib=lib,
+                                   bound=bnd, dev=dtm))
+
+    # B5b: x ~ N(1, 2^2) in bf16, ds1/ds2 ~ N(0, 1) f32; the kernel's bf16
+    # dx against the plain one in f32, within one bf16 ulp of max|dx|.
+    # Library: the expression ds1 + 2 x ds2 (f32 out). Bound: one read of
+    # x, one write of dx
+    for b, s, c in BWD_B5:
+        x = (torch.randn(b, s, c, device=dev, generator=g) * 2 + 1).to(
+            torch.bfloat16)
+        ds1, ds2 = (torch.randn(b, c, device=dev, generator=g)
+                    for _ in range(2))
+        got = group_norm._gn_stats_bwd_cuda(x, ds1, ds2)
+        want = group_norm.gn_stats_bwd_ref(x.float(), ds1, ds2)
+        err = (got.float() - want).abs().max().item()
+        tol = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+        ms = cuda_ms(lambda: group_norm._gn_stats_bwd_cuda(x, ds1, ds2))
+        plain = cuda_ms(lambda: group_norm.gn_stats_bwd_ref(x, ds1, ds2))
+
+        def library():
+            return ds1[:, None] + 2 * x * ds2[:, None]
+
+        lib = cuda_ms(library)
+        dtm = (device_ms(lambda: group_norm._gn_stats_bwd_cuda(x, ds1, ds2)),
+               device_ms(library))
+        bnd = bound_ms(2 * x.nbytes + 2 * b * c * 4, 0, PEAK_F32)
+        _report("gn_stats_bwd", [b, s, c], err, tol, ms, plain, lib, bnd,
+                "ds1[:, None] + 2 * x * ds2[:, None]", dtm)
+        keep("gn_stats_bwd", dict(err=err, ms=ms, plain=plain, lib=lib,
+                                  bound=bnd, dev=dtm))
+
+    # B3b: h, dy ~ N(0, 1) bf16, w ~ N(0, 1/(9 Ci)) bf16; plain in f32
+    # (TF32 off). Library: cuDNN's convolution_backward on the upsampled
+    # channels_last input, dgrad (without the 2x2 pool) for dx, wgrad +
+    # bias for dw
+    for b, h2, w2, ci, co in BWD_B3:
+        hh = torch.randn(b, h2, w2, ci, device=dev, generator=g).to(
+            torch.bfloat16)
+        w = (torch.randn(co, ci, 3, 3, device=dev, generator=g)
+             / (9 * ci) ** 0.5).to(torch.bfloat16)
+        dy = torch.randn(b, 2 * h2, 2 * w2, co, device=dev,
+                         generator=g).to(torch.bfloat16)
+        w4 = conv3x3.bwd_dx_weights(w)
+        dh = conv3x3._conv3x3_up_bwd_dx_cuda(dy, w4, hh.shape)
+        dw, db = conv3x3._conv3x3_up_bwd_dw_cuda(dy, hh)
+        want = conv3x3.conv3x3_up_bwd_ref(hh.float(), w.float(), dy.float())
+        err_dx = _rel_err(dh, want[0])
+        err_dw = max(_rel_err(dw, want[1]), _rel_err(db, want[2]))
+        x_up = F.interpolate(hh.permute(0, 3, 1, 2), scale_factor=2,
+                             mode="nearest").contiguous(
+            memory_format=torch.channels_last)
+        dyn = dy.permute(0, 3, 1, 2)
+        wl = w.contiguous(memory_format=torch.channels_last)
+        flops = conv3x3.flops(b, h2, w2, ci, co)
+        n_h, n_y, n_w = hh.numel() * 2, dy.numel() * 2, w.numel() * 2
+        for name, err, tol, fn, mask, bytes_, plain_fn in (
+                ("conv3x3_up_bwd_dx", err_dx, BWD_DX_RTOL,
+                 lambda: conv3x3._conv3x3_up_bwd_dx_cuda(dy, w4, hh.shape),
+                 [True, False, False], n_y + n_w + n_h,
+                 lambda: conv3x3.conv3x3_up_bwd_ref(hh, w, dy)[0]),
+                ("conv3x3_up_bwd_dw", err_dw, BWD_DW_RTOL,
+                 lambda: conv3x3._conv3x3_up_bwd_dw_cuda(dy, hh),
+                 [False, True, True], n_y + n_h + 2 * n_w + 4 * co,
+                 lambda: conv3x3.conv3x3_up_bwd_ref(hh, w, dy)[1:])):
+            def library(mask=mask):
+                return torch.ops.aten.convolution_backward(
+                    dyn, x_up, wl, [co], [1, 1], [1, 1], [1, 1], False,
+                    [0, 0], 1, mask)
+
+            ms = cuda_ms(fn)
+            plain = cuda_ms(plain_fn, reps=2, warmup=1)
+            lib = cuda_ms(library)
+            dtm = (device_ms(fn), device_ms(library))
+            bnd = bound_ms(bytes_, flops, PEAK_BF16)
+            _report(name, [b, h2, w2, ci, co], err, tol, ms, plain, lib, bnd,
+                    "aten.convolution_backward (cuDNN) on the upsampled "
+                    f"input, output_mask {mask}", dtm,
+                    metric="max|d|/max|plain|")
+            keep(name, dict(err=err, ms=ms, plain=plain, lib=lib, bound=bnd,
+                            dev=dtm))
+        del x_up, want, dh, dw
+    # two calls give the same bits (no atomics)
+    for name, fn in (("attention_bwd", lambda: attention._attention_bwd_cuda(
+            q, k, v, o, do, d ** -0.5)),
+            ("conv3x3_up_bwd_dw", lambda: conv3x3._conv3x3_up_bwd_dw_cuda(
+                dy, hh))):
+        one, two = fn(), fn()
+        if not all(torch.equal(x, y) for x, y in zip(one, two)):
+            fail(f"{name}: two calls on the same inputs differ")
+    print("backward kernels: two calls of B1b and of B3b-dw gave the same "
+          "bits")
+    return results
+
+
 # phase 3b's shapes: B1 (B, S, H, D) at SD-v1's two self-attentions (batch
 # 4 with CFG) and SD3's joint attention; B9 (BH, S, D, valid_kv) at the
 # same work in the nt layout (SD3 padded to the 512 grid); B10 (B, S, H, D)
@@ -1575,6 +1765,19 @@ KERNEL_META = {
         "safe_denoiser_tpu/ops/conv3x3.py:180"),
     "gn_fused": ("cuda", "safe_denoiser_tpu_torch/csrc/group_norm.cu",
                  "safe_denoiser_tpu/ops/group_norm.py:181"),
+    # the backward kernels: no TPU kernel of their own (the JAX kernels have
+    # no VJP); "replaces" names the TPU kernel whose function they
+    # differentiate, and "backward" marks them
+    "attention_bwd": ("cuda", "safe_denoiser_tpu_torch/csrc/attention_bwd.cu",
+                      "safe_denoiser_tpu/ops/attention.py:36"),
+    "gn_stats_bwd": ("triton", "safe_denoiser_tpu_torch/ops/group_norm.py",
+                     "safe_denoiser_tpu/ops/group_norm.py:138"),
+    "conv3x3_up_bwd_dx": ("cuda",
+                          "safe_denoiser_tpu_torch/csrc/conv3x3_up_bwd.cu",
+                          "safe_denoiser_tpu/ops/conv3x3.py:282"),
+    "conv3x3_up_bwd_dw": ("cuda",
+                          "safe_denoiser_tpu_torch/csrc/conv3x3_up_bwd.cu",
+                          "safe_denoiser_tpu/ops/conv3x3.py:282"),
 }
 
 
@@ -1588,7 +1791,8 @@ def kernels_line(results: dict, counts: dict) -> str:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["lib"], "device_ms": r["dev"][0],
-            "library_device_ms": r["dev"][1]})
+            "library_device_ms": r["dev"][1],
+            "backward": name in BWD_KERNELS})
     return json.dumps({"kernels": rows})
 
 
@@ -3466,6 +3670,7 @@ data:
             fail("sd3 runner phase: " + "; ".join(problems))
         counts = phase_sd3_coco(tmp, ckpt, want_coco, coco_bank)
         counts.update(phase_serve_sd3(tmp, ckpt, task))
+        counts["sd3-flow-lora"] = phase_sd3_flow_lora(ckpt)
         return counts
 
 
@@ -3853,6 +4058,446 @@ def profile_call(fn, label: str) -> None:
         print(f"  profile {ms:10.3f} ms {n:6d}x {key[:100]}")
 
 
+# phase 10, the training slice: SD-v1.4 at batch 1, 512^2 (64^2 latents),
+# 3 iterations; the concept and the LoRA rank; the SD3 flow-matching LoRA
+# run (10b): its steps, rank and targets (the attention projections of
+# both streams, the flax paths' "attn_" kernels)
+TRAIN_ITERS, TRAIN_SIDE, TRAIN_PROMPT, TRAIN_LORA_RANK = 3, 512, "nudity", 4
+# UNet forwards of an ESD iteration: the x_t draw's 3 CFG steps (batch 2),
+# the frozen teacher (batch 2), the student (batch 1, with its backward)
+TRAIN_FORWARDS = 5
+FLOW_STEPS, FLOW_RANK, FLOW_TARGETS = 2, 4, "attn_"
+# the card-vs-CPU gradient check (``phase_grad_check``): cosine floor and
+# max|card - cpu| / max|cpu| ceiling of each parameter group. The card
+# computes in bf16 through the kernels (B1/B1b, B5/B5b, B3/B3b), the CPU
+# in f32 through the plain versions: bf16 rounding through the UNet and
+# back read cosines >= 0.99988 and max|d|/max|cpu| <= 1.42e-2 in every
+# group on an H100 (two weight draws); the bounds sit ~3.5x outside that
+# relative error. A B1b without its Delta term read 0.509 / 1.82 in the
+# q/k group, a B3b-dw without tap (0, 0) 0.943 / 1.0 in its group: both
+# fail (readings in PERF.md)
+GRAD_COS_MIN, GRAD_REL_MAX = 0.999, 0.05
+
+
+def unet_kernel_counts(cfg, h: int, w: int) -> dict:
+    """B1, B5 and B3 launches of one bf16 UNet forward at h x w latents,
+    from the routing gates: self-attentions that ``attention.supports``
+    takes, the statistics kernel's GroupNorms (``unet_gn_launches``), the
+    upsamples that ``conv3x3.supports_up`` takes."""
+    from safe_denoiser_tpu_torch.ops import attention
+    from safe_denoiser_tpu_torch.ops import conv3x3 as c3
+
+    chans, heads = list(cfg.block_out_channels), cfg.num_attention_heads
+    n, t = len(chans), cfg.transformer_layers
+
+    def takes(level: int, ch: int) -> bool:
+        s = (h >> level) * (w >> level)
+        return attention.supports(s, s, ch // heads)
+
+    attn = sum(cfg.layers_per_block * t for i in range(n - 1)
+               if takes(i, chans[i]))
+    attn += t if takes(n - 1, chans[-1]) else 0
+    rev = chans[::-1]
+    attn += sum((cfg.layers_per_block + 1) * t for i in range(1, n)
+                if takes(n - 1 - i, rev[i]))
+    up = sum(1 for i in range(n - 1)
+             if c3.supports_up((1, h >> (n - 1 - i), w >> (n - 1 - i),
+                                rev[i]), rev[i], rev[i]))
+    return {"attention": attn,
+            "gn_stats": unet_gn_launches(cfg, h, w)["gn_stats"],
+            "conv3x3_up": up}
+
+
+def _train_losses(log_dir: str) -> list:
+    import re
+    with open(os.path.join(log_dir, "train_logs.txt")) as f:
+        return [float(m.group(1)) for m in
+                re.finditer(r"iter \d+: loss (\S+)", f.read())]
+
+
+def _all_counts() -> dict:
+    from safe_denoiser_tpu_torch import ops
+    return {**ops.launch_counts(), **ops.backward_launch_counts()}
+
+
+def _grad_groups(names, cfg, h: int, w: int) -> dict:
+    """The gradient check's parameter groups: the self-attention q/k and
+    v/out projections where B1 runs (their gradients come through B1b's dQ,
+    dK and dV), the upsample conv on B3 (B3b-dw), and every parameter."""
+    from safe_denoiser_tpu_torch.ops import attention
+
+    chans, heads, n = (list(cfg.block_out_channels), cfg.num_attention_heads,
+                       len(cfg.block_out_channels))
+
+    def on_b1(name: str) -> bool:
+        parts = name.split(".")
+        if parts[0] == "down_blocks":
+            level, ch = int(parts[1]), chans[int(parts[1])]
+        elif parts[0] == "up_blocks":
+            level, ch = n - 1 - int(parts[1]), chans[n - 1 - int(parts[1])]
+        else:
+            level, ch = n - 1, chans[-1]
+        s = (h >> level) * (w >> level)
+        return attention.supports(s, s, ch // heads)
+
+    return {
+        "B1b q/k": [m for m in names if (".attn1.to_q." in m
+                                         or ".attn1.to_k." in m)
+                    and on_b1(m)],
+        "B1b v/out": [m for m in names if (".attn1.to_v." in m
+                                           or ".attn1.to_out." in m)
+                      and on_b1(m)],
+        "B3b-dw": [m for m in names
+                   if m.startswith("up_blocks.2.upsamplers.0.conv.")],
+        "all": list(names),
+    }
+
+
+def phase_grad_check(unet_cpu=None) -> dict:
+    """The gradient of one ESD loss at full SD-v1.4 width, batch 1, 64^2
+    latents, with respect to every UNet weight: on the card in bf16 through
+    the kernels (B1/B1b, B5/B5b, B3/B3b) against the CPU in f32 through the
+    plain versions, on the same f32 weights and inputs. The student's term
+    ``mean((e_theta(x_t, t, c) - target)^2)`` with an injected target (the
+    frozen teacher's forwards carry no gradient). ``unet_cpu``: the f32
+    weights (a seeded random UNet when None). Per group (``_grad_groups``):
+    cosine similarity and max|card - cpu| / max|cpu|, held to GRAD_COS_MIN
+    and GRAD_REL_MAX."""
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.models import SD14_UNET, UNet2DConditionModel
+    from safe_denoiser_tpu_torch.training.esd import module_apply_fn
+
+    cfg = SD14_UNET
+    lat = TRAIN_SIDE // 8
+    if unet_cpu is None:
+        torch.manual_seed(5)
+        unet_cpu = UNet2DConditionModel(cfg)
+    g = torch.Generator().manual_seed(6)
+    x_t = torch.randn(1, 4, lat, lat, generator=g)
+    ctx = torch.randn(1, 77, cfg.cross_attention_dim, generator=g)
+    target = torch.randn(1, 4, lat, lat, generator=g)
+    t = torch.tensor([500])
+    unet_gpu = UNet2DConditionModel(cfg).cuda()
+    unet_gpu.load_state_dict(unet_cpu.state_dict())
+    grads = {}
+    for dev, module, dtype in (("cuda", unet_gpu, torch.bfloat16),
+                               ("cpu", unet_cpu, torch.float32)):
+        params = {n: p.detach().clone().requires_grad_()
+                  for n, p in module.named_parameters()}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        pred = module_apply_fn(module, dtype)(params, x_t.to(dev), t.to(dev),
+                                              ctx.to(dev))
+        loss = torch.mean(torch.square(pred.float() - target.to(dev)))
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = _all_counts()
+        grads[dev] = {n: p.grad.float().cpu() for n, p in params.items()}
+        print(f"gradient check: {dev} loss {loss.item():.6f} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del params, pred, loss
+    per = unet_kernel_counts(cfg, lat, lat)
+    check_launches(counts, {
+        "attention": per["attention"], "gn_stats": per["gn_stats"],
+        "conv3x3_up": per["conv3x3_up"],
+        "attention_bwd": per["attention"], "gn_stats_bwd": per["gn_stats"],
+        "conv3x3_up_bwd_dx": per["conv3x3_up"],
+        "conv3x3_up_bwd_dw": per["conv3x3_up"]}, "gradient check")
+    out, bad = {}, []
+    for name, members in _grad_groups(list(grads["cpu"]), cfg, lat,
+                                      lat).items():
+        if not members:
+            continue
+        a = torch.cat([grads["cuda"][m].reshape(-1) for m in members])
+        b = torch.cat([grads["cpu"][m].reshape(-1) for m in members])
+        cos = (torch.dot(a.double(), b.double())
+               / (a.double().norm() * b.double().norm())).item()
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        out[name] = (cos, rel)
+        print(f"gradient check {name} ({len(members)} tensors, "
+              f"{b.numel()} values): cosine {cos:.6f} max|d|/max|cpu| "
+              f"{rel:.4e} (bounds {GRAD_COS_MIN}, {GRAD_REL_MAX})")
+        if not (cos >= GRAD_COS_MIN and rel <= GRAD_REL_MAX):
+            bad.append(name)
+    del unet_gpu
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"gradient check: the card's gradient leaves the CPU's in "
+             f"{bad}")
+    return out
+
+
+def phase_train_timing(unet, ctx_c, ctx_u) -> None:
+    """One noxattn ESD iteration at full width on ``unet``'s f32 master
+    weights, timed by part with CUDA events (after 2 warm-up iterations,
+    the mean of 3): the x_t draw, the frozen teacher, the student's
+    forward and backward, the optimizer."""
+    from safe_denoiser_tpu_torch.schedulers import DDPMScheduler
+    from safe_denoiser_tpu_torch.training import (ESDConfig, esd_param_mask,
+                                                  make_optimizer,
+                                                  sample_xt_for_esd)
+    from safe_denoiser_tpu_torch.training.esd import module_apply_fn
+
+    lat = TRAIN_SIDE // 8
+    params = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    frozen = {n: p.to(torch.bfloat16) for n, p in params.items()}
+    opt = make_optimizer(ESDConfig(), params,
+                         esd_param_mask(params, "noxattn"))
+    apply_fn = module_apply_fn(unet, torch.bfloat16)
+    sch = DDPMScheduler()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    parts = ("draw", "teacher", "student", "optimizer")
+    ms = {k: [] for k in parts}
+    for it in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        x_t, t = sample_xt_for_esd(apply_fn, frozen, sch, ctx_c, ctx_u, gen,
+                                   (1, 4, lat, lat))
+        ev[1].record()
+        with torch.no_grad():
+            e = apply_fn(frozen, torch.cat([x_t, x_t]), torch.cat([t, t]),
+                         torch.cat([ctx_c, ctx_u])).float()
+        target = e[1:] - (e[:1] - e[1:])
+        ev[2].record()
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean(torch.square(
+            apply_fn(params, x_t, t, ctx_c).float() - target))
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        if it >= 2:
+            for k, name in enumerate(parts):
+                ms[name].append(ev[k].elapsed_time(ev[k + 1]))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    print("training iteration (noxattn, batch 1, 512^2, bf16, device ms): "
+          + " ".join(f"{k}={v:.2f}" for k, v in mean.items())
+          + f" total={sum(mean.values()):.2f}")
+    del params, frozen, opt
+
+
+def phase_training(assets: dict) -> dict:
+    """Phase 10: ``runners.train_esd`` at full SD-v1.4 width on phase 6's
+    checkpoint (noxattn, 3 iterations, batch 1, 512^2, a snapshot at 2),
+    the same run resumed from iteration 2 (bit for bit), a LoRA run
+    (rank 4, xattn, the adapter saved), ``runners.edit_concepts`` (RECE);
+    checks the losses, the changed subsets, the export through
+    ``load_unet_state_dict``, ``load_lora`` against the in-memory merge,
+    the launches of B1/B1b, B5/B5b and B3/B3b per iteration; times an
+    iteration by part; holds the card's gradient against the CPU's.
+    Returns the launch counts of its runs."""
+    from safe_denoiser_tpu_torch.models import SD14_UNET
+    from safe_denoiser_tpu_torch.models.weights import load_safetensors
+    from safe_denoiser_tpu_torch.pipeline import SafeDiffusionPipeline
+    from safe_denoiser_tpu_torch.runners import edit_concepts, train_esd
+    from safe_denoiser_tpu_torch.training import (cross_attn_kv_paths,
+                                                  esd_param_mask)
+
+    ckpt = assets["ckpt"]
+    root = os.path.join(assets["tmp"], "train")
+    lat = TRAIN_SIDE // 8
+    per = unet_kernel_counts(SD14_UNET, lat, lat)
+    its = TRAIN_ITERS
+    fwd = {k: TRAIN_FORWARDS * its * per[k] for k in per}
+    base = ["--model_dir", ckpt, "--prompt", TRAIN_PROMPT, "--batch_size",
+            "1", "--image_length", str(TRAIN_SIDE), "--log_every", "1",
+            "--iterations", str(its), "--device", "cuda"]
+    totals = []
+
+    def run(what, main, argv, want=None):
+        from safe_denoiser_tpu_torch import ops
+        out_dir = os.path.join(root, what)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = main(argv + ["--save-dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _all_counts()
+        print(f"training phase {what}: {wall:.1f} s (checkpoint load "
+              f"included), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if want is not None:
+            check_launches(counts, want, f"training phase {what}")
+        totals.append(counts)
+        return res, out_dir
+
+    # full noxattn fine-tune with a snapshot at iteration 2
+    esd = os.path.join(root, "esd.safetensors")
+    trained, log_dir = run("noxattn", train_esd.main, base + [
+        "--train_method", "noxattn", "--save_every", "2", "--save_path", esd],
+        {**fwd, "attention_bwd": its * per["attention"],
+         "gn_stats_bwd": its * per["gn_stats"],
+         "conv3x3_up_bwd_dx": its * per["conv3x3_up"],
+         "conv3x3_up_bwd_dw": its * per["conv3x3_up"]})
+    losses = _train_losses(log_dir)
+    print(f"training noxattn losses: {losses}")
+    if len(losses) != its or not all(math.isfinite(x) for x in losses):
+        fail(f"training noxattn: losses {losses}")
+    exported = load_safetensors(esd)
+    pipe = SafeDiffusionPipeline.from_pretrained(ckpt, device="cuda",
+                                                 dtype=torch.float32)
+    orig = {k: v.detach().clone() for k, v in pipe.unet.state_dict().items()}
+    pipe.load_unet_state_dict(esd)
+    mask = esd_param_mask(orig, "noxattn")
+    changed = {k for k in orig if not torch.equal(exported[k],
+                                                  orig[k].cpu())}
+    if not (all(torch.equal(v, trained[k]) for k, v in
+                pipe.unet.state_dict().items())
+            and changed and all(mask[k] for k in changed)):
+        fail("training noxattn: the export does not equal the trained "
+             "module through load_unet_state_dict, or a frozen weight "
+             "moved")
+    print(f"training noxattn: {len(changed)} of {sum(mask.values())} "
+          f"trainable tensors changed, none of the "
+          f"{len(mask) - sum(mask.values())} frozen; the export loads back "
+          "bit for bit")
+    run("resume", train_esd.main, base + [
+        "--train_method", "noxattn", "--save_every", "2", "--resume",
+        "--save_path", esd],
+        {k: v // its for k, v in fwd.items()} | {
+            "attention_bwd": per["attention"],
+            "gn_stats_bwd": per["gn_stats"],
+            "conv3x3_up_bwd_dx": per["conv3x3_up"],
+            "conv3x3_up_bwd_dw": per["conv3x3_up"]})
+    resumed = load_safetensors(esd)
+    if not all(torch.equal(resumed[k], exported[k]) for k in exported):
+        fail("training: the run resumed at iteration 2 differs from the "
+             "uninterrupted one")
+    print("training resume: iteration 2 onward from the snapshot equals "
+          "the uninterrupted run bit for bit")
+    del trained, exported, resumed
+
+    # LoRA on the cross-attention: the first self-attention runs before any
+    # trained weight, so it needs no backward; the upsample conv's weight
+    # is frozen (no dW)
+    lora_path = os.path.join(root, "lora_merged.safetensors")
+    adapter = os.path.join(root, "adapter.safetensors")
+    merged, log_dir = run("lora", train_esd.main, base + [
+        "--lora_rank", str(TRAIN_LORA_RANK), "--lora_targets", "xattn",
+        "--save_path", lora_path, "--save_lora_path", adapter],
+        {**fwd, "attention_bwd": its * max(per["attention"] - 1, 0),
+         "gn_stats_bwd": its * per["gn_stats"],
+         "conv3x3_up_bwd_dx": its * per["conv3x3_up"],
+         "conv3x3_up_bwd_dw": 0})
+    losses = _train_losses(log_dir)
+    print(f"training lora losses: {losses}")
+    exported = load_safetensors(lora_path)
+    changed = {k for k in orig if not torch.equal(exported[k],
+                                                  orig[k].cpu())}
+    pipe.unet.load_state_dict(orig)
+    pipe.load_lora(adapter)
+    if (len(losses) != its or not all(math.isfinite(x) for x in losses)
+            or not changed or any("attn2" not in k for k in changed)
+            or not all(torch.equal(v.cpu(), exported[k]) for k, v in
+                       pipe.unet.state_dict().items())):
+        fail("training lora: non-finite losses, a weight outside attn2 "
+             "changed, or load_lora differs from the in-memory merge")
+    print(f"training lora: {len(changed)} attn2 tensors changed; "
+          "load_lora of the saved adapter equals the merge bit for bit")
+    del merged, exported
+
+    rece = os.path.join(root, "rece.safetensors")
+    t0 = time.perf_counter()
+    run("rece", edit_concepts.main, [
+        "--model_dir", ckpt, "--method", "rece", "--erase", "nudity",
+        "--preserve", "a person", "--save_path", rece, "--device", "cuda"],
+        {k: 0 for k in totals[0]})
+    edited = load_safetensors(rece)
+    changed = {k for k in orig if not torch.equal(edited[k], orig[k].cpu())}
+    if changed != set(cross_attn_kv_paths(orig)) or not all(
+            bool(torch.isfinite(v).all()) for v in edited.values()):
+        fail("rece: edited weights other than attn2 to_k/to_v, or "
+             "non-finite ones")
+    print(f"rece: {len(changed)} cross-attention K/V weights edited in "
+          f"{time.perf_counter() - t0:.1f} s (checkpoint load included)")
+
+    pipe.unet.load_state_dict(orig)
+    emb = pipe.encode_prompt(TRAIN_PROMPT)
+    phase_train_timing(pipe.unet, emb[1], emb[0])
+    unet_cpu = pipe.unet.float().cpu()
+    del pipe, orig
+    torch.cuda.empty_cache()
+    phase_grad_check(unet_cpu)
+    return {k: sum(c[k] for c in totals) for k in totals[0]}
+
+
+def phase_sd3_flow_lora(ckpt: str) -> dict:
+    """10b: SD3 flow matching under LoRA on phase 8's checkpoint (MMDiT at
+    1536 wide, depth cut to 6), 1024^2 (4096 patches + 333 text tokens:
+    B1/B1b at [1,4429,24,64] with the tail mask), batch 1, FLOW_STEPS
+    steps of ``make_lora_train_step(flow_matching_loss, ...)``. Checks the
+    losses, that the adapter moved, and B1/B1b launches."""
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.models import MMDiT
+    from safe_denoiser_tpu_torch.models.weights import (
+        load_component_config, load_sharded_state_dict)
+    from safe_denoiser_tpu_torch.training import (
+        ESDConfig, flow_matching_loss, init_lora_params,
+        make_lora_train_step, make_optimizer, sample_sigmas_logit_normal)
+    from safe_denoiser_tpu_torch.training.esd import module_apply_fn
+
+    tdir = os.path.join(ckpt, "transformer")
+    cfg = load_component_config(tdir, "mmdit")
+    tf = MMDiT(cfg)
+    tf.load_state_dict(load_sharded_state_dict(tdir))
+    tf = tf.cuda()
+    params = dict(tf.named_parameters())
+    for p in params.values():
+        p.requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lora = init_lora_params(params, gen, FLOW_RANK, FLOW_TARGETS,
+                            model_cfg=cfg)
+    conf = ESDConfig(learning_rate=1e-4)
+    apply_fn = module_apply_fn(tf, torch.bfloat16)
+    step = make_lora_train_step(
+        lambda merged, *b: flow_matching_loss(apply_fn, merged, *b), conf,
+        1.0, model_cfg=cfg)
+    opt = make_optimizer(conf, lora)
+    side = SD3_SIDE // 8
+    x0 = torch.randn(1, cfg.in_channels, side, side, generator=gen,
+                     device="cuda")
+    ctx = torch.randn(1, 333, cfg.joint_attention_dim, generator=gen,
+                      device="cuda")
+    pooled = torch.randn(1, cfg.pooled_projection_dim, generator=gen,
+                         device="cuda")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(FLOW_STEPS):
+        sigma = sample_sigmas_logit_normal(gen, 1)
+        noise = torch.randn(x0.shape, generator=gen, device="cuda")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, _, loss = step(lora, opt, params, x0, ctx, pooled, sigma, noise)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(loss.item())
+        ms.append(start.elapsed_time(end))
+    counts = _all_counts()
+    still = [p for p, ab in lora.items() if not bool(ab["b"].abs().max() > 0)]
+    print(f"sd3 flow lora: {len(lora)} adapted kernels, rank {FLOW_RANK}; "
+          f"losses {losses}; step ms {[round(v, 2) for v in ms]}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{len(lora) - len(still)} adapters moved, still: {still} (the "
+          "last block's text stream ends at its attention, so its text "
+          "queries get no gradient)")
+    check_launches(counts, {"attention": FLOW_STEPS * cfg.num_layers,
+                            "attention_bwd": FLOW_STEPS * cfg.num_layers},
+                   "sd3 flow lora")
+    last = f"blocks_{cfg.num_layers - 1}/attn_add_q/"
+    if not (all(math.isfinite(x) for x in losses)
+            and all(last in p for p in still)):
+        fail("sd3 flow lora: non-finite loss or an adapter that did not "
+             "move")
+    del tf, params, lora, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_profile(pipe, kw, steps: int = 10) -> None:
     """One batch of the main path at ``steps`` DDPM steps, profiled twice on
     the same buffers: replayed from its CUDA graphs (captured first), then
@@ -3885,6 +4530,7 @@ def main() -> None:
     card = phase_env()
     phase_build()
     results = phase_kernels()
+    results.update(phase_backward_kernels())
     if args.parent:
         phase_parent(args.parent)
     counts, pipe, kw = phase_main_path()
@@ -3898,6 +4544,7 @@ def main() -> None:
         runner_counts.update(coco_counts)
         phase_offline_eval(assets, coco)
         runner_counts.update(phase_serve(pipe, assets))
+        runner_counts["training"] = phase_training(assets)
     ddim_counts = phase_ddim(pipe, kw)
     erasure_counts = phase_erasure(pipe, kw)
     if args.profile:
@@ -3913,7 +4560,8 @@ def main() -> None:
     # run (8b) and the SD3 server's requests (9)
     runs = [counts, *runner_counts.values(), *ddim_counts.values(),
             *erasure_counts.values(), *sd3_counts.values()]
-    total = {name: sum(c[name] for c in runs) for name in counts}
+    total = {name: sum(c.get(name, 0) for c in runs)
+             for name in (*counts, *BWD_KERNELS)}
     print(card)
     print(kernels_line(results, total))
     print(json.dumps({"ok": True, "device": {

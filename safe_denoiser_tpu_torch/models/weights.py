@@ -143,6 +143,42 @@ def load_safetensors(path: str) -> dict[str, torch.Tensor]:
     return out
 
 
+def safetensors_metadata(path: str) -> dict[str, str]:
+    """The ``__metadata__`` block of a .safetensors file ({} if none)."""
+    return dict(_read_safetensors_header(path)[0].get("__metadata__") or {})
+
+
+_ST_TAGS = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def save_safetensors(path: str, tensors: dict, metadata: dict | None = None
+                     ) -> None:
+    """Write ``tensors`` ({name: tensor}) as a .safetensors file: an 8-byte
+    header length, the JSON header (each tensor's dtype, shape and byte
+    range, and ``metadata`` as ``__metadata__`` strings), then the raw
+    data. Written to ``path + ".tmp"`` and moved into place."""
+    header: dict = {}
+    if metadata:
+        header["__metadata__"] = {k: str(v) for k, v in metadata.items()}
+    blobs, offset = [], 0
+    for name, t in tensors.items():
+        flat = t.detach().contiguous().cpu().reshape(-1)
+        n = flat.numel() * flat.element_size()
+        header[name] = {"dtype": _ST_TAGS[flat.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        blobs.append(flat)
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for flat in blobs:
+            f.write(flat.view(torch.uint8).numpy().tobytes())
+    os.replace(tmp, path)
+
+
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
     """A flat {key: tensor} state dict from .safetensors/.pt/.bin."""
     if path.endswith(".safetensors"):

@@ -24,7 +24,28 @@ from .unet import UNetConfig
 from .vae import VAEConfig
 
 
+class _PathProbe:
+    """A stand-in for a JAX tree node in ``flax_linear_paths``' walk: every
+    key is present, a child carries its '/'-joined path, and a leaf reads
+    as a placeholder array."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __getitem__(self, key: str) -> "_PathProbe":
+        return _PathProbe(f"{self.path}/{key}" if self.path else key)
+
+    def __contains__(self, key: str) -> bool:
+        return True
+
+    def __array__(self, dtype=None, copy=None):
+        return np.zeros((1, 1, 1, 1), dtype or np.float32)
+
+
 def _inv_lin(node, key, sd):
+    if isinstance(node, _PathProbe):    # flax_linear_paths' walk
+        sd[f"{key}.weight"] = node["kernel"].path
+        return
     sd[f"{key}.weight"] = np.ascontiguousarray(np.asarray(node["kernel"]).T)
     if "bias" in node:
         sd[f"{key}.bias"] = np.asarray(node["bias"])
@@ -271,6 +292,26 @@ def _inception(params) -> dict:
     walk({k: v for k, v in params.items() if k != "fc"}, "")
     _inv_lin(params["fc"], "fc", sd)
     return sd
+
+
+def flax_linear_paths(cfg, names=None, prefix: str = "params"
+                      ) -> dict[str, str]:
+    """{port weight name: the JAX package's '/'-joined path of its flax
+    ``kernel``} for every linear layer of a UNetConfig or MMDiTConfig
+    model, from the same walk as ``from_jax_params`` (a flax kernel is the
+    port's weight transposed). ``prefix``: the tree's top key (the JAX
+    pipelines wrap their trees in ``{"params": ...}``); ``names``: keep
+    only these port names (the model's state dict keys: the walk takes
+    every optional layer as present)."""
+    if isinstance(cfg, UNetConfig):
+        sd = _unet(_PathProbe(prefix), cfg)
+    elif isinstance(cfg, MMDiTConfig):
+        sd = _mmdit(_PathProbe(prefix), cfg)
+    else:
+        raise TypeError(f"no linear path map for {type(cfg).__name__}")
+    keep = None if names is None else set(names)
+    return {k: v for k, v in sd.items()
+            if isinstance(v, str) and (keep is None or k in keep)}
 
 
 def from_jax_params(params, cfg, with_projection: bool = False

@@ -15,6 +15,18 @@
 | gn_stats              | ops/group_norm.py  | Triton | ops/group_norm.py::_gn_stats_kernel    |
 | gn_fused              | ops/group_norm.py  | CUDA   | ops/group_norm.py::_gn_kernel          |
 
+The backward kernels, the port's own (the JAX package's kernels have no
+VJP; each computes the gradient of its forward's function):
+
+| kernel                | module             | route  | backward of                            |
+| --------------------- | ------------------ | ------ | -------------------------------------- |
+| attention_bwd         | ops/attention.py   | CUDA   | attention (B1): dQ, dK, dV             |
+| gn_stats_bwd          | ops/group_norm.py  | Triton | gn_stats (B5): dx                      |
+| conv3x3_up_bwd_dx     | ops/conv3x3.py     | CUDA   | conv3x3_up (B3): dh                    |
+| conv3x3_up_bwd_dw     | ops/conv3x3.py     | CUDA   | conv3x3_up (B3): dW, db                |
+
+Every other kernel's CUDA wrapper raises under autograd (``ops/_grad.py``).
+
 Each wrapper counts its launches in a module-level integer (``COUNTERS``),
 where it launches its kernel. Under a CUDA graph (``pipeline/graph.py``) a
 wrapper runs once, at capture, and its kernel launches at every replay: the
@@ -42,6 +54,14 @@ COUNTERS = {
     "gn_stats": (group_norm, "launches"),
     "gn_fused": (group_norm, "fused_launches"),
 }
+# the backward kernels' counters, apart: sampling and serving never launch
+# them (``backward_launch_counts``)
+BACKWARD_COUNTERS = {
+    "attention_bwd": (attention, "bwd_launches"),
+    "gn_stats_bwd": (group_norm, "bwd_launches"),
+    "conv3x3_up_bwd_dx": (conv3x3, "bwd_dx_launches"),
+    "conv3x3_up_bwd_dw": (conv3x3, "bwd_dw_launches"),
+}
 
 
 def launch_counts() -> dict[str, int]:
@@ -49,8 +69,14 @@ def launch_counts() -> dict[str, int]:
             for name, (mod, attr) in COUNTERS.items()}
 
 
+def backward_launch_counts() -> dict[str, int]:
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in BACKWARD_COUNTERS.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in COUNTERS.values():
+    """Set every counter to 0, the backward kernels' too."""
+    for mod, attr in (*COUNTERS.values(), *BACKWARD_COUNTERS.values()):
         setattr(mod, attr, 0)
 
 
@@ -58,5 +84,5 @@ def add_launch_counts(delta: dict[str, int]) -> None:
     """Add ``delta`` (kernel name -> launches, negative to take some out)
     to the counters."""
     for name, n in delta.items():
-        mod, attr = COUNTERS[name]
+        mod, attr = COUNTERS.get(name) or BACKWARD_COUNTERS[name]
         setattr(mod, attr, getattr(mod, attr) + n)

@@ -27,7 +27,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("attention", "attention_i8", "rbf", "conv3x3_up", "conv3x3",
            "attention_nt", "attention_bshd", "repack_heads",
-           "conv3x3_up_interleave", "group_norm")
+           "conv3x3_up_interleave", "group_norm", "attention_bwd",
+           "conv3x3_up_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -67,6 +68,11 @@ SIGNATURES = {
                        "sdt_attention_bshd_f32": _LAYOUT},
     "repack_heads": {"sdt_repack_to_heads": _REPACK,
                      "sdt_repack_from_heads": _REPACK},
+    "attention_bwd": {"sdt_attention_bwd_bf16": [_P] * 10 + [_I] * 4
+                      + [_F, _P]},
+    "conv3x3_up_bwd": {
+        "sdt_conv3x3_up_bwd_dx_bf16": [_P] * 3 + [_I] * 5 + [_P],
+        "sdt_conv3x3_up_bwd_dw_bf16": [_P] * 5 + [_I] * 7 + [_P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

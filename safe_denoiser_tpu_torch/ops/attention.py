@@ -28,8 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._grad import acc_dtype, check_no_grad, needs_grad
 
 launches = 0        # kernel launches of the bf16/f32 kernel on CUDA tensors
+bwd_launches = 0    # calls of the bf16 backward (B1b, three kernels a call)
 # bf16 calls (B1, B9, B10) whose q/k/v the wrapper first copied into
 # contiguous tensors, because the kernels' tensor maps cannot take their
 # strides, head dim or alignment (0 on every main path)
@@ -66,9 +68,11 @@ def supports(s_q: int, s_kv: int, head_dim: int, block_q: int = 512) -> bool:
 
 def _softmax_pv(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """f32 softmax over [B, H, Sq, Skv] logits, probabilities cast to v's
-    dtype for the product with v [B, S, H, D]; output in v's dtype."""
+    dtype for the product with v [B, S, H, D]; output in v's dtype (f64
+    inputs stay in f64)."""
+    acc = acc_dtype(v)
     p = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(acc), v.to(acc))
     return out.to(v.dtype)
 
 
@@ -78,9 +82,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version: f32 logits and softmax, probabilities cast to v's
     dtype for the second product, output in v's dtype. q/k/v [B, S, H, D];
     ``mask`` broadcasts against [B, H, Sq, Skv] (True keeps)."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * sm_scale, k.float())
+    acc = acc_dtype(q)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc) * sm_scale, k.to(acc))
     if mask is not None:
-        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+        logits = logits.masked_fill(~mask, torch.finfo(acc).min)
     return _softmax_pv(logits, v)
 
 
@@ -157,6 +162,8 @@ def _check_qkv(q, k, v, dtypes) -> None:
 
 def _self_attention_cuda(q, k, v, sm_scale: float) -> torch.Tensor:
     global launches
+    check_no_grad("attention (B1) in f32 or outside SelfAttention", q, k,
+                  v)
     _check_qkv(q, k, v, tuple(_ENTRY))
     d_out = q.shape[3]
     if q.dtype == torch.bfloat16:
@@ -170,6 +177,78 @@ def _self_attention_cuda(q, k, v, sm_scale: float) -> torch.Tensor:
     _build.check(err, _ENTRY[q.dtype])
     launches += 1
     return out if d == d_out else out[..., :d_out].contiguous()
+
+
+def attention_bwd_ref(q, k, v, out, dout, sm_scale: float):
+    """Plain version of B1's backward, from its formula (not by autograd):
+    with P = softmax(s Q K^T) in f32 (f64 for f64 inputs), dV = P^T dO,
+    dP = dO V^T, Delta = rowsum(dO * O) over the forward's output O,
+    dS = P (dP - Delta), dQ = s dS K, dK = s dS^T Q. [B, S, H, D] in; dq,
+    dk, dv in q's, k's and v's dtypes."""
+    acc = acc_dtype(q)
+    qf, kf, vf, of, gf = (t.to(acc) for t in (q, k, v, out, dout))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf * sm_scale, kf),
+                      dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    delta = (gf * of).sum(-1).permute(0, 2, 1)[..., None]     # [B, H, S, 1]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * sm_scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _attention_bwd_cuda(q, k, v, out, dout, sm_scale: float):
+    """B1b (``csrc/attention_bwd.cu``): bf16 dq, dk, dv of one call; three
+    kernels (row statistics, dK/dV by key blocks, dQ by query blocks), one
+    count."""
+    global bwd_launches
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    for t in (k, v, out, dout):
+        if t.shape != q.shape or t.dtype != torch.bfloat16 \
+                or t.device != q.device:
+            raise ValueError("attention backward takes bf16 q/k/v/out/dout "
+                             "of one [B,S,H,D] shape on one GPU")
+    b, s, h, d = q.shape
+    if d > 128 or b * h > 65535:
+        raise ValueError(f"attention backward takes D <= 128 and B*H <= "
+                         f"65535, got D={d}, B*H={b * h}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((2, b * h * s), dtype=torch.float32, device=q.device)
+    err = _build.library("attention_bwd").sdt_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), b, s, h, d,
+        float(sm_scale), _build.stream_ptr(q.device))
+    _build.check(err, "sdt_attention_bwd_bf16")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class SelfAttention(torch.autograd.Function):
+    """B1 with a backward: on CUDA (bf16) the forward launches B1 as the
+    no-grad path does, bit for bit and counted the same, and the backward
+    launches B1b; on the CPU the plain version and ``attention_bwd_ref``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        if q.device.type == "cpu":
+            out = attention_ref(q, k, v, sm_scale)
+        else:
+            out = _self_attention_cuda(q, k, v, sm_scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = attention_bwd_ref(q, k, v, out, dout, ctx.sm_scale)
+        else:
+            grads = _attention_bwd_cuda(q, k, v, out, dout.to(q.dtype),
+                                        ctx.sm_scale)
+        return (*grads, None)
 
 
 def i8_width(d: int) -> int:
@@ -242,6 +321,7 @@ def attention_i8_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _self_attention_i8_cuda(q, k, v, sm_scale: float) -> torch.Tensor:
     global i8_launches
+    check_no_grad("attention_i8 (B8)", q, k, v)
     _check_qkv(q, k, v, (torch.bfloat16,))
     d_out = q.shape[3]
     # the quantize pass reads q and k with any strides; v goes through the
@@ -324,6 +404,7 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 def _attention_nt_cuda(q, k, v, sm_scale: float, valid_kv: int | None):
     global nt_launches
+    check_no_grad("attention_nt (B9)", q, k, v)
     _check_same("attention_nt", (q, k, v), _FLOAT, 3)
     bh, s, d = q.shape
     valid = s if valid_kv is None else int(valid_kv)
@@ -356,6 +437,7 @@ def attention_nt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _attention_bshd_cuda(q, k, v, sm_scale: float):
     global bshd_launches
+    check_no_grad("attention_bshd (B10)", q, k, v)
     _check_same("attention_bshd", (q, k, v), _FLOAT, 4)
     b, s, h, d = q.shape
     if s % BLOCK or d > 256:
@@ -399,6 +481,7 @@ def repack_to_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     global to_heads_launches
     if x.device.type == "cpu":
         return repack_to_heads_ref(x, n_heads)
+    check_no_grad("repack_to_heads (B11)", x)
     _check_same("repack_to_heads", (x,), (x.dtype,), 3)
     b, s, hd = x.shape
     if hd % n_heads:
@@ -416,6 +499,7 @@ def repack_from_heads(x: torch.Tensor) -> torch.Tensor:
     global from_heads_launches
     if x.device.type == "cpu":
         return repack_from_heads_ref(x)
+    check_no_grad("repack_from_heads (B12)", x)
     _check_same("repack_from_heads", (x,), (x.dtype,), 4)
     b, h, s, d = x.shape
     out = torch.empty((b, s, h * d), dtype=x.dtype, device=x.device)
@@ -457,10 +541,12 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     2. ``SDT_FLASH2_LAYOUT=bshd`` and S % 512 == 0: B10;
     3. ``SDT_FLASH2_LAYOUT=nt``: B9 on head-major copies (B11/B12 for the
        head split with ``SDT_ATTN_REPACK=1``), never int8;
-    4. otherwise (bhsd): B8 for bf16 with ``SDT_INT8_ATTN=1``, else B1.
+    4. otherwise (bhsd): B8 for bf16 with ``SDT_INT8_ATTN=1``, else B1;
+       under autograd B1 through ``SelfAttention`` (bf16 on CUDA).
 
     Each kernel's wrapper launches it for CUDA tensors and takes its plain
-    version for CPU tensors."""
+    version for CPU tensors; a kernel without a backward raises under
+    autograd."""
     b, s, h, d = q.shape
     out_dtype = v.dtype
     dtype = torch.bfloat16 if v.dtype == torch.bfloat16 else torch.float32
@@ -476,7 +562,10 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if layout == "nt":
         return _self_attention_nt(q, k, v, sm_scale, dtype).to(out_dtype)
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    if q.device.type == "cpu":
+    if (not quant and needs_grad(q, k, v)
+            and (q.device.type == "cpu" or dtype == torch.bfloat16)):
+        out = SelfAttention.apply(q, k, v, sm_scale)
+    elif q.device.type == "cpu":
         out = (attention_i8_ref if quant else attention_ref)(q, k, v,
                                                              sm_scale)
     else:
@@ -489,3 +578,9 @@ def flops(b: int, s: int, h: int, d: int) -> int:
     """Operations of one call: two [S,S,D] products per head (for the
     int8-QK^T form, half of them int8)."""
     return 4 * b * h * s * s * d
+
+
+def bwd_flops(b: int, s: int, h: int, d: int) -> int:
+    """The backward's necessary operations: five [S,S,D] products per head
+    (Q K^T again, dO V^T, P^T dO, dS K, dS^T Q)."""
+    return 10 * b * h * s * s * d

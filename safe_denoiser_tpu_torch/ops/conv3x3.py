@@ -24,10 +24,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._grad import acc_dtype, check_no_grad, needs_grad
 
 up_launches = 0      # kernel launches of conv3x3_up (planar) on CUDA tensors
 interleave_launches = 0   # ... of conv3x3_up(form="interleave")
 fused_launches = 0   # kernel launches of conv3x3 on CUDA tensors
+bwd_dx_launches = 0  # calls of B3's backward for dh (B3b-dx)
+bwd_dw_launches = 0  # calls of B3's backward for dW, db (B3b-dw, 3 kernels)
 UP_FORMS = ("planar", "interleave")
 
 # tap groups of the 3x3 kernel per output parity: j=0/1 -> taps of dy
@@ -73,10 +76,12 @@ def supports_up(h_shape, ci: int, co: int) -> bool:
 def conv3x3_up_ref(h: torch.Tensor, w_oihw: torch.Tensor,
                    b: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version: nearest 2x upsample, then a SAME 3x3 conv with f32
-    accumulation; NHWC [B, H2, W2, Ci] -> [B, 2*H2, 2*W2, Co] in h's dtype."""
-    x = h.permute(0, 3, 1, 2).float()
+    accumulation (f64 for f64 h); NHWC [B, H2, W2, Ci] -> [B, 2*H2, 2*W2,
+    Co] in h's dtype."""
+    acc = acc_dtype(h)
+    x = h.permute(0, 3, 1, 2).to(acc)
     x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-    out = F.conv2d(x, w_oihw.float(), None if b is None else b.float(),
+    out = F.conv2d(x, w_oihw.to(acc), None if b is None else b.to(acc),
                    padding=1)
     return out.permute(0, 2, 3, 1).to(h.dtype)
 
@@ -102,6 +107,8 @@ def pack_weights(w_oihw: torch.Tensor, b: torch.Tensor | None = None):
 
 def _conv3x3_up_cuda(h, w_oihw, b, packed, form):
     global up_launches, interleave_launches
+    check_no_grad(f"conv3x3_up ({'B3' if form == 'planar' else 'B7'}, "
+                  f"form {form!r}) outside ConvUp", h, w_oihw, b)
     if not h.is_cuda or w_oihw.device != h.device or (
             b is not None and b.device != h.device):
         raise ValueError("h, the weight and the bias must lie on one GPU")
@@ -153,13 +160,155 @@ def conv3x3_up(h: torch.Tensor, w_oihw: torch.Tensor,
     call when None."""
     if form not in UP_FORMS:
         raise ValueError(f"form must be one of {UP_FORMS}, got {form!r}")
+    if form == "planar" and needs_grad(h, w_oihw, b):
+        return ConvUp.apply(h, w_oihw, b, packed)
     if h.device.type == "cpu":
         return conv3x3_up_ref(h, w_oihw, b)
     return _conv3x3_up_cuda(h, w_oihw, b, packed, form)
 
 
+# B3's backward. _FOLD[u + 1][ky] = the number of output parities py in
+# {0, 1} with py - ky + 1 = u: the 3x3 taps that reach dy's row 2i + u
+# from the half-resolution row i, for u in -1..2.
+_FOLD = ((0, 0, 1), (0, 1, 1), (1, 1, 0), (1, 0, 0))
+
+
+def bwd_dx_weights(w_oihw: torch.Tensor) -> torch.Tensor:
+    """diffusers [Co, Ci, 3, 3] -> B3b-dx's [16, Ci, Co] bf16 weights of the
+    4x4 stride-2 conv over dy: tap (u + 1) * 4 + (v + 1) holds the sum of
+    W[:, :, ky, kx] over the parities with py - ky + 1 = u and
+    px - kx + 1 = v, summed in f32."""
+    fold = torch.tensor(_FOLD, dtype=torch.float32, device=w_oihw.device)
+    w4 = torch.einsum("uy,vx,oiyx->uvio", fold, fold, w_oihw.float())
+    return w4.reshape(16, *w4.shape[2:]).to(torch.bfloat16).contiguous()
+
+
+def conv3x3_up_bwd_ref(h: torch.Tensor, w_oihw: torch.Tensor,
+                       dy: torch.Tensor):
+    """Plain version of B3's backward, from its formula: d(up h) is the
+    SAME 3x3 conv of dy with the flipped, transposed weights, dh its 2x2
+    sum-pool; dW[co, ci, ky, kx] = sum dy[., Y, X, co] up(h)[., Y + ky - 1,
+    X + kx - 1, ci]; db = sum dy. NHWC h [B, H2, W2, Ci], dy [B, 2 H2,
+    2 W2, Co]; f32 (f64 for f64 h); (dh in h's dtype, dW and db in the
+    weight's)."""
+    acc = acc_dtype(h)
+    bsz, h2, w2, ci = h.shape
+    co = w_oihw.shape[0]
+    g = dy.permute(0, 3, 1, 2).to(acc)                      # [B, Co, 2H, 2W]
+    w_t = w_oihw.to(acc).flip(2, 3).transpose(0, 1)          # [Ci, Co, 3, 3]
+    d_up = F.conv2d(g, w_t, padding=1)
+    dh = d_up.reshape(bsz, ci, h2, 2, w2, 2).sum((3, 5)).permute(0, 2, 3, 1)
+    up = h.permute(0, 3, 1, 2).to(acc)
+    up = up.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    patches = F.unfold(F.pad(up, (1, 1, 1, 1)), 3)           # [B, Ci*9, P]
+    dw = torch.einsum("bop,bkp->ok", g.reshape(bsz, co, -1), patches)
+    db = g.sum((0, 2, 3))
+    return (dh.to(h.dtype), dw.reshape(co, ci, 3, 3).to(w_oihw.dtype),
+            db.to(w_oihw.dtype))
+
+
+def _bf16_nhwc(t: torch.Tensor) -> torch.Tensor:
+    """t as a contiguous, 16-byte aligned bf16 tensor."""
+    t = t.to(torch.bfloat16).contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t
+
+
+def _conv3x3_up_bwd_dx_cuda(dy: torch.Tensor, w4: torch.Tensor,
+                            h_shape) -> torch.Tensor:
+    """B3b-dx: dh [B, H2, W2, Ci] bf16 of the 4x4 stride-2 conv of dy with
+    ``bwd_dx_weights``."""
+    global bwd_dx_launches
+    bsz, h2, w2, ci = h_shape
+    co = dy.shape[3]
+    if ci % 64 or co % 32:
+        raise ValueError(f"up-conv backward needs Ci % 64 == 0 and "
+                         f"Co % 32 == 0, got Ci={ci}, Co={co}")
+    dh = torch.empty(tuple(h_shape), dtype=torch.bfloat16, device=dy.device)
+    err = _build.library("conv3x3_up_bwd").sdt_conv3x3_up_bwd_dx_bf16(
+        dy.data_ptr(), w4.data_ptr(), dh.data_ptr(), bsz, h2, w2, ci, co,
+        _build.stream_ptr(dy.device))
+    _build.check(err, "sdt_conv3x3_up_bwd_dx_bf16")
+    bwd_dx_launches += 1
+    return dh
+
+
+_DW_FILL = 2 * 132      # blocks that fill the H100 twice over
+
+
+def dw_split(bsz: int, h2: int, w2: int, ci: int, co: int) -> tuple:
+    """(nsplit, chunk) of B3b-dw's pass 1: the B*H2*W2 half-resolution
+    positions cut into runs of ``chunk`` (a multiple of 32) so that
+    16 x tiles x nsplit blocks fill the card; 1 split where the tiles do."""
+    m = bsz * h2 * w2
+    blocks = 16 * (ci // 64) * (co // 64)
+    want = max(1, min(-(-m // 32), -(-_DW_FILL // blocks)))
+    chunk = -(-(-(-m // want)) // 32) * 32
+    return -(-m // chunk), chunk
+
+
+def _conv3x3_up_bwd_dw_cuda(dy: torch.Tensor, h: torch.Tensor):
+    """B3b-dw: (dW [Co, Ci, 3, 3], db [Co]) in f32; three kernels (the 16
+    parity partials, their fixed-order fold into the 9 taps, db), one
+    count."""
+    global bwd_dw_launches
+    bsz, h2, w2, ci = h.shape
+    co = dy.shape[3]
+    if ci % 64 or co % 64:
+        raise ValueError(f"up-conv backward needs Ci % 64 == 0 and "
+                         f"Co % 64 == 0, got Ci={ci}, Co={co}")
+    nsplit, chunk = dw_split(bsz, h2, w2, ci, co)
+    part = torch.empty(nsplit * 16 * co * ci, dtype=torch.float32,
+                       device=dy.device)
+    dw = torch.empty((co, ci, 3, 3), dtype=torch.float32, device=dy.device)
+    db = torch.empty(co, dtype=torch.float32, device=dy.device)
+    err = _build.library("conv3x3_up_bwd").sdt_conv3x3_up_bwd_dw_bf16(
+        dy.data_ptr(), h.data_ptr(), part.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), bsz, h2, w2, ci, co, nsplit, chunk,
+        _build.stream_ptr(dy.device))
+    _build.check(err, "sdt_conv3x3_up_bwd_dw_bf16")
+    bwd_dw_launches += 1
+    return dw, db
+
+
+class ConvUp(torch.autograd.Function):
+    """B3 with a backward: on CUDA (bf16) the forward launches B3 as the
+    no-grad path does, bit for bit and counted the same, and the backward
+    launches B3b-dx for dh and B3b-dw for dW and db where they are needed;
+    on the CPU the plain version and ``conv3x3_up_bwd_ref``."""
+
+    @staticmethod
+    def forward(ctx, h, w_oihw, b, packed):
+        ctx.save_for_backward(h, w_oihw)
+        ctx.has_bias = b is not None
+        if h.device.type == "cpu":
+            return conv3x3_up_ref(h, w_oihw, b)
+        return _conv3x3_up_cuda(h, w_oihw, b, packed, "planar")
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.saved_tensors
+        need_h, need_w, need_b = ctx.needs_input_grad[:3]
+        dh = dw = db = None
+        if h.device.type == "cpu":
+            dh, dw, db = conv3x3_up_bwd_ref(h, w, dy)
+        else:
+            dy = _bf16_nhwc(dy)
+            if need_h:
+                dh = _conv3x3_up_bwd_dx_cuda(dy, bwd_dx_weights(w.detach()),
+                                             h.shape)
+            if need_w or need_b:
+                dw, db = _conv3x3_up_bwd_dw_cuda(dy, h)
+                dw, db = dw.to(w.dtype), db.to(w.dtype)
+        return (dh if need_h else None, dw if need_w else None,
+                db if need_b and ctx.has_bias else None, None)
+
+
 def flops(b: int, h2: int, w2: int, ci: int, co: int) -> int:
-    """Operations of one call: four parities of a K = 4*Ci product."""
+    """Operations of one call: four parities of a K = 4*Ci product; also
+    those of each of its backward's dh and dW (16 taps over dy for dh, 16
+    parity partials for dW)."""
     return 2 * b * h2 * w2 * co * 4 * ci * 4
 
 
@@ -242,6 +391,8 @@ def _nhwc_bf16(t: torch.Tensor, name: str, shape) -> None:
 
 def _conv3x3_cuda(x, w_oihw, b, pre_scale, pre_shift, act, residual, packed):
     global fused_launches
+    check_no_grad("conv3x3 (B4)", x, w_oihw, b, pre_scale, pre_shift,
+                  residual)
     tensors = [t for t in (w_oihw, b, pre_scale, pre_shift, residual)
                if t is not None]
     if not x.is_cuda or any(t.device != x.device for t in tensors):

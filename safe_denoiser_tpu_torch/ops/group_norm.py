@@ -40,8 +40,10 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._grad import acc_dtype, check_no_grad, needs_grad
 
 launches = 0         # kernel launches of gn_stats on CUDA tensors
+bwd_launches = 0     # kernel launches of its backward (B5b, Triton)
 fused_launches = 0   # kernel launches of group_norm_fused on CUDA tensors
 
 _STATS_MAX_ELEMS = 1 << 19
@@ -72,8 +74,9 @@ def _stats_chunk(s: int, c: int) -> int:
 
 
 def gn_stats_ref(x: torch.Tensor):
-    """Plain version: [B, S, C] -> (sum [B, C], sumsq [B, C]) in f32."""
-    xf = x.float()
+    """Plain version: [B, S, C] -> (sum [B, C], sumsq [B, C]) in f32 (f64
+    for f64 x)."""
+    xf = x.to(acc_dtype(x))
     return xf.sum(1), (xf * xf).sum(1)
 
 
@@ -122,6 +125,24 @@ def _finish(p1_ptr, p2_ptr, s1_ptr, s2_ptr, C, n_split,
     tl.store(s2_ptr + b * C + cols, a2, mask=cmask)
 
 
+def _stats_bwd(x_ptr, ds1_ptr, ds2_ptr, dx_ptr, S, C, BLOCK_S: tl.constexpr,
+               BLOCK_C: tl.constexpr):
+    b = tl.program_id(0)
+    sb = tl.program_id(1)
+    cb = tl.program_id(2)
+    rows = sb * BLOCK_S + tl.arange(0, BLOCK_S)
+    cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = cols < C
+    mask = (rows < S)[:, None] & cmask[None, :]
+    off = (b.to(tl.int64) * S * C + rows.to(tl.int64)[:, None] * C
+           + cols[None, :])
+    xv = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    d1 = tl.load(ds1_ptr + b * C + cols, mask=cmask, other=0.0)
+    d2 = tl.load(ds2_ptr + b * C + cols, mask=cmask, other=0.0)
+    dx = d1[None, :] + 2.0 * xv * d2[None, :]
+    tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty), mask=mask)
+
+
 @functools.lru_cache(maxsize=None)
 def _triton_kernels():
     global tl
@@ -129,7 +150,8 @@ def _triton_kernels():
     import triton.language
 
     tl = triton.language
-    return triton.jit(_partial_sums), triton.jit(_finish)
+    return (triton.jit(_partial_sums), triton.jit(_finish),
+            triton.jit(_stats_bwd))
 
 
 def _split(b: int, s: int, tiles: int) -> tuple[int, int]:
@@ -144,6 +166,7 @@ def _split(b: int, s: int, tiles: int) -> tuple[int, int]:
 
 def _gn_stats_cuda(x: torch.Tensor):
     global launches
+    check_no_grad("gn_stats (B5) outside GNStats", x)
     if not x.is_cuda:
         raise ValueError("x must lie on the GPU")
     if x.dim() != 3 or not x.is_contiguous():
@@ -152,7 +175,7 @@ def _gn_stats_cuda(x: torch.Tensor):
     if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"gn_stats: unsupported dtype {x.dtype}")
     b, s, c = x.shape
-    partial_sums, finish = _triton_kernels()
+    partial_sums, finish, _ = _triton_kernels()
     c_tiles = -(-c // _BLOCK_C)
     n_split, rows = _split(b, s, c_tiles)
     p1 = torch.empty((b, n_split, c), dtype=torch.float32, device=x.device)
@@ -168,10 +191,59 @@ def _gn_stats_cuda(x: torch.Tensor):
     return s1, s2
 
 
+def gn_stats_bwd_ref(x: torch.Tensor, ds1: torch.Tensor, ds2: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain version of B5's backward, from its formula: dx[b,s,c] =
+    ds1[b,c] + 2 x[b,s,c] ds2[b,c] in f32 (f64 for f64 x), in x's
+    dtype."""
+    acc = acc_dtype(x)
+    dx = ds1.to(acc)[:, None, :] + 2.0 * x.to(acc) * ds2.to(acc)[:, None, :]
+    return dx.to(x.dtype)
+
+
+def _gn_stats_bwd_cuda(x, ds1, ds2) -> torch.Tensor:
+    """B5b (Triton): one read of x, one write of dx."""
+    global bwd_launches
+    b, s, c = x.shape
+    ds1, ds2 = (t.float().contiguous() for t in (ds1, ds2))
+    if ds1.shape != (b, c) or ds2.shape != (b, c):
+        raise ValueError(f"gn_stats backward: ds1/ds2 must be [B, C] = "
+                         f"{[b, c]}")
+    _, _, stats_bwd = _triton_kernels()
+    dx = torch.empty_like(x)
+    grid = (b, -(-s // _BLOCK_S), -(-c // _BLOCK_C))
+    stats_bwd[grid](x, ds1, ds2, dx, s, c, BLOCK_S=_BLOCK_S,
+                    BLOCK_C=_BLOCK_C, num_warps=4)
+    bwd_launches += 1
+    return dx
+
+
+class GNStats(torch.autograd.Function):
+    """B5 with a backward: on CUDA the forward launches B5 as the no-grad
+    path does, bit for bit and counted the same, and the backward launches
+    B5b; on the CPU the plain version and ``gn_stats_bwd_ref``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        if x.device.type == "cpu":
+            return gn_stats_ref(x)
+        return _gn_stats_cuda(x)
+
+    @staticmethod
+    def backward(ctx, ds1, ds2):
+        (x,) = ctx.saved_tensors
+        if x.device.type == "cpu":
+            return gn_stats_bwd_ref(x, ds1, ds2)
+        return _gn_stats_bwd_cuda(x, ds1, ds2)
+
+
 def gn_stats(x: torch.Tensor):
     """[B, S, C] -> (sum [B, C], sumsq [B, C]) in f32, reading x once. A
     CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-    version."""
+    version; under autograd both go through ``GNStats``."""
+    if needs_grad(x):
+        return GNStats.apply(x)
     if x.device.type == "cpu":
         return gn_stats_ref(x)
     return _gn_stats_cuda(x)
@@ -361,6 +433,7 @@ def _group_norm_fused_cuda(x, scale, bias, groups, epsilon, act, *,
     """``one_read=False`` takes the re-read form even where the slice fits
     (tests compare the two forms at one shape)."""
     global fused_launches
+    check_no_grad("group_norm_fused (B6)", x, scale, bias)
     if not x.is_cuda or scale.device != x.device or bias.device != x.device:
         raise ValueError("x, scale and bias must lie on one GPU")
     if x.dim() != 3 or not x.is_contiguous():

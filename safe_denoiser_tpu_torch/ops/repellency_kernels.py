@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._grad import check_no_grad
 
 launches = 0   # kernel launches of rbf_negative_score on CUDA tensors
 N_MAX = 16     # rows of x the kernel takes (csrc/rbf.cu NMAX)
@@ -99,6 +100,7 @@ def rbf_negative_score_ref(x: torch.Tensor, refs: torch.Tensor, sigma: float,
 
 def _rbf_cuda(x, refs, sigma: float, epsilon: float, normalize: bool):
     global launches
+    check_no_grad("rbf (B2)", x, refs)
     if not (x.is_cuda and x.device == refs.device):
         raise ValueError("x and refs must both lie on one GPU")
     if x.dtype != torch.float32 or refs.dtype != torch.float32:

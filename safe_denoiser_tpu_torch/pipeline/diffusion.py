@@ -132,6 +132,19 @@ def postprocess_image_host(image: torch.Tensor) -> torch.Tensor:
     return (raw.float() / 2 + 0.5).clamp(0, 1).to(raw.dtype)
 
 
+def _merge_lora_in_place(module: torch.nn.Module, path: str,
+                         scale: Optional[float]) -> None:
+    """``training.lora.merge_lora_into`` on ``module``'s parameters, the
+    merged weights copied into them."""
+    from ..training.lora import merge_lora_into
+    params = dict(module.named_parameters())
+    merged = merge_lora_into(params, path, scale, model_cfg=module.config)
+    with torch.no_grad():
+        for name, w in merged.items():
+            if w is not params[name]:
+                params[name].copy_(w)
+
+
 class SafeDiffusionPipeline:
     def __init__(self, unet: UNet2DConditionModel, vae: AutoencoderKL,
                  text_encoder: CLIPTextModel, tokenizer, scheduler,
@@ -194,6 +207,15 @@ class SafeDiffusionPipeline:
         if isinstance(sd.get("unet"), dict):
             sd = sd["unet"]
         self.unet.load_state_dict(sd, strict=True)
+
+    def load_lora(self, path: str, scale: Optional[float] = None) -> None:
+        """Merge a LoRA erasure adapter (``training/lora.py``, trained by
+        ``runners.train_esd --lora_rank``, or the JAX package's file) into
+        the UNet's weights in place. ``scale`` overrides the adapter's
+        recorded alpha/rank. Adapters apply to float weights: load before
+        ``enable_int8`` (int8 weights raise). The weights' versions move,
+        so the next batch re-packs and re-captures its graphs."""
+        _merge_lora_in_place(self.unet, path, scale)
 
     def enable_int8(self, min_dim: int = 1280) -> int:
         """W8A8 int8 on the UNet's transformer-block linears with
@@ -437,7 +459,8 @@ class SafeDiffusionPipeline:
 
         key = ("sd", id(unet), id(vae), unet.conv_in.weight.dtype,
                self._int8_min_dim, type(sch).__name__, sch.config,
-               num_inference_steps, guidance, rep_cfg, window, freeu)
+               num_inference_steps, guidance, rep_cfg, window, freeu,
+               graph.weights_version(unet, vae))
         return (graph.Program(key, loop, decode, graph.warm_step(in_window),
                               timesteps), bufs)
 

@@ -37,7 +37,8 @@ from ..device import resolve_device
 from ..models import (AutoencoderKL, CLIPTextModel, MMDiT, T5Encoder)
 from ..schedulers.flow_match import (FlowMatchEulerScheduler,
                                      flow_match_config_from_checkpoint)
-from .diffusion import PendingGeneration, _StageTimer
+from .diffusion import (PendingGeneration, _StageTimer,
+                        _merge_lora_in_place)
 from .safree import (NUDITY_NEGATIVE_PROMPT_SPACE, projection_matrix,
                      safree_projection)
 from . import graph
@@ -293,7 +294,7 @@ class SafeDiffusion3Pipeline:
 
         key = ("sd3", id(tf), id(vae), tf.context_embedder.weight.dtype,
                self.int8_layers, sch.config, num_inference_steps, rep_cfg,
-               window)
+               window, graph.weights_version(tf, vae))
         return (graph.Program(key, loop, decode, graph.warm_step(in_window),
                               timesteps), bufs)
 
@@ -345,7 +346,10 @@ class SafeDiffusion3Pipeline:
         return self.int8_layers
 
     def load_lora(self, path: str, scale: Optional[float] = None) -> None:
-        raise NotImplementedError("LoRA is not ported yet")
+        """Merge a LoRA adapter (``training/lora.py``) into the MMDiT's
+        weights in place: ``SafeDiffusionPipeline.load_lora``'s contract
+        (load before ``enable_int8``)."""
+        _merge_lora_in_place(self.transformer, path, scale)
 
     def enable_data_mesh(self, n_devices=None, mesh=None) -> None:
         raise NotImplementedError("the data mesh is not ported yet")

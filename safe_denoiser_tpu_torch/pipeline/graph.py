@@ -62,6 +62,15 @@ ENV_SWITCHES = ("SDT_FLASH2_LAYOUT", "SDT_ATTN_REPACK", "SDT_FUSED_GN",
                 "SDT_FAST_GELU", "SDT_GN_STATS_MIN")
 
 
+def weights_version(*modules) -> int:
+    """The sum of the modules' parameter version counters: any in-place
+    change of a weight (``load_lora``, ``load_unet_state_dict``, an
+    optimizer step) raises it, so a program keyed on it captures anew and
+    a weight packed at capture (B3's ``cached_pack``) is not replayed
+    stale."""
+    return sum(p._version for m in modules for p in m.parameters())
+
+
 def env_key() -> tuple:
     return tuple(os.environ.get(name) for name in ENV_SWITCHES)
 

@@ -63,6 +63,7 @@ def build_sd3_repellency(args, pipe: SafeDiffusion3Pipeline, logger: Logger):
         check_bank_matches_image_length(ref_imgs, repellency_config,
                                         args.image_length)
 
+    @torch.no_grad()
     def embed_fn(x):
         gen = torch.Generator(device=pipe.device).manual_seed(0)
         z = pipe.vae.sample_latent(torch.as_tensor(x, device=pipe.device),

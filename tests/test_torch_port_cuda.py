@@ -853,7 +853,9 @@ def test_conv3x3_up_interleave_wrapper_rejects_what_the_kernel_does_not_take(
 
 def test_vae_upsample_under_the_up_form_switch(dev, monkeypatch):
     """SDT_UP_FORM=interleave: the VAE's upsample launches B7 with its
-    packed weights, bit-equal to the wrapper; the UNet's stays on B3."""
+    packed weights, bit-equal to the wrapper; the UNet's stays on B3. In
+    no_grad, as sampling runs: the modules' weights require grad, and B7
+    has no backward (it raises under autograd)."""
     from safe_denoiser_tpu_torch.models.unet import Upsample2D as UNetUp
     from safe_denoiser_tpu_torch.models.vae import Upsample2D as VAEUp
     monkeypatch.setenv("SDT_UP_FORM", "interleave")
@@ -861,11 +863,12 @@ def test_vae_upsample_under_the_up_form_switch(dev, monkeypatch):
     x = torch.randn(2, 128, 16, 16, device=dev, generator=g).bfloat16()
     vae_up = VAEUp(128).to(dev, torch.bfloat16)
     ops.reset_launch_counts()
-    got = vae_up(x)
-    UNetUp(128).to(dev, torch.bfloat16)(x)
-    want = conv3x3.conv3x3_up(x.permute(0, 2, 3, 1).contiguous(),
-                              vae_up.conv.weight, vae_up.conv.bias,
-                              form="interleave")
+    with torch.no_grad():
+        got = vae_up(x)
+        UNetUp(128).to(dev, torch.bfloat16)(x)
+        want = conv3x3.conv3x3_up(x.permute(0, 2, 3, 1).contiguous(),
+                                  vae_up.conv.weight, vae_up.conv.bias,
+                                  form="interleave")
     torch.testing.assert_close(got.permute(0, 2, 3, 1), want, atol=0, rtol=0)
     counts = ops.launch_counts()
     assert (counts["conv3x3_up_interleave"], counts["conv3x3_up"]) == (2, 1)
@@ -1166,7 +1169,8 @@ def test_group_norm_fused_wrapper_rejects_what_the_kernel_does_not_take(dev):
 def test_group_norm_dispatch_under_the_fused_switch(dev, monkeypatch):
     """SDT_FUSED_GN=1: the UNet's GroupNorm module launches B6 where the
     gate admits the shape (C 320 at 64^2) and the plain form with B5's
-    statistics where it does not (C 640 at 64^2)."""
+    statistics where it does not (C 640 at 64^2). In no_grad, as sampling
+    runs: the module's weights require grad, and B6 has no backward."""
     from safe_denoiser_tpu_torch.models.layers import GroupNorm32
     monkeypatch.setenv("SDT_FUSED_GN", "1")
     for c, want in ((320, (1, 0)), (640, (0, 1))):
@@ -1174,7 +1178,8 @@ def test_group_norm_dispatch_under_the_fused_switch(dev, monkeypatch):
         x = torch.randn(2, c, 64, 64, device=dev).bfloat16().contiguous(
             memory_format=torch.channels_last)
         ops.reset_launch_counts()
-        gn(x)
+        with torch.no_grad():
+            gn(x)
         counts = ops.launch_counts()
         assert (counts["gn_fused"], counts["gn_stats"]) == want, c
 
@@ -1451,9 +1456,11 @@ def test_graph_counts_per_replay_and_keeps_outputs(graph_pipe):
 
 
 def test_graph_replays_weights_loaded_in_place(graph_pipe):
-    """A graph captured before ``load_state_dict`` replays the new weights
-    (they are copied into the same tensors): equal to the eager body on
-    them."""
+    """A graph captured before ``load_state_dict`` does not replay stale
+    weights: the copy moves the weights' versions, which the program's key
+    holds (``graph.weights_version``: a weight packed at capture, B3's,
+    would otherwise stay old), so the batch captures anew and equals the
+    eager body on the new weights."""
     from safe_denoiser_tpu_torch.pipeline import graph
 
     pipe, kw = graph_pipe
@@ -1465,12 +1472,239 @@ def test_graph_replays_weights_loaded_in_place(graph_pipe):
     program, bufs = pipe._prepare_batch(*args, **kw)
     after = pipe._launch(program, bufs)
     after.fetch()
-    assert "capture" not in after.stage_ms
+    assert "capture" in after.stage_ms
     want = graph._run_eager(program, bufs)[0]
     assert torch.equal(after.fetch(return_latents=True), want)
     assert not torch.equal(before, want)
 
 
+def test_graph_recaptures_after_load_lora(graph_pipe, tmp_path):
+    """A graph captured before ``load_lora`` does not replay stale weights:
+    the merge moves the weights' versions, the next batch captures anew
+    and equals the eager body on the merged weights."""
+    from safe_denoiser_tpu_torch.pipeline import graph
+    from safe_denoiser_tpu_torch.training import init_lora_params, save_lora
+
+    pipe, kw = graph_pipe
+    args = (["a cat", "a dog"], [3, 4], [7.5, 5.0])
+    before = pipe.dispatch_batch(*args, **kw).fetch(return_latents=True)
+    sd = {n: p.detach() for n, p in pipe.unet.named_parameters()}
+    lora = init_lora_params(sd, _gen(0), 2, "xattn",
+                            model_cfg=pipe.unet.config)
+    for ab in lora.values():
+        ab["b"].normal_(0, 0.2, generator=_gen(1))
+    path = str(tmp_path / "adapter.safetensors")
+    save_lora(path, lora, 2)
+    pipe.load_lora(path)
+    program, bufs = pipe._prepare_batch(*args, **kw)
+    after = pipe._launch(program, bufs)
+    after.fetch()
+    assert "capture" in after.stage_ms
+    want = graph._run_eager(program, bufs)[0]
+    assert torch.equal(after.fetch(return_latents=True), want)
+    assert not torch.equal(before, want)
+
+
+# ------------------------------------------ backward kernels (B1b, B5b, B3b)
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("b,s,h,d", [
+    (1, 600, 2, 40), (2, 512, 1, 64), (1, 1000, 2, 80), (1, 520, 3, 16),
+    (1, 700, 1, 128), (1, 77, 2, 40)])
+def test_attention_backward_matches_plain(dev, b, s, h, d):
+    """B1b against its plain backward in f32 on the same bf16 values,
+    within chip_smoke.BWD_B1_RTOL of each output's largest entry: tails
+    past the 64-row blocks, head dims padded to 16 (16..128); two calls
+    give the same bits."""
+    import chip_smoke
+    q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=_gen(i))
+                   .to(torch.bfloat16) for i in range(4))
+    scale = d ** -0.5
+    o = attention.attention_ref(q, k, v, scale)
+    ops.reset_launch_counts()
+    got = attention._attention_bwd_cuda(q, k, v, o, do, scale)
+    again = attention._attention_bwd_cuda(q, k, v, o, do, scale)
+    want = attention.attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)),
+                                       scale)
+    assert ops.backward_launch_counts()["attention_bwd"] == 2
+    for x, y, z in zip(got, again, want):
+        assert x.dtype == torch.bfloat16 and torch.equal(x, y)
+        assert _rel(x, z) <= chip_smoke.BWD_B1_RTOL
+
+
+def test_attention_backward_through_autograd(dev):
+    """Under autograd bf16 self-attention goes through SelfAttention: its
+    forward is B1's no-grad output bit for bit, its gradients B1b's."""
+    q, k, v, do = (torch.randn(1, 1024, 2, 40, device=dev, generator=_gen(i))
+                   .to(torch.bfloat16) for i in range(4))
+    want_o = attention.self_attention(q, k, v, 0.15)
+    want = attention._attention_bwd_cuda(q, k, v, want_o, do, 0.15)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    ops.reset_launch_counts()
+    out = attention.self_attention(qg, kg, vg, 0.15)
+    assert torch.equal(out.detach(), want_o)
+    out.backward(do)
+    assert ops.launch_counts()["attention"] == 1
+    assert ops.backward_launch_counts()["attention_bwd"] == 1
+    for g_, w_ in zip((qg.grad, kg.grad, vg.grad), want):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,c", [(2, 1000, 200), (1, 4096, 640)])
+def test_gn_stats_backward_matches_plain(dev, dtype, b, s, c):
+    """B5b against its plain backward: one rounding of the same f32 value
+    in bf16 (an ulp of the largest |dx|), 1e-6 relative in f32; through
+    GNStats under autograd the same bits."""
+    x = (torch.randn(b, s, c, device=dev, generator=_gen(1)) * 2 + 1).to(
+        dtype)
+    ds1, ds2 = (torch.randn(b, c, device=dev, generator=_gen(i))
+                for i in (2, 3))
+    got = group_norm._gn_stats_bwd_cuda(x, ds1, ds2)
+    want = group_norm.gn_stats_bwd_ref(x.float(), ds1, ds2)
+    top = want.abs().max().item()
+    tol = (2.0 ** (np.floor(np.log2(top)) - 7) if dtype == torch.bfloat16
+           else 1e-6 * top)
+    assert got.dtype == dtype and (got.float() - want).abs().max() <= tol
+    xg = x.clone().requires_grad_()
+    s1, s2 = group_norm.gn_stats(xg)
+    torch.autograd.backward((s1, s2), (ds1, ds2))
+    assert torch.equal(xg.grad, got)
+
+
+@pytest.mark.parametrize("b,h2,w2,ci,co", [
+    (1, 16, 16, 128, 128), (2, 8, 16, 64, 192), (1, 32, 32, 640, 640),
+    (1, 5, 16, 128, 64)])
+def test_conv_up_backward_matches_plain(dev, b, h2, w2, ci, co):
+    """B3b-dx and B3b-dw against the plain backward in f32 on the same
+    bf16 values (chip_smoke's bounds), pixel counts that are not a tile's;
+    two calls give the same bits; through ConvUp under autograd the same
+    gradients."""
+    import chip_smoke
+    hh = torch.randn(b, h2, w2, ci, device=dev, generator=_gen(1)).to(
+        torch.bfloat16)
+    w = (torch.randn(co, ci, 3, 3, device=dev, generator=_gen(2))
+         / (9 * ci) ** 0.5).to(torch.bfloat16)
+    bias = torch.randn(co, device=dev, generator=_gen(3)).to(torch.bfloat16)
+    dy = torch.randn(b, 2 * h2, 2 * w2, co, device=dev, generator=_gen(4)).to(
+        torch.bfloat16)
+    dh = conv3x3._conv3x3_up_bwd_dx_cuda(dy, conv3x3.bwd_dx_weights(w),
+                                         hh.shape)
+    dw, db = conv3x3._conv3x3_up_bwd_dw_cuda(dy, hh)
+    dw2, db2 = conv3x3._conv3x3_up_bwd_dw_cuda(dy, hh)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    want = conv3x3.conv3x3_up_bwd_ref(hh.float(), w.float(), dy.float())
+    assert _rel(dh, want[0]) <= chip_smoke.BWD_DX_RTOL
+    assert _rel(dw, want[1]) <= chip_smoke.BWD_DW_RTOL
+    assert _rel(db, want[2]) <= chip_smoke.BWD_DW_RTOL
+    hg, wg, bg = (t.clone().requires_grad_() for t in (hh, w, bias))
+    ops.reset_launch_counts()
+    y = conv3x3.conv3x3_up(hg, wg, bg)
+    assert torch.equal(y.detach(), conv3x3.conv3x3_up(hh, w, bias))
+    y.backward(dy)
+    assert torch.equal(hg.grad, dh)
+    assert torch.equal(wg.grad, dw.to(torch.bfloat16))
+    assert torch.equal(bg.grad, db.to(torch.bfloat16))
+    counts = ops.backward_launch_counts()
+    assert counts["conv3x3_up_bwd_dx"] == 1
+    assert counts["conv3x3_up_bwd_dw"] == 1
+
+
+@pytest.mark.parametrize("name", [
+    "attention_f32", "attention_i8", "attention_nt", "attention_bshd",
+    "repack_to_heads", "repack_from_heads", "rbf", "conv3x3",
+    "conv3x3_up_interleave", "gn_fused"])
+def test_kernels_without_backward_raise_under_autograd(dev, name,
+                                                       monkeypatch):
+    """Each kernel without a backward raises under autograd, through the
+    entry the port calls it from; under no_grad the same call runs."""
+    def x(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, device=dev, generator=_gen(0)).to(
+            dtype).requires_grad_()
+
+    calls = {
+        "attention_f32": lambda: attention.self_attention(
+            *(x((1, 512, 2, 40), torch.float32) for _ in range(3)), 0.1),
+        "attention_i8": lambda: attention.self_attention(
+            *(x((1, 512, 2, 40)) for _ in range(3)), 0.1),
+        "attention_nt": lambda: attention.attention_nt(
+            *(x((2, 512, 40)) for _ in range(3)), 0.1),
+        "attention_bshd": lambda: attention.attention_bshd(
+            *(x((1, 512, 2, 40)) for _ in range(3)), 0.1),
+        "repack_to_heads": lambda: attention.repack_to_heads(
+            x((1, 512, 80)), 2),
+        "repack_from_heads": lambda: attention.repack_from_heads(
+            x((1, 2, 512, 40))),
+        "rbf": lambda: repellency_kernels.rbf_negative_score(
+            x((2, 128), torch.float32), x((5, 128), torch.float32), 3.0),
+        "conv3x3": lambda: conv3x3.conv3x3(x((1, 8, 16, 128)),
+                                           x((128, 128, 3, 3))),
+        "conv3x3_up_interleave": lambda: conv3x3.conv3x3_up(
+            x((1, 16, 16, 128)), x((128, 128, 3, 3)), form="interleave"),
+        "gn_fused": lambda: group_norm.group_norm_fused(
+            x((1, 4096, 320)), x((320,), torch.float32),
+            x((320,), torch.float32), 32, act="silu"),
+    }
+    if name == "attention_i8":
+        monkeypatch.setenv("SDT_INT8_ATTN", "1")
+    with pytest.raises(RuntimeError, match="no backward yet"):
+        calls[name]()
+    with torch.no_grad():
+        out = calls[name]()
+    torch.cuda.synchronize()
+    assert out is not None
+
+
+def test_tiny_f32_training_step_on_gpu_matches_the_cpu(dev):
+    """One ESD step of a tiny f32 UNet (no custom kernel at 8x8 latents:
+    cuBLAS, cuDNN and the plain forms, TF32 off): the loss and every
+    gradient within 2e-3 of the CPU's (relative to each tensor's largest),
+    the AdamW step's weights within 2e-3."""
+    from safe_denoiser_tpu_torch.models import (UNet2DConditionModel,
+                                                UNetConfig)
+    from safe_denoiser_tpu_torch.training import (ESDConfig, esd_loss,
+                                                  esd_param_mask,
+                                                  make_optimizer)
+    from safe_denoiser_tpu_torch.training.esd import module_apply_fn
+
+    torch.manual_seed(0)
+    cpu = UNet2DConditionModel(UNetConfig(
+        sample_size=8, block_out_channels=(32, 64), layers_per_block=1,
+        cross_attention_dim=32, num_attention_heads=2, norm_num_groups=8))
+    gpu = UNet2DConditionModel(cpu.config).to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x_t = torch.randn(2, 4, 8, 8, generator=g)
+    ctx_c, ctx_u = (torch.randn(2, 7, 32, generator=g) for _ in range(2))
+    t = torch.tensor([900, 100])
+    out = {}
+    for where, module in (("cpu", cpu), ("cuda", gpu)):
+        d = torch.device(where)
+        params = {n: p.detach().clone() for n, p in module.named_parameters()}
+        frozen = {n: p.clone() for n, p in params.items()}
+        opt = make_optimizer(ESDConfig(learning_rate=1e-4), params,
+                             esd_param_mask(params, "noxattn"))
+        loss = esd_loss(module_apply_fn(module, torch.float32), params,
+                        frozen, x_t.to(d), t.to(d), ctx_c.to(d), ctx_u.to(d))
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in params.items()
+                 if p.grad is not None}
+        opt.step()
+        out[where] = (loss.item(), grads,
+                      {n: p.detach().cpu() for n, p in params.items()})
+    assert abs(out["cpu"][0] - out["cuda"][0]) <= 2e-3 * abs(out["cpu"][0])
+    assert set(out["cpu"][1]) == set(out["cuda"][1])
+    for n, g_ in out["cpu"][1].items():
+        assert _rel(out["cuda"][1][n], g_) <= 2e-3, n
+    for n, p in out["cpu"][2].items():
+        assert (out["cuda"][2][n] - p).abs().max() <= 2e-3, n
+
+
+# the last test: a failed capture leaves the default CUDA generator in a
+# state that later initializers on the device trip over
 def test_graph_capture_failure_raises(dev):
     """A loop that syncs with the host cannot be captured: the slot
     raises, and runs nothing eagerly in its place."""

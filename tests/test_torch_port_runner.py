@@ -540,13 +540,13 @@ def test_sd3_runner_artist_branch_and_what_is_not_ported(sd3_assets,
 
 
 def test_pipeline_keywords_for_unported_features_raise():
-    """Every SD-v1 erasure keyword runs now; what stays unported is on the
-    SD3 pipeline: LoRA, the data mesh, bank sharding."""
+    """Every SD-v1 erasure keyword runs now, and LoRA on both pipelines
+    (``tests/test_torch_port_lora_uce.py``); what stays unported is on the
+    SD3 pipeline: the data mesh, bank sharding."""
     from safe_denoiser_tpu_torch.pipeline.diffusion_sd3 import \
         SafeDiffusion3Pipeline
     pipe = SafeDiffusion3Pipeline.__new__(SafeDiffusion3Pipeline)
-    for call in (lambda: pipe.load_lora("x.safetensors"),
-                 lambda: pipe.enable_data_mesh(2),
+    for call in (lambda: pipe.enable_data_mesh(2),
                  lambda: pipe.enable_bank_sharding(None)):
         with pytest.raises(NotImplementedError, match="not ported"):
             call()
