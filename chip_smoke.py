@@ -17,7 +17,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      B6's cluster kernels take theirs from each shape's plan, printed on
      their rows with the cluster sizes);
      then each kernel at the main path's shapes (and B4/B5 also at the
-     runner's bank-encode shapes; B2 also at CoPro's 3000-row bank; B9/B10
+     runner's bank-encode shapes; B2 also at CoPro's 3000-row bank and, in
+     its raw form, at phase 11's bank shards with a PAD row; B9/B10
      also in f32; B7 beside B3) against
      its plain PyTorch version, with its device time and a library call's
      where one exists (``device_ms``: calls captured into a CUDA graph and
@@ -146,6 +147,22 @@ Phases, each of which ends the run with a non-zero exit code on failure:
   10b. after phase 9's SD3 server: SD3 flow matching under LoRA on phase
      8's checkpoint (MMDiT 1536 wide, 6 blocks), 1024^2, batch 1, 2 steps
      (B1/B1b at [1,4429,24,64]); finite losses, the adapter moved.
+  11. parallel (after phase 5, on phase 4's modules; slots repeat cuda:0,
+     so it measures the layer's overhead, not scaling): sd14-mesh, phase
+     4's batch on a data mesh of 2 slots, each slot's rows equal bit for
+     bit to generate_batch on its 2-row sub-batch; the 515-row bank over
+     4 slots on a 2-row batch (B2 4 x 11 launches; latents equal to the
+     replicated bank's while the gate stays closed) and phase 5's gate
+     batches on it (the sharded score moves the latents, within
+     PAR_REL_BOUND of the replicated run); unet-tp, one UNet forward over
+     2 model slots (B1 at [8,4096,4,40]); sd3-parallel at SD3-medium's
+     widths, 6 blocks, 5 steps: SP over 2 seq slots, PP over 4 pipe slots
+     in 2 microbatches, the bank over 4 slots, one forward under TP over 2
+     model slots (B1 at [2,4429,12,64]), each against the unsharded run;
+     serve-mesh, the batcher on the data-mesh pipeline (each PNG equal to
+     its slot's generate_batch), and ``runners.serve --mesh 2`` raising on
+     one GPU before it writes anything; the 16 paths of
+     ``dryrun.dryrun_multichip`` over 8 cuda:0 slots.
 The last line of standard output is the result, {"ok": true, "device": ...};
 the line before it lists the kernels as JSON.
 """
@@ -188,6 +205,10 @@ EXPECTED_LAUNCHES = {"attention": 500, "rbf": 11, "conv3x3_up": 53,
                      "attention_nt": 0, "attention_bshd": 0,
                      "repack_to_heads": 0, "repack_from_heads": 0,
                      "conv3x3_up_interleave": 0, "gn_fused": 0}
+# phase 5's batches: 5 DDPM steps, only t = 801 in [1000, 780]
+GATE_STEPS = 5
+# SD-v1.4's image side on the main path
+SD14_SIDE = 512
 # the decode measured with cuDNN resnet convs before the fused conv (PERF.md)
 DECODE_MS_CUDNN = "51.07-51.99"
 
@@ -1031,6 +1052,49 @@ def phase_kernels() -> dict:
                                       bound=bnd, dev=dtm)
             results["rbf"]["err"] = max(results["rbf"]["err"], err)
 
+    # B2's raw form (normalize=False) at the bank-sharded shapes of phase
+    # 11: SD-v1's 515 rows padded to 516 over 4 slots (129 a shard, the
+    # last shard ending in a PAD row) and SD3's 16 latents over 4 slots
+    # (one shard here ending in a PAD row too); a PAD row's weight must
+    # underflow to exactly 0 (||r||^2 = 1.6e24 / 2.6e25), never inf or NaN
+    from safe_denoiser_tpu_torch.parallel import PAD_VALUE
+    results["rbf"]["raw_shards"] = []
+    for n, m, cc, hw in ((4, 129, 4, 64), (1, 4, 16, 128)):
+        dd = cc * hw * hw
+        refs = torch.randn(m, cc, hw, hw, device=dev, generator=g)
+        refs = (refs / refs.norm(dim=1, keepdim=True)).reshape(m, dd)
+        x = refs[:n] + 0.1 * torch.randn(n, dd, device=dev, generator=g)
+        refs[-1] = PAD_VALUE
+
+        def kernel():
+            return repellency_kernels.rbf_negative_score(
+                x, refs, 3.15, 1e-8, normalize=False)
+
+        def plain_fn():
+            return repellency_kernels.rbf_negative_score_ref(
+                x, refs, 3.15, 1e-8, normalize=False)
+
+        (num, beta), (wn, wb) = kernel(), plain_fn()
+        (pad_num, pad_beta) = repellency_kernels.rbf_negative_score(
+            x, refs[-1:].contiguous(), 3.15, 1e-8, normalize=False)
+        torch.cuda.synchronize()
+        err = max((num - wn).abs().max().item(),
+                  ((beta - wb).abs() / wb.abs()).max().item())
+        if not (bool(torch.isfinite(num).all()) and not pad_num.any()
+                and not pad_beta.any()):
+            fail(f"rbf raw [{n},{dd}] x {m}: a PAD row gave a non-zero or "
+                 "non-finite partial")
+        ms, plain = cuda_ms(kernel), cuda_ms(plain_fn)
+        dtm = (device_ms(kernel), None)
+        bnd = bound_ms((m * dd + 2 * n * dd + n) * 4, 4 * n * m * dd,
+                       PEAK_F32)
+        _report("rbf", [n, dd, m, "normalize=False", "shard, PAD row"], err,
+                1e-4, ms, plain, None, bnd, "no single PyTorch call", dtm)
+        results["rbf"]["err"] = max(results["rbf"]["err"], err)
+        results["rbf"]["raw_shards"].append(dict(
+            shape=[n, dd, m], device_ms=dtm[0], bound_ms=bnd[0],
+            bound_by=bnd[1], max_abs_err=err, plain_ms=plain))
+
     # B3 upsample-fused conv, bf16 NHWC; plain version in f32 (TF32 off) on
     # the same bf16 values. Tolerance: outputs ~ N(0, 2) rounded to bf16
     # (half an ulp is 1.6e-2 at |y| = 8) plus the bf16 rounding of the
@@ -1792,7 +1856,9 @@ def kernels_line(results: dict, counts: dict) -> str:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["lib"], "device_ms": r["dev"][0],
             "library_device_ms": r["dev"][1],
-            "backward": name in BWD_KERNELS})
+            "backward": name in BWD_KERNELS,
+            **({"raw_shards": r["raw_shards"]} if "raw_shards" in r
+               else {})})
     return json.dumps({"kernels": rows})
 
 
@@ -1928,10 +1994,23 @@ def phase_layouts_f32(vocab_dir: str) -> None:
                        f"tiny slice at 32^2 under {layout}")
 
 
-def phase_main_path() -> dict:
-    from safe_denoiser_tpu_torch import ops
+def sd14_kw(dev) -> dict:
+    """The main path's batch keywords: 4 x 512^2, CFG 7.5, kernel_fast
+    against a 515-row random bank in the window [1000, 780]."""
     from safe_denoiser_tpu_torch.pipeline import EraseSpec, RepellencyWindow
     from safe_denoiser_tpu_torch.repellency import KernelFastRepellency
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    bank = torch.randn(515, 4, 64, 64, generator=g, device=dev)
+    proc = KernelFastRepellency(ref_data=bank, embed_fn=lambda x: x,
+                                sigma=3.15, scale=0.33, beta_threshold=7.0)
+    spec = EraseSpec(repellency=True, window=RepellencyWindow(1000.0, 780.0))
+    return dict(guidance_scales=[7.5] * 4, height=512, width=512,
+                repellency_processor=proc, erase_spec=spec)
+
+
+def phase_main_path() -> dict:
+    from safe_denoiser_tpu_torch import ops
 
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as vocab_dir:
@@ -1956,13 +2035,7 @@ def phase_main_path() -> dict:
         torch.cuda.synchronize()
         print(f"main path: SD-v1.4 widths, random weights (seed 0), built in "
               f"{time.perf_counter() - t0:.1f} s")
-    g = torch.Generator(device=dev).manual_seed(1)
-    bank = torch.randn(515, 4, 64, 64, generator=g, device=dev)
-    proc = KernelFastRepellency(ref_data=bank, embed_fn=lambda x: x,
-                                sigma=3.15, scale=0.33, beta_threshold=7.0)
-    spec = EraseSpec(repellency=True, window=RepellencyWindow(1000.0, 780.0))
-    kw = dict(guidance_scales=[7.5] * 4, height=512, width=512,
-              repellency_processor=proc, erase_spec=spec)
+    kw = sd14_kw(dev)
     pipe.generate_batch(PROMPTS, seeds=[0, 1, 2, 3], num_inference_steps=2,
                         **kw)                                   # warm-up
     # the first 50-step batch captures the loop's and the decode's graphs
@@ -2021,53 +2094,64 @@ def first_step_x0(pipe, steps: int, seeds: list) -> tuple:
     return t, x0.float()
 
 
-def phase_gate_open(pipe) -> None:
-    """Full width with the beta gate open, which random weights and a
-    random bank never open: the bank (a torch.save cache, as users load
-    one) holds 128 copies of each prompt's own x0 at the first in-window
-    step, so beta ~ 128 > 7 there. Two 5-step batches (t = 801, 601, ...;
-    801 lies in [1000, 780]) differ only in the repellency scale, 0.33
-    and 0: the gap between their latents is B2's score reaching them
-    through the renoise-and-replace branch."""
+def gate_runs(pipe, bank: torch.Tensor, scales=(0.33, 0.0)) -> dict:
+    """{scale: (latents, applied, B2 launches)} of two 5-step batches of
+    PROMPTS against ``bank`` (saved as a torch.save cache, as users load
+    one), window [1000, 780], beta threshold 7."""
     from safe_denoiser_tpu_torch import ops
     from safe_denoiser_tpu_torch.pipeline import EraseSpec, RepellencyWindow
     from safe_denoiser_tpu_torch.repellency import KernelFastRepellency
 
-    dev = pipe.device
-    steps, seeds, copies, n = 5, [0, 1, 2, 3], 128, len(PROMPTS)
-    t, x0 = first_step_x0(pipe, steps, seeds)
-    g = torch.Generator(device=dev).manual_seed(2)
-    bank = torch.cat([x0.repeat_interleave(copies, 0),
-                      torch.randn(515 - n * copies, 4, 64, 64, device=dev,
-                                  generator=g)])
+    n = len(PROMPTS)
     spec = EraseSpec(repellency=True, window=RepellencyWindow(1000.0, 780.0))
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "bank.pt")
         torch.save(bank.cpu(), path)
-        for scale in (0.33, 0.0):
+        for scale in scales:
             proc = KernelFastRepellency(
                 ref_data=None, embed_fn=None, cache_proj_ref=True,
                 proj_ref_path=path, sigma=3.15, scale=scale,
                 beta_threshold=7.0)
             ops.reset_launch_counts()
             pending = pipe.dispatch_batch(
-                PROMPTS, seeds=seeds, guidance_scales=[7.5] * n,
-                num_inference_steps=steps, height=512, width=512,
+                PROMPTS, seeds=[0, 1, 2, 3], guidance_scales=[7.5] * n,
+                num_inference_steps=GATE_STEPS, height=SD14_SIDE,
+                width=SD14_SIDE,
                 repellency_processor=proc, erase_spec=spec)
             lat_out = pending.fetch(return_latents=True)
             out[scale] = (lat_out.float(), pending.applied.cpu(),
                           ops.launch_counts()["rbf"])
+    return out
+
+
+def phase_gate_open(pipe) -> tuple:
+    """Full width with the beta gate open, which random weights and a
+    random bank never open: the bank holds 128 copies of each prompt's own
+    x0 at the first in-window step, so beta ~ 128 > 7 there. Two 5-step
+    batches (t = 801, 601, ...; 801 lies in [1000, 780]) differ only in
+    the repellency scale, 0.33 and 0: the gap between their latents is
+    B2's score reaching them through the renoise-and-replace branch.
+    Returns (the bank, the runs)."""
+    dev = pipe.device
+    copies, n = 128, len(PROMPTS)
+    t, x0 = first_step_x0(pipe, GATE_STEPS, [0, 1, 2, 3])
+    g = torch.Generator(device=dev).manual_seed(2)
+    bank = torch.cat([x0.repeat_interleave(copies, 0),
+                      torch.randn(515 - n * copies, 4, 64, 64, device=dev,
+                                  generator=g)])
+    out = gate_runs(pipe, bank)
     (lat_a, applied, rbf_n), (lat_b, _, _) = out[0.33], out[0.0]
     gap = (lat_a - lat_b).abs().max().item()
-    print(f"gate check: 4 x 512^2, {steps} steps, bank of own x0 at t={t}: "
-          f"applied per step {applied.any(1).tolist()} rbf launches {rbf_n} "
-          f"max|latents(scale 0.33) - latents(scale 0)|={gap:.4e}")
+    print(f"gate check: 4 x 512^2, {GATE_STEPS} steps, bank of own x0 at "
+          f"t={t}: applied per step {applied.any(1).tolist()} rbf launches "
+          f"{rbf_n} max|latents(scale 0.33) - latents(scale 0)|={gap:.4e}")
     if not (bool(applied[0].all()) and not bool(applied[1:].any())
             and rbf_n == 1 and gap > 0
             and bool(torch.isfinite(lat_a).all())):
         fail("at full width the open beta gate did not carry B2's score "
              "into the latents")
+    return bank, out
 
 
 def phase_ddim(pipe, kw) -> dict:
@@ -4498,6 +4582,400 @@ def phase_sd3_flow_lora(ckpt: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- phase 11
+# bounds of phase 11, stated before its first run on the card: rows of a
+# data-mesh slot equal its sub-batch's generate_batch bit for bit; with the
+# beta gate closed the bank-sharded latents equal the replicated bank's
+# (the score is not used); elsewhere a bf16 result within PAR_REL_BOUND of
+# the largest |value| of the unsharded run (f32 partial sums in another
+# order, B1 against the plain attention under SP, a batch of 1 under PP:
+# bf16 roundings that a step amplifies)
+PAR_REL_BOUND = 0.05
+# the SD3 runs: SD3-medium's widths at 6 of its 24 blocks, 5 flow-match
+# steps at 1024^2, CFG 2.5, kernel_fast (channel-normalized x, no gate,
+# sigma 1) in [1000, 780] against a 16-latent bank
+PAR_SD3_LAYERS, PAR_SD3_STEPS = 6, 5
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _check_rel(what: str, got, want, bound: float = PAR_REL_BOUND) -> float:
+    err = _rel(got, want)
+    print(f"{what}: max|d|/max|unsharded|={err:.3e} bound {bound:.0e}")
+    if not (bool(torch.isfinite(got).all()) and err <= bound):
+        fail(f"{what}: {err:.3e} above its bound {bound:.0e}")
+    return err
+
+
+def slots_text(devs) -> str:
+    """"2 cuda:0 slots" or "slots cuda:0, cuda:1"."""
+    names = [str(d) for d in devs]
+    if len(set(names)) == 1:
+        return f"{len(names)} {names[0]} slots"
+    return "slots " + ", ".join(names)
+
+
+def phase_parallel_sd14(pipe, kw, gate, devices=None) -> dict:
+    """sd14-mesh: phase 4's batch (4 x 512^2, 50 steps, kernel_fast against
+    the 515-row bank) on a data mesh of 2 slots, each slot's rows against
+    generate_batch on its 2-row sub-batch; the bank sharded over 4 slots
+    on a 2-row batch (B2 4 x the in-window steps); phase 5's gate batches
+    on that bank; unet-tp: one UNet forward over 2 model slots. The slots
+    are the first of ``devices`` (default: 4 on the pipeline's device)."""
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.parallel import (UNET_TP_RULES, make_mesh,
+                                                  shard_params_tp)
+    from safe_denoiser_tpu_torch.parallel.tp import clear_tp
+    from safe_denoiser_tpu_torch.pipeline import SafeDiffusionPipeline
+    import numpy as np
+
+    dev = pipe.device
+    devices = devices or [torch.device("cuda", 0)] * 4
+    counts = {}
+
+    def twin():
+        return SafeDiffusionPipeline(pipe.unet, pipe.vae, pipe.text_encoder,
+                                     pipe.tokenizer, pipe.scheduler,
+                                     device=dev)
+
+    seeds = [0, 1, 2, 3]
+    mesh_pipe = twin()
+    mesh_pipe.enable_data_mesh(mesh=make_mesh(devices=devices[:2]))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pending = mesh_pipe.dispatch_batch(PROMPTS, seeds=seeds,
+                                       num_inference_steps=50, **kw)
+    rows = pending.fetch()
+    wall = time.perf_counter() - t0
+    counts["sd14-mesh"] = ops.launch_counts()
+    st = pending.stage_ms
+    print(f"sd14-mesh: 4 x 512^2 over {slots_text(devices[:2])}, 50 steps: "
+          f"{json.dumps({k: round(v, 2) for k, v in st.items()})} "
+          f"wall_s={wall:.3f} (captures included)")
+    check_launches(counts["sd14-mesh"],
+                   runner_launches(pipe, 2, 11, batch=2), "sd14-mesh")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    again = mesh_pipe.dispatch_batch(PROMPTS, seeds=seeds,
+                                     num_inference_steps=50, **kw)
+    again.fetch()
+    print(f"sd14-mesh replay: "
+          f"{json.dumps({k: round(v, 2) for k, v in again.stage_ms.items()})}"
+          f" wall_s={time.perf_counter() - t0:.3f}")
+    # each slot's rows against generate_batch on its sub-batch (the same
+    # program at batch 2: under bf16 a row depends on its batch)
+    subs = []
+    for lo in (0, 2):
+        sub = pipe.dispatch_batch(PROMPTS[lo:lo + 2], seeds=seeds[lo:lo + 2],
+                                  num_inference_steps=50,
+                                  **{**kw, "guidance_scales": [7.5] * 2})
+        images = sub.fetch()
+        subs.append((sub, images))
+        for k in range(2):
+            if not (np.array_equal(rows[lo + k], images[k]) and torch.equal(
+                    pending.latents[lo + k], sub.latents[k])):
+                fail(f"sd14-mesh: row {lo + k} differs from generate_batch "
+                     "on its slot's sub-batch")
+    print("sd14-mesh: 4 rows equal bit for bit (latents and PNG) to "
+          "generate_batch on each slot's 2-row sub-batch")
+
+    # the bank sharded over 4 slots, on the first sub-batch
+    bank_pipe = twin()
+    bank_pipe.enable_bank_sharding(make_mesh(devices=devices[:4]))
+    ops.reset_launch_counts()
+    sharded = bank_pipe.dispatch_batch(PROMPTS[:2], seeds=seeds[:2],
+                                       num_inference_steps=50,
+                                       **{**kw, "guidance_scales": [7.5] * 2})
+    sharded.fetch()
+    counts["sd14-bank-shard"] = ops.launch_counts()
+    want = runner_launches(pipe, 1, 11, batch=2)
+    want["rbf"] = 4 * 11
+    check_launches(counts["sd14-bank-shard"], want, "sd14-bank-shard")
+    ref = subs[0][0]
+    if not torch.equal(sharded.applied, ref.applied):
+        fail("sd14-bank-shard: the gate differs from the replicated bank's")
+    if not sharded.applied.any() and not torch.equal(sharded.latents,
+                                                     ref.latents):
+        fail("sd14-bank-shard: with the gate closed the latents differ "
+             "from the replicated bank's")
+    print(f"sd14-bank-shard: 2 x 512^2, 50 steps, 515 rows over "
+          f"{slots_text(devices[:4])} "
+          f"(129 a shard, one PAD row): B2 {counts['sd14-bank-shard']['rbf']}"
+          f" launches, gate {'open' if sharded.applied.any() else 'closed'}"
+          f", latents max|d| vs replicated "
+          f"{(sharded.latents.float() - ref.latents.float()).abs().max():.3e}")
+    # phase 5's open gate on the sharded bank
+    bank, rep_runs = gate
+    runs = gate_runs(bank_pipe, bank)
+    (lat_a, applied, rbf_n), (lat_b, _, _) = runs[0.33], runs[0.0]
+    gap = (lat_a - lat_b).abs().max().item()
+    print(f"sd14-bank-shard gate open: applied {applied.any(1).tolist()} B2 "
+          f"launches {rbf_n} max|latents(0.33) - latents(0)|={gap:.4e}")
+    if not (torch.equal(applied, rep_runs[0.33][1]) and rbf_n == 4
+            and gap > 0):
+        fail("sd14-bank-shard: the sharded score did not move the latents "
+             "as the replicated one does")
+    _check_rel("sd14-bank-shard gate open vs replicated", lat_a,
+               rep_runs[0.33][0])
+
+    # unet-tp: one forward of the batch-4 CFG UNet call over 2 model slots
+    gen = torch.Generator(device=dev).manual_seed(11)
+    side = SD14_SIDE // pipe.vae_scale_factor
+    lat = torch.randn(8, 4, side, side, device=dev, generator=gen)
+    ctx = torch.randn(8, 77, pipe.unet.config.cross_attention_dim,
+                      device=dev, generator=gen)
+    dtype = pipe.unet.conv_in.weight.dtype
+    with torch.no_grad():
+        want_eps = pipe.unet(lat.to(dtype), 981, ctx.to(dtype))
+        mesh2 = make_mesh(devices=devices[:2], axis="model")
+        shard_params_tp(pipe.unet, mesh2, rules=UNET_TP_RULES)
+        try:
+            ops.reset_launch_counts()
+            got_eps = pipe.unet(lat.to(dtype), 981, ctx.to(dtype))
+            torch.cuda.synchronize()
+            counts["unet-tp"] = ops.launch_counts()
+            t_tp = cuda_ms(lambda: pipe.unet(lat.to(dtype), 981,
+                                             ctx.to(dtype)), reps=3)
+        finally:
+            clear_tp(pipe.unet)
+        t_plain = cuda_ms(lambda: pipe.unet(lat.to(dtype), 981,
+                                            ctx.to(dtype)), reps=3)
+    print(f"unet-tp: [8,4,64,64] over model {slots_text(devices[:2])}: B1 "
+          f"{counts['unet-tp']['attention']} launches (10 self-attentions x "
+          f"2 slots, [8,4096,4,40] at level 0), {t_tp:.2f} ms a forward "
+          f"against {t_plain:.2f} ms unsharded")
+    if counts["unet-tp"]["attention"] != 20:
+        fail("unet-tp: B1 did not run once per self-attention and slot")
+    _check_rel("unet-tp vs unsharded", got_eps, want_eps)
+    return counts, mesh_pipe, subs
+
+
+def phase_parallel_sd3(devices=None) -> dict:
+    """sd3-parallel: SD3-medium's widths at 6 blocks, 5 steps of
+    ``sample_sd3`` (1 x 1024^2, CFG 2.5, the renoising repellency against
+    16 random latents) unsharded, with the image tokens over 2 seq slots
+    (SP), the blocks over 4 pipe slots in 2 microbatches (PP); the bank
+    (4 copies of the run's own x0 among them) over 4 slots against the
+    replicated one; one MMDiT forward over 2 model slots (TP). The slots
+    are the first of ``devices`` (default: 4 on cuda:0)."""
+    import dataclasses
+
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.models import SD3_MEDIUM, MMDiT
+    from safe_denoiser_tpu_torch.parallel import (ShardedBank, make_mesh,
+                                                  shard_bank,
+                                                  shard_params_tp,
+                                                  shard_stacked_pp,
+                                                  stack_block_params)
+    from safe_denoiser_tpu_torch.parallel.tp import clear_tp
+    from safe_denoiser_tpu_torch.pipeline import RepellencyWindow
+    from safe_denoiser_tpu_torch.pipeline.sampler import sample_sd3
+    from safe_denoiser_tpu_torch.repellency import RepellencyConfig
+    from safe_denoiser_tpu_torch.schedulers import FlowMatchEulerScheduler
+
+    dev = torch.device("cuda")
+    devices = devices or [torch.device("cuda", 0)] * 4
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cfg = dataclasses.replace(SD3_MEDIUM, num_layers=PAR_SD3_LAYERS)
+    prev = torch.get_default_dtype()
+    with torch.device(dev):
+        torch.set_default_dtype(torch.bfloat16)
+        try:
+            tf = init_small_(MMDiT(cfg), gen).eval()
+        finally:
+            torch.set_default_dtype(prev)
+    hw, c = SD3_SIDE // 8, cfg.in_channels
+    lat0 = torch.randn(1, c, hw, hw, device=dev, generator=gen)
+    # 77 CLIP tokens and 256 T5 tokens (4096 + 333 = 4429 joint tokens)
+    ctx = torch.randn(2, 1, 333, cfg.joint_attention_dim, device=dev,
+                      generator=gen)
+    pooled = torch.randn(2, 1, cfg.pooled_projection_dim, device=dev,
+                         generator=gen)
+    refs = torch.randn(SD3_BANK, c, hw, hw, device=dev, generator=gen)
+    refs = refs / refs.norm(dim=1, keepdim=True)
+    noise = torch.randn(PAR_SD3_STEPS, 1, c, hw, hw, device=dev,
+                        generator=gen)
+    sched = FlowMatchEulerScheduler()
+    rep = RepellencyConfig(method="kernel_fast", sigma=1.0, scale=0.03,
+                           use_beta_gate=False, normalize_x=True)
+    window = RepellencyWindow(1000.0, 780.0)
+    ts, sigmas = sched.timesteps_and_sigmas(PAR_SD3_STEPS)
+    in_window = sum(bool(window.mask(i, float(t))) for i, t in enumerate(ts))
+    counts = {}
+
+    def run(name, fn=tf, bank=refs, rep_bank=None):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lat, applied = sample_sd3(
+                fn, sched, ctx, pooled, lat0, lambda i, salt: noise[i],
+                PAR_SD3_STEPS, guidance_scale=2.5, repellency=rep,
+                refs=bank, window=window, rep_bank=rep_bank)
+        torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+        print(f"{name}: {PAR_SD3_STEPS} steps in "
+              f"{time.perf_counter() - t0:.3f} s, applied "
+              f"{applied.any(1).tolist()}, launches "
+              f"B1 {counts[name]['attention']} B2 {counts[name]['rbf']}")
+        return lat
+
+    with torch.no_grad():          # warm-up: cuBLAS, B1's first load
+        sample_sd3(tf, sched, ctx, pooled, lat0, lambda i, salt: noise[i],
+                   PAR_SD3_STEPS, guidance_scale=2.5, repellency=rep,
+                   refs=refs, window=window, steps=(0,))
+    want = run("sd3-unsharded")
+    steps_b1 = PAR_SD3_LAYERS * PAR_SD3_STEPS
+    if counts["sd3-unsharded"]["attention"] != steps_b1:
+        fail("sd3-unsharded: B1 did not run once per block and step")
+    tf.sp_mesh = make_mesh(devices=devices[:2], axis="seq")
+    try:
+        got = run("sd3-sp")
+    finally:
+        tf.sp_mesh = None
+    if counts["sd3-sp"]["attention"] != 0:
+        fail("sd3-sp: the split attention must take the plain form, as "
+             "JAX's does")
+    _check_rel("sd3-sp vs unsharded", got, want)
+    pp_mesh = make_mesh(devices=devices[:4], axis="pipe")
+    tf.pp_mesh = pp_mesh
+    stacked = shard_stacked_pp(
+        stack_block_params(tf, PAR_SD3_LAYERS, 4), pp_mesh)
+    try:
+        got = run("sd3-pp", lambda *a: tf(*a, pp_params=stacked))
+    finally:
+        tf.pp_mesh = None
+    # 5 blocks and 3 zero blocks a microbatch, the last block on the batch
+    want_b1 = (8 * 2 + 1) * PAR_SD3_STEPS
+    if counts["sd3-pp"]["attention"] != want_b1:
+        fail(f"sd3-pp: B1 launched {counts['sd3-pp']['attention']} times, "
+             f"expected {want_b1}")
+    _check_rel("sd3-pp vs unsharded", got, want)
+    # the random bank's weights underflow to 0 (the score is 0 sharded or
+    # not): 4 of its 16 rows become the run's own channel-normalized x0 at
+    # step 0 (in the window), whose weights are ~1 there
+    if not window.mask(0, float(ts[0])):
+        fail("sd3-bank-shard: step 0 is not in the repellency window")
+    with torch.no_grad():
+        t_in = torch.full((2,), float(ts[0]), device=dev)
+        v = tf(torch.cat([lat0, lat0]), t_in, ctx[:, 0], pooled[:, 0])
+        v = v[:1] + 2.5 * (v[1:] - v[:1])
+        x0 = lat0 - float(sigmas[0]) * v
+        own = (x0 / x0.norm(dim=1, keepdim=True)).float()
+    own_bank = torch.cat([own.repeat(4, 1, 1, 1), refs[4:]])
+    want_own = run("sd3-bank-own", bank=own_bank)
+    moved = _rel(want_own, want)
+    print(f"sd3-bank-own: a bank holding the run's own x0 moves the latents "
+          f"by max|d|/max|random bank|={moved:.3e}")
+    if not moved > 0:
+        fail("sd3-bank-own: the score did not move the latents")
+    bank_mesh = make_mesh(devices=devices[:4])
+    got = run("sd3-bank-shard", bank=shard_bank(own_bank, bank_mesh),
+              rep_bank=ShardedBank(bank_mesh))
+    if counts["sd3-bank-shard"]["rbf"] != 4 * in_window:
+        fail("sd3-bank-shard: B2 did not run once per shard and step")
+    _check_rel("sd3-bank-shard vs replicated", got, want_own)
+    # one forward over 2 model slots
+    x = torch.cat([lat0, lat0])
+    t_in = torch.full((2,), float(ts[0]), device=dev)
+    args = (x, t_in, ctx[:, 0], pooled[:, 0])
+    with torch.no_grad():
+        want_v = tf(*args)
+        shard_params_tp(tf, make_mesh(devices=devices[:2], axis="model"))
+        try:
+            ops.reset_launch_counts()
+            got_v = tf(*args)
+            torch.cuda.synchronize()
+            counts["sd3-tp"] = ops.launch_counts()
+        finally:
+            clear_tp(tf)
+    print(f"sd3-tp: one forward over model {slots_text(devices[:2])}, B1 "
+          f"{counts['sd3-tp']['attention']} launches at [2,4429,12,64]")
+    if counts["sd3-tp"]["attention"] != 2 * PAR_SD3_LAYERS:
+        fail("sd3-tp: B1 did not run once per block and slot")
+    _check_rel("sd3-tp vs unsharded", got_v, want_v)
+    del tf
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_parallel_serve(mesh_pipe, kw, subs) -> dict:
+    """serve-mesh: the dynamic batcher's two-phase hook on sd14-mesh's
+    2-slot pipeline, phase 4's four requests as one batch, each PNG equal
+    to its slot's generate_batch; then ``runners.serve --mesh 2`` must
+    raise on this machine's one GPU before it writes anything."""
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.runners import serve
+    from safe_denoiser_tpu_torch.serving import DynamicBatcher, GenRequest
+    import numpy as np
+
+    opts = {k: v for k, v in kw.items() if k != "guidance_scales"}
+
+    def dispatch(reqs):
+        return mesh_pipe.dispatch_batch(
+            [r.prompt for r in reqs], [r.seed for r in reqs],
+            [r.guidance_scale for r in reqs], num_inference_steps=50,
+            **opts)
+
+    batcher = DynamicBatcher(lambda reqs: dispatch(reqs).fetch(), 4,
+                             max_delay_s=SERVE_DELAY_MS / 1000.0,
+                             dispatch_batch=dispatch)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        futs = [batcher.submit(GenRequest(p, seed=i, guidance_scale=7.5))
+                for i, p in enumerate(PROMPTS)]
+        rows = [f.result(timeout=600) for f in futs]
+    finally:
+        batcher.close()
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    for i, row in enumerate(rows):
+        if not np.array_equal(row, subs[i // 2][1][i % 2]):
+            fail(f"serve-mesh: request {i}'s image differs from "
+                 "generate_batch on its slot's sub-batch")
+    print(f"serve-mesh: 4 requests, one batch over 2 slots, wall_s="
+          f"{wall:.3f}; each image equal to its slot's generate_batch")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "serve")
+        try:
+            serve.main(["--model_dir", tmp, "--mesh", "2", "--save-dir",
+                        out])
+        except RuntimeError as e:
+            print(f"serve --mesh 2 on one GPU raised: {e}")
+        else:
+            fail("serve --mesh 2 did not raise on a machine with one GPU")
+        if os.path.exists(out):
+            fail("serve --mesh 2 wrote its --save-dir before raising")
+    return counts
+
+
+def phase_parallel_dryrun() -> None:
+    """The sixteen dryrun paths over 8 cuda:0 slots."""
+    from safe_denoiser_tpu_torch.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    dryrun_multichip(devices=["cuda:0"] * 8)
+    print(f"dryrun_multichip over 8 cuda:0 slots: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_parallel(pipe, kw, gate) -> dict:
+    """Phase 11: the parallel layer on cuda:0 slots (sd14-mesh, the sharded
+    bank, unet-tp, sd3-parallel, serve-mesh, the dryrun's paths). Returns
+    the launch counts of its runs."""
+    t0 = time.perf_counter()
+    counts, mesh_pipe, subs = phase_parallel_sd14(pipe, kw, gate)
+    counts["serve-mesh"] = phase_parallel_serve(mesh_pipe, kw, subs)
+    del mesh_pipe
+    pipe._graphs.release()
+    counts.update(phase_parallel_sd3())
+    phase_parallel_dryrun()
+    print(f"phase 11 (parallel): {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def phase_profile(pipe, kw, steps: int = 10) -> None:
     """One batch of the main path at ``steps`` DDPM steps, profiled twice on
     the same buffers: replayed from its CUDA graphs (captured first), then
@@ -4534,7 +5012,9 @@ def main() -> None:
     if args.parent:
         phase_parent(args.parent)
     counts, pipe, kw = phase_main_path()
-    phase_gate_open(pipe)
+    gate = phase_gate_open(pipe)
+    parallel_counts = phase_parallel(pipe, kw, gate)
+    del gate
     with tempfile.TemporaryDirectory() as tmp:
         assets = write_runner_assets(pipe, tmp)
         phase_runner(pipe, assets)
@@ -4557,9 +5037,11 @@ def main() -> None:
     # three COCO runner runs (6e, 6f, 6g), the SD-v1 server's requests (9),
     # the four DDIM runs (6b, 6c), the three erasure runs (6d), the three
     # SD3 runs, the SD3 decode under SDT_UP_FORM=interleave, the SD3 COCO
-    # run (8b) and the SD3 server's requests (9)
+    # run (8b), the SD3 server's requests (9), and phase 11's sd14-mesh,
+    # sharded-bank, unet-tp, serve-mesh and SD3 runs
     runs = [counts, *runner_counts.values(), *ddim_counts.values(),
-            *erasure_counts.values(), *sd3_counts.values()]
+            *erasure_counts.values(), *sd3_counts.values(),
+            *parallel_counts.values()]
     total = {name: sum(c.get(name, 0) for c in runs)
              for name in (*counts, *BWD_KERNELS)}
     print(card)

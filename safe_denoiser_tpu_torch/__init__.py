@@ -10,7 +10,8 @@ CLIPScore, the offline FID/KID/IS/CLIPScore/AES evaluators, and serving
 (``serving/``: a dynamic batcher behind an HTTP server and the deployment
 bundle; ``runners/serve.py``), with the sampling loop and the decode
 replayed from CUDA graphs (``pipeline/graph.py``), on one NVIDIA Hopper
-GPU.
+GPU; the parallel layer (``parallel/``: data mesh, sharded bank, sequence-,
+tensor- and pipeline-parallel models) runs over slots of one or more GPUs.
 Module paths mirror the JAX package so each counterpart is easy to find;
 the JAX package stays the numerical reference.
 

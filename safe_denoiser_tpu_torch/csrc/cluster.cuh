@@ -92,27 +92,37 @@ __device__ __forceinline__ T sum_peers(const T* local, int n_blocks) {
 // Launch `Kernel` on `grid` with clusters of `cl` blocks along x (grid.x a
 // multiple of cl) and `smem` bytes of dynamic shared memory. Sizes above 8
 // blocks are allowed where the card takes them (16 on an H100). The
-// kernel's attributes are set on its first launch and when a launch needs
-// more shared memory than set before (kept per kernel, so a call pays for
-// no attribute calls once warm). `after_previous`: a programmatic
-// dependent launch, whose blocks may start before the previous kernel on
-// the stream has finished and must execute wait_previous() before they
-// read what it wrote. Returns the launch's cudaError_t.
+// kernel's attributes are set on its first launch on the current device
+// and when a launch there needs more shared memory than set before (kept
+// per kernel and device, since attributes belong to a device's context,
+// so a call pays for no attribute calls once warm). `after_previous`: a
+// programmatic dependent launch, whose blocks may start before the
+// previous kernel on the stream has finished and must execute
+// wait_previous() before they read what it wrote. Returns the launch's
+// cudaError_t.
+constexpr int MAX_DEVICES = 64;
+
 template <auto Kernel, typename... Args>
 cudaError_t launch(dim3 grid, int threads, int cl, int smem,
                    cudaStream_t stream, bool after_previous, Args... args) {
-  static int smem_set = -1;
+  // 1 + the shared-memory bytes set on each device; 0: nothing set yet
+  static int smem_set[MAX_DEVICES];
   const auto kernel = Kernel;
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem + 1 > smem_set[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
     if (e != cudaSuccess) return e;
-    if (smem_set < 0) {
+    if (smem_set[dev] == 0) {
       e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       if (e != cudaSuccess) return e;
     }
-    smem_set = smem;
+    smem_set[dev] = smem + 1;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -128,7 +138,7 @@ cudaError_t launch(dim3 grid, int threads, int cl, int smem,
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = after_previous ? 2 : 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 

@@ -140,7 +140,11 @@ class QDense(nn.Linear):
 
 class Attention(nn.Module):
     """Multi-head attention over [B, S, C] with optional cross-attention
-    context; diffusers names (to_q, to_k, to_v, to_out.0)."""
+    context; diffusers names (to_q, to_k, to_v, to_out.0). Under
+    ``parallel.shard_params_tp`` (``_tp`` set) it runs over the model
+    slots (``parallel.tp.attention``)."""
+
+    _tp = None
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  context_dim: int | None = None, qkv_bias: bool = False,
@@ -158,6 +162,9 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
+        if self._tp is not None:
+            from ..parallel import tp
+            return tp.attention(self, x, context, mask)
         context = x if context is None else context
         b, s, _ = x.shape
         q = self.to_q(x).view(b, s, self.num_heads, self.head_dim)
@@ -190,7 +197,10 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward; diffusers names ff.net.0.proj / ff.net.2."""
+    """GEGLU feed-forward; diffusers names ff.net.0.proj / ff.net.2.
+    Tensor-parallel under ``_tp`` (``parallel.tp.feed_forward``)."""
+
+    _tp = None
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -198,4 +208,7 @@ class FeedForward(nn.Module):
                                   QDense(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._tp is not None:
+            from ..parallel import tp
+            return tp.feed_forward(self, x)
         return self.net[2](self.net[0](x))

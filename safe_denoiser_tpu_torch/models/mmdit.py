@@ -13,7 +13,11 @@ The joint attention goes through ``layers.dot_product_attention``, so its
 [2, 4429, 24, 64] call at 1024^2 with CFG reaches the attention kernel
 (or, with ``SDT_INT8_ATTN=1`` under bf16, its int8-QK^T form). The block
 projections and MLPs are ``QDense`` layers, which ``ops.quant`` turns to
-W8A8 int8. Sequence and pipeline parallelism are not ported.
+W8A8 int8. ``MMDiT(sp_mesh=...)`` splits the image tokens over a ``seq``
+axis (``parallel/sp.py``), ``MMDiT(pp_mesh=...)`` with ``forward(...,
+pp_params=)`` runs blocks 0..L-2 as a GPipe pipeline over a ``pipe`` axis
+(``parallel/pp.py``), and ``parallel.shard_params_tp`` makes the block
+attention and MLPs tensor-parallel (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -105,7 +109,10 @@ class AdaLayerNormContinuous(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """tanh-GELU MLP; diffusers names net.0.proj / net.2."""
+    """tanh-GELU MLP; diffusers names net.0.proj / net.2. Tensor-parallel
+    under ``_tp`` (``parallel.tp.feed_forward``)."""
+
+    _tp = None
 
     def __init__(self, dim: int):
         super().__init__()
@@ -114,11 +121,20 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleList([proj, nn.Dropout(0.0), QDense(4 * dim, dim)])
 
     def forward(self, x):
+        if self._tp is not None:
+            from ..parallel import tp
+            return tp.feed_forward(self, x)
         h = F.gelu(self.net[0].proj(x), approximate="tanh")
         return self.net[2](h)
 
 
 class JointAttention(nn.Module):
+    """q/k/v of both streams and one attention over [image ; context];
+    the output projections are applied by the block. Tensor-parallel
+    under ``_tp`` (``parallel.tp.joint_attention``)."""
+
+    _tp = None
+
     def __init__(self, cfg: MMDiTConfig, context_pre_only: bool):
         super().__init__()
         dim = cfg.num_heads * cfg.head_dim
@@ -144,7 +160,8 @@ class JointAttention(nn.Module):
             q, k = nq(q), nk(k)
         return q, k, v
 
-    def forward(self, xh, ch):
+    def qkv(self, xh, ch):
+        """(xq, xk, xv, cq, ck, cv), each [B, S, H, D]."""
         rms = self.cfg.qk_norm == "rms_norm"
         xq, xk, xv = self._qkv(xh, self.to_q, self.to_k, self.to_v,
                                *((self.norm_q, self.norm_k) if rms else ()))
@@ -152,6 +169,10 @@ class JointAttention(nn.Module):
                                self.add_v_proj,
                                *((self.norm_added_q, self.norm_added_k)
                                  if rms else ()))
+        return xq, xk, xv, cq, ck, cv
+
+    def forward(self, xh, ch):
+        xq, xk, xv, cq, ck, cv = self.qkv(xh, ch)
         out = dot_product_attention(torch.cat([xq, cq], 1),
                                     torch.cat([xk, ck], 1),
                                     torch.cat([xv, cv], 1))
@@ -174,25 +195,67 @@ class JointBlock(nn.Module):
         if not context_pre_only:
             self.ff_context = FeedForward(dim)
 
-    def forward(self, x, context, emb):
-        xh, x_gate, x_shift_mlp, x_scale_mlp, x_gate_mlp = self.norm1(x, emb)
+    def _modulate(self, x, context, emb):
+        """(xh, ch, the image stream's gates, the context's or None)."""
+        xh, *x_mod = self.norm1(x, emb)
         if self.context_pre_only:
-            ch = self.norm1_context(context, emb)
-        else:
-            ch, c_gate, c_shift_mlp, c_scale_mlp, c_gate_mlp = \
-                self.norm1_context(context, emb)
-        x_out, c_out = self.attn(xh, ch)
+            return xh, self.norm1_context(context, emb), x_mod, None
+        ch, *c_mod = self.norm1_context(context, emb)
+        return xh, ch, x_mod, c_mod
 
-        x = x + x_gate[:, None] * self.attn.to_out[0](x_out)
+    def _finish(self, x, context, x_att, c_att, x_mod, c_mod):
+        """The residuals and MLPs after the projected attention outputs."""
+        x_gate, x_shift_mlp, x_scale_mlp, x_gate_mlp = x_mod
+        x = x + x_gate[:, None] * x_att
         xh = layer_norm_fp32(x) * (1 + x_scale_mlp[:, None]) \
             + x_shift_mlp[:, None]
         x = x + x_gate_mlp[:, None] * self.ff(xh)
         if self.context_pre_only:
             return x, None
-        context = context + c_gate[:, None] * self.attn.to_add_out(c_out)
+        c_gate, c_shift_mlp, c_scale_mlp, c_gate_mlp = c_mod
+        context = context + c_gate[:, None] * c_att
         ch = layer_norm_fp32(context) * (1 + c_scale_mlp[:, None]) \
             + c_shift_mlp[:, None]
         return x, context + c_gate_mlp[:, None] * self.ff_context(ch)
+
+    def forward(self, x, context, emb):
+        xh, ch, x_mod, c_mod = self._modulate(x, context, emb)
+        if self.attn._tp is not None:
+            from ..parallel import tp
+            x_att, c_att = tp.joint_attention(self.attn, xh, ch)
+        else:
+            x_out, c_out = self.attn(xh, ch)
+            x_att = self.attn.to_out[0](x_out)
+            c_att = (None if self.context_pre_only
+                     else self.attn.to_add_out(c_out))
+        return self._finish(x, context, x_att, c_att, x_mod, c_mod)
+
+    def forward_sp(self, xs: list, cs: list, es: list, mesh, axes):
+        """The block with the image tokens split over the ``seq`` slots
+        (``axes`` = (data, seq)): xs one token slice a slot, cs and es one
+        copy a slot; each slot's pointwise math runs on its slice, the
+        joint attention is ``parallel.sp.sp_joint_attention``."""
+        from ..parallel.mesh import module_on, on_slot
+        from ..parallel.sp import sp_joint_attention
+        blks = [module_on(self, x.device) for x in xs]
+        pre, qkv = [], []
+        for b, x, c, e in zip(blks, xs, cs, es):
+            with on_slot(x.device):
+                pre.append(b._modulate(x, c, e))
+                qkv.append(b.attn.qkv(pre[-1][0], pre[-1][1]))
+        x_out, c_out = sp_joint_attention(
+            *([q[i] for q in qkv] for i in range(6)), mesh,
+            seq_axis=axes[1], data_axis=axes[0])
+        new_x, new_c = [], []
+        for b, x, c, p, xo, co in zip(blks, xs, cs, pre, x_out, c_out):
+            with on_slot(x.device):
+                x_att = b.attn.to_out[0](xo.reshape(*xo.shape[:2], -1))
+                c_att = (None if self.context_pre_only else
+                         b.attn.to_add_out(co.reshape(*co.shape[:2], -1)))
+                x, c = b._finish(x, c, x_att, c_att, p[2], p[3])
+            new_x.append(x)
+            new_c.append(c)
+        return new_x, new_c
 
 
 class _TimestepEmbedder(nn.Module):
@@ -214,14 +277,27 @@ class _PatchEmbed(nn.Module):
 
 class MMDiT(nn.Module):
     """forward(sample [B, C, H, W], timesteps scalar or [B], context [B, S,
-    joint_dim], pooled [B, P]) -> f32 [B, C, H, W]."""
+    joint_dim], pooled [B, P], pp_params=None) -> f32 [B, C, H, W].
+
+    ``sp_mesh``: a mesh with a ``sp_axes[1]`` (seq) axis; the image tokens
+    run split over it through every block, and where it has a
+    ``sp_axes[0]`` (data) axis the batch rows split over that. ``pp_mesh``
+    with ``pp_params`` (``parallel.stack_block_params`` /
+    ``shard_stacked_pp`` of this model's blocks): blocks 0..L-2 run as a
+    GPipe pipeline of ``pp_microbatches`` microbatches over ``pp_axes[1]``
+    (pipe), the rows over ``pp_axes[0]`` where the mesh has it. Both are
+    plain attributes."""
 
     def __init__(self, config: MMDiTConfig = SD3_MEDIUM,
-                 sp_mesh: Optional[object] = None):
+                 sp_mesh: Optional[object] = None,
+                 sp_axes: tuple = ("data", "seq"),
+                 pp_mesh: Optional[object] = None,
+                 pp_axes: tuple = ("data", "pipe"),
+                 pp_microbatches: int = 2):
         super().__init__()
-        if sp_mesh is not None:
-            raise NotImplementedError("sequence parallelism (sp_mesh) is "
-                                      "not ported")
+        self.sp_mesh, self.sp_axes = sp_mesh, tuple(sp_axes)
+        self.pp_mesh, self.pp_axes = pp_mesh, tuple(pp_axes)
+        self.pp_microbatches = pp_microbatches
         self.config = cfg = config
         dim = cfg.num_heads * cfg.head_dim
         self.pos_embed = _PatchEmbed(cfg, dim)
@@ -251,9 +327,43 @@ class MMDiT(nn.Module):
                 table.astype(np.float32)).to(device)
         return self._pos_cache[key]
 
+    def _blocks_sp(self, x, context, emb):
+        """Every block with the image tokens split over the seq slots; x
+        gathered back on its device after the last."""
+        from ..parallel.comm import all_gather
+        from ..parallel.sp import constrain_seq
+        mesh, axes = self.sp_mesh, self.sp_axes
+        xs = constrain_seq(x, mesh, seq_axis=axes[1], data_axis=axes[0])
+        cs = [context.to(p.device) for p in xs]
+        es = [emb.to(p.device) for p in xs]
+        for blk in self.transformer_blocks:
+            xs, cs = blk.forward_sp(xs, cs, es, mesh, axes)
+        return all_gather(xs, 1, [x.device])[0]
+
+    def _blocks(self, x, context, emb, pp_params=None):
+        cfg = self.config
+        if self.pp_mesh is not None and pp_params is not None:
+            from ..parallel.pp import pp_blocks
+            mesh = self.pp_mesh
+            data_ax = (self.pp_axes[0] if self.pp_axes[0] in mesh.axis_names
+                       else None)
+            x, context = pp_blocks(cfg, pp_params, x, context, emb, mesh,
+                                   n_micro=self.pp_microbatches,
+                                   pipe_axis=self.pp_axes[1],
+                                   data_axis=data_ax)
+            return self.transformer_blocks[-1](x, context, emb)[0]
+        if self.sp_mesh is not None:
+            from ..parallel.mesh import over_axis
+            return over_axis(self.sp_mesh, self.sp_axes[0], self._blocks_sp,
+                             x, context, emb)
+        for blk in self.transformer_blocks:
+            x, context = blk(x, context, emb)
+        return x
+
     def forward(self, sample: torch.Tensor, timesteps,
                 encoder_hidden_states: torch.Tensor,
-                pooled_projections: torch.Tensor) -> torch.Tensor:
+                pooled_projections: torch.Tensor,
+                pp_params=None) -> torch.Tensor:
         cfg = self.config
         dim = cfg.num_heads * cfg.head_dim
         dtype = self.context_embedder.weight.dtype
@@ -272,8 +382,7 @@ class MMDiT(nn.Module):
         emb = (tt.timestep_embedder(timestep_embedding(t, 256).to(dtype))
                + tt.text_embedder(pooled_projections.to(dtype)))
         context = self.context_embedder(encoder_hidden_states.to(dtype))
-        for blk in self.transformer_blocks:
-            x, context = blk(x, context, emb)
+        x = self._blocks(x, context, emb, pp_params)
         x = self.proj_out(self.norm_out(x, emb))
         c = cfg.out_channels
         x = x.reshape(b, gh, gw, p, p, c).permute(0, 5, 1, 3, 2, 4)

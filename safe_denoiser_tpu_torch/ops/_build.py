@@ -158,6 +158,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def stream_ptr(device) -> int:
+def require_current(device) -> None:
+    """Raise unless ``device`` is the current CUDA device: a kernel runs on
+    the current device, so a tensor of another one (a mesh slot's, outside
+    ``parallel.mesh.on_slot``) would be launched on the wrong device or
+    missed by a CUDA graph's capture."""
     import torch
+    device = torch.device(device)
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise RuntimeError(
+            f"a kernel on {device} while cuda:{current} is the current "
+            f"device: run it under torch.cuda.device({device.index})")
+
+
+def stream_ptr(device) -> int:
+    """The current stream of ``device``, which must be the current
+    device."""
+    import torch
+    require_current(device)
     return torch.cuda.current_stream(device).cuda_stream

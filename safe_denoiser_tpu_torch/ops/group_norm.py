@@ -174,6 +174,7 @@ def _gn_stats_cuda(x: torch.Tensor):
                          f"{tuple(x.shape)} strides {x.stride()}")
     if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"gn_stats: unsupported dtype {x.dtype}")
+    _build.require_current(x.device)
     b, s, c = x.shape
     partial_sums, finish, _ = _triton_kernels()
     c_tiles = -(-c // _BLOCK_C)
@@ -209,6 +210,7 @@ def _gn_stats_bwd_cuda(x, ds1, ds2) -> torch.Tensor:
     if ds1.shape != (b, c) or ds2.shape != (b, c):
         raise ValueError(f"gn_stats backward: ds1/ds2 must be [B, C] = "
                          f"{[b, c]}")
+    _build.require_current(x.device)
     _, _, stats_bwd = _triton_kernels()
     dx = torch.empty_like(x)
     grid = (b, -(-s // _BLOCK_S), -(-c // _BLOCK_C))

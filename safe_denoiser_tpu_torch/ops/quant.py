@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 # JointBlock linears quantized (diffusers names under transformer_blocks.i):
 # the per-token projections and the MLPs. AdaLN modulation, the embedders
@@ -49,17 +50,33 @@ def quantize_dense_kernel(w: torch.Tensor):
     return wq.to(torch.int8), sw
 
 
+def int8_products(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact xq [M, K] @ wq[N, K]^T: int32 on the GPU, float64 on the CPU.
+    Sums of these (a K split over slots, ``parallel.tp``) stay exact."""
+    if xq.is_cuda:
+        (m, k), n = xq.shape, wq.shape[0]
+        # cuBLASLt's int8 GEMM wants more than 16 rows and K, N multiples
+        # of 8 (a tensor-parallel slot's share can be 4): zero padding
+        # adds nothing to the integer sums
+        pk, pn, pm = -k % 8, -n % 8, max(0, 17 - m)
+        if pk or pm:
+            xq = F.pad(xq, (0, pk, 0, pm))
+        if pk or pn:
+            wq = F.pad(wq, (0, pk, 0, pn))
+        return torch._int_mm(xq, wq.t())[:m, :n]
+    return xq.double() @ wq.double().t()
+
+
 def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """Exact xq [M, K] @ wq[N, K]^T as f32 [M, N] (each int32 sum rounded
     once to f32, as JAX's ``s32.astype(f32)``)."""
-    if xq.is_cuda:
-        m = xq.shape[0]
-        # cuBLASLt's int8 GEMM wants more than 16 rows
-        pad = max(0, 17 - m)
-        if pad:
-            xq = torch.cat([xq, xq.new_zeros(pad, xq.shape[1])])
-        return torch._int_mm(xq, wq.t())[:m].float()
-    return (xq.double() @ wq.double().t()).float()
+    return int8_products(xq, wq).float()
+
+
+def quantize_rows(x32: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """f32 activations -> int8 at the per-row scales ``sx`` (round half to
+    even, clip to +-127)."""
+    return torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8)
 
 
 def int8_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
@@ -69,7 +86,7 @@ def int8_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     quantization; f32 dequant (y * sx) * sw, f32 bias, output in ``dtype``."""
     x32 = x.float()
     sx = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-12) / 127.0
-    xq = torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8)
+    xq = quantize_rows(x32, sx)
     lead = x.shape[:-1]
     y = _int8_matmul(xq.reshape(-1, x.shape[-1]), wq)
     y = y.reshape(*lead, wq.shape[0]) * sx * sw.float()

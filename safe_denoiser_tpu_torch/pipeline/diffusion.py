@@ -6,8 +6,11 @@ of ``ERASE_SPECS`` (plain, ESD, SLD, RECE, SAFREE and their repellency
 windows), SAFREE's projection with its fixed or self-validated (``svf``)
 window, the SLD safety branch with ``safe_config``, latent re-attention
 (``lra``) with FreeU / the SafeGuard filters (``freeu``), the bank's VAE
-embedding, the ESD UNet swap and W8A8 int8 on the UNet's wide transformer
-blocks (``enable_int8``). LoRA and the device mesh are not ported yet.
+embedding, the ESD UNet swap, LoRA (``load_lora``), W8A8 int8 on the
+UNet's wide transformer blocks (``enable_int8``), and the parallel layer's
+two modes (:class:`MeshModes`): a data mesh that splits each batch's rows
+over device slots (``enable_data_mesh``) and a bank sharded over them
+(``enable_bank_sharding``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that request they raise. Each prompt row draws
@@ -145,7 +148,107 @@ def _merge_lora_in_place(module: torch.nn.Module, path: str,
                 params[name].copy_(w)
 
 
-class SafeDiffusionPipeline:
+class MeshModes:
+    """The parallel layer's two modes of both pipelines (the JAX
+    pipelines' ``enable_data_mesh`` / ``enable_bank_sharding``), which
+    refuse each other in either order. A pipeline lists the modules a data
+    mesh replicates (``_MESH_MODULES``) and finds a slot's with
+    ``_modules_on``."""
+
+    _MESH_MODULES: tuple = ()
+    # the JAX pipelines' words, which differ by family
+    _DATA_MESH_CONFLICT = (
+        "enable_data_mesh with enable_bank_sharding is not supported: the "
+        "bank's M axis and the served batch would need a 2-D mesh \u2014 "
+        "shard one or the other")
+    _data_mesh = None
+    _rep_bank = None
+
+    def enable_bank_sharding(self, mesh, axis: str = "data",
+                             batch_axis: Optional[str] = None) -> None:
+        """Shard the repellency bank's M rows over ``mesh``'s ``axis``:
+        each slot scores its shard (B2's raw partials on a GPU), the
+        partials are summed across the axis (``parallel/bank.py``). For
+        banks too large to replicate (a 10k-row SD3 bank is ~10 GB)."""
+        if self._data_mesh is not None:
+            raise ValueError(
+                "enable_bank_sharding with enable_data_mesh is not "
+                "supported: shard the bank's M axis or the served batch, "
+                "not both (needs a 2-D mesh)")
+        from ..parallel.bank import ShardedBank
+        self._rep_bank = ShardedBank(mesh, axis=axis, batch_axis=batch_axis)
+
+    def enable_data_mesh(self, n_devices: Optional[int] = None,
+                         mesh=None) -> None:
+        """Data-parallel batches: every later ``dispatch_batch`` /
+        ``generate_batch`` splits its rows over the slots of ``mesh``
+        (default ``parallel.make_mesh(n_devices)``, which needs that many
+        GPUs), with the modules replicated once per distinct device (here,
+        and again after a change of their weights: ``_modules_on``). Each
+        slot captures and replays its own rows' graphs, so a slot's rows
+        are those of ``generate_batch`` on that sub-batch."""
+        from ..parallel import make_mesh, replicate
+        if mesh is None:
+            mesh = make_mesh(n_devices)
+        if self._rep_bank is not None:
+            raise ValueError(self._DATA_MESH_CONFLICT)
+        for name in self._MESH_MODULES:
+            replicate(getattr(self, name), mesh)
+        self._data_mesh = mesh
+        self._slot_graphs = [graph.GraphSlot()
+                             for _ in range(mesh.devices.size)]
+
+    def _modules_on(self, device) -> tuple:
+        """The ``_MESH_MODULES`` on ``device``: the pipeline's own where they
+        lie there, else their copies there (``parallel.mesh.module_on``,
+        made again once ``load_lora``, ``load_unet_state_dict`` or
+        ``enable_int8`` has changed the pipeline's)."""
+        from ..parallel.mesh import module_on
+        return tuple(module_on(getattr(self, name), device)
+                     for name in self._MESH_MODULES)
+
+    def _shard_batch_inputs(self, bufs: dict) -> list:
+        """A prepared batch's buffers cut into the data mesh's slots' rows
+        (``graph.shard_buffers``)."""
+        mesh = self._data_mesh
+        n = mesh.devices.size
+        b = bufs["latents"].shape[0]
+        if b % n != 0:
+            raise ValueError(
+                f"served batch size {b} must be divisible by the data "
+                f"mesh's {n} devices (pick --batch_size a multiple of "
+                f"--mesh)")
+        return graph.shard_buffers(bufs, list(mesh.devices.flat))
+
+    def _maybe_shard_refs(self, refs):
+        """The bank's shards under bank sharding, else ``refs``."""
+        if refs is None or self._rep_bank is None:
+            return refs
+        from ..parallel.bank import shard_bank
+        return shard_bank(refs, self._rep_bank.mesh, self._rep_bank.axis)
+
+    def _graphable(self) -> bool:
+        return self._rep_bank is None or self._rep_bank.single_device()
+
+    def _launch(self, program, bufs, timer=None) -> "PendingGeneration":
+        """Run a prepared batch: through the CUDA graphs on ``cuda``,
+        eagerly on the CPU (``graph.GraphSlot.run``); under a data mesh
+        each slot its rows (``graph.run_slots``)."""
+        timer = timer or _StageTimer(self.device)
+        if self._data_mesh is None:
+            latents, applied, image = self._graphs.run(program, bufs,
+                                                       timer.mark)
+        else:
+            latents, applied, image = graph.run_slots(
+                self._slot_graphs, program, self._shard_batch_inputs(bufs),
+                self.device, timer.mark)
+        return PendingGeneration(self, program.timesteps, latents, image,
+                                 applied, timer)
+
+
+class SafeDiffusionPipeline(MeshModes):
+    _MESH_MODULES = ("unet", "vae", "text_encoder")
+
     def __init__(self, unet: UNet2DConditionModel, vae: AutoencoderKL,
                  text_encoder: CLIPTextModel, tokenizer, scheduler,
                  device=None, logger=None):
@@ -440,38 +543,33 @@ class SafeDiffusionPipeline:
             bufs["use_alt"] = torch.as_tensor(use_alt, dtype=torch.bool,
                                               device=dev)
         if rep_cfg is not None:
-            bufs["refs"] = refs.to(device=dev, dtype=torch.float32)
+            bufs.update(graph.bank_buffers(self._maybe_shard_refs(
+                refs.to(device=dev, dtype=torch.float32))))
         unet, vae, sch = self.unet, self.vae, self.scheduler
+        rep_bank = self._rep_bank
 
         def loop(bufs, steps=None):
             noise = bufs["noise"]
             return sample_sd(
-                unet, sch, bufs["text"], bufs["latents"],
+                self._modules_on(bufs["latents"].device)[0], sch,
+                bufs["text"], bufs["latents"],
                 lambda i, salt: noise[slots[i, salt]], num_inference_steps,
-                guidance=guidance, repellency=rep_cfg, refs=bufs.get("refs"),
-                window=window, guidance_scale=bufs["gs"],
-                text_embeds_alt=bufs.get("alt"),
+                guidance=guidance, repellency=rep_cfg,
+                refs=graph.bank_from(bufs), window=window,
+                guidance_scale=bufs["gs"], text_embeds_alt=bufs.get("alt"),
                 use_alt_per_step=bufs.get("use_alt"), freeu=freeu,
-                t_table=bufs["timesteps"], steps=steps)
+                t_table=bufs["timesteps"], steps=steps, rep_bank=rep_bank)
 
         def decode(latents):
+            vae = self._modules_on(latents.device)[1]
             return vae.decode(latents / vae.config.scaling_factor)
 
         key = ("sd", id(unet), id(vae), unet.conv_in.weight.dtype,
                self._int8_min_dim, type(sch).__name__, sch.config,
                num_inference_steps, guidance, rep_cfg, window, freeu,
-               graph.weights_version(unet, vae))
+               rep_bank, graph.weights_version(unet, vae))
         return (graph.Program(key, loop, decode, graph.warm_step(in_window),
-                              timesteps), bufs)
-
-    def _launch(self, program, bufs, timer=None) -> "PendingGeneration":
-        """Run a prepared batch: through the CUDA graphs on ``cuda``,
-        eagerly on the CPU (``graph.GraphSlot.run``)."""
-        timer = timer or _StageTimer(self.device)
-        latents, applied, image = self._graphs.run(program, bufs,
-                                                   timer.mark)
-        return PendingGeneration(self, program.timesteps, latents, image,
-                                 applied, timer)
+                              timesteps, self._graphable()), bufs)
 
     def dispatch_batch(self, prompts: Sequence[str], seeds: Sequence[int],
                        guidance_scales: Sequence[float], **kwargs
@@ -504,16 +602,20 @@ class SafeDiffusionPipeline:
 
 class _StageTimer:
     """CUDA events between the stages of one batch (no synchronization
-    until read); on the CPU the host clock after each stage."""
+    until read), all on the stream that was current when the batch began
+    (a data mesh's slots on other GPUs run on their own streams, which
+    these marks do not time); on the CPU the host clock after each
+    stage."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.current_stream() if self.cuda else None
         self.marks: list[tuple[str, object]] = [("start", self._now())]
 
     def _now(self):
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
+            ev.record(self.stream)
             return ev
         import time
         return time.perf_counter()

@@ -19,8 +19,9 @@ MMDiT and the VAE in ``dtype`` (bf16). Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``. Each prompt row draws its initial
 latents and its renoise noise from its own ``torch.Generator`` seeded with
 the row's seed, before the loop; on ``cuda`` the loop and the decode
-replay from CUDA graphs (``graph.py``). LoRA, the data mesh and bank
-sharding are not ported and raise ``NotImplementedError``.
+replay from CUDA graphs (``graph.py``). ``load_lora`` merges an adapter;
+``enable_data_mesh`` and ``enable_bank_sharding`` are the SD-v1
+pipeline's (``diffusion.MeshModes``), the MMDiT and the VAE replicated.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..device import resolve_device
 from ..models import (AutoencoderKL, CLIPTextModel, MMDiT, T5Encoder)
 from ..schedulers.flow_match import (FlowMatchEulerScheduler,
                                      flow_match_config_from_checkpoint)
-from .diffusion import (PendingGeneration, _StageTimer,
+from .diffusion import (MeshModes, PendingGeneration, _StageTimer,
                         _merge_lora_in_place)
 from .safree import (NUDITY_NEGATIVE_PROMPT_SPACE, projection_matrix,
                      safree_projection)
@@ -72,7 +73,12 @@ def _load_t5_tokenizer(path: str):
         return CLIPTokenizer.from_pretrained(path)
 
 
-class SafeDiffusion3Pipeline:
+class SafeDiffusion3Pipeline(MeshModes):
+    _MESH_MODULES = ("transformer", "vae")
+    _DATA_MESH_CONFLICT = (
+        "enable_data_mesh with enable_bank_sharding is not supported: "
+        "shard the bank's M axis or the served batch, not both (needs a "
+        "2-D mesh)")
     def __init__(self, transformer: MMDiT, vae: AutoencoderKL,
                  clip_l: CLIPTextModel, clip_g: CLIPTextModel,
                  t5: T5Encoder, tokenizer, tokenizer_2, tokenizer_3,
@@ -276,36 +282,32 @@ class SafeDiffusion3Pipeline:
                 "gs": torch.tensor(list(guidance_scales), dtype=torch.float32,
                                    device=dev)}
         if rep_cfg is not None:
-            bufs["refs"] = refs.to(device=dev, dtype=torch.float32)
+            bufs.update(graph.bank_buffers(self._maybe_shard_refs(
+                refs.to(device=dev, dtype=torch.float32))))
         tf, vae, sch = self.transformer, self.vae, self.scheduler
+        rep_bank = self._rep_bank
 
         def loop(bufs, steps=None):
             noise = bufs["noise"]
             return sample_sd3(
-                tf, sch, bufs["embeds"], bufs["pooled"], bufs["latents"],
+                self._modules_on(bufs["latents"].device)[0], sch,
+                bufs["embeds"], bufs["pooled"], bufs["latents"],
                 lambda i, salt: noise[slots[i, salt]], num_inference_steps,
                 guidance_scale=bufs["gs"], repellency=rep_cfg,
-                refs=bufs.get("refs"), window=window, steps=steps)
+                refs=graph.bank_from(bufs), window=window, steps=steps,
+                rep_bank=rep_bank)
 
         def decode(latents):
+            vae = self._modules_on(latents.device)[1]
             vcfg = vae.config
             return vae.decode(latents / vcfg.scaling_factor
                               + vcfg.shift_factor)
 
         key = ("sd3", id(tf), id(vae), tf.context_embedder.weight.dtype,
                self.int8_layers, sch.config, num_inference_steps, rep_cfg,
-               window, graph.weights_version(tf, vae))
+               window, rep_bank, graph.weights_version(tf, vae))
         return (graph.Program(key, loop, decode, graph.warm_step(in_window),
-                              timesteps), bufs)
-
-    def _launch(self, program, bufs, timer=None) -> PendingGeneration:
-        """Run a prepared batch: through the CUDA graphs on ``cuda``,
-        eagerly on the CPU (``graph.GraphSlot.run``)."""
-        timer = timer or _StageTimer(self.device)
-        latents, applied, image = self._graphs.run(program, bufs,
-                                                   timer.mark)
-        return PendingGeneration(self, program.timesteps, latents, image,
-                                 applied, timer)
+                              timesteps, self._graphable()), bufs)
 
     def dispatch_batch(self, prompts: Sequence[str], seeds: Sequence[int],
                        guidance_scales: Sequence[float], **kwargs
@@ -351,9 +353,3 @@ class SafeDiffusion3Pipeline:
         (load before ``enable_int8``)."""
         _merge_lora_in_place(self.transformer, path, scale)
 
-    def enable_data_mesh(self, n_devices=None, mesh=None) -> None:
-        raise NotImplementedError("the data mesh is not ported yet")
-
-    def enable_bank_sharding(self, mesh, axis: str = "data",
-                             batch_axis: Optional[str] = None) -> None:
-        raise NotImplementedError("bank sharding is not ported yet")

@@ -43,6 +43,14 @@ graph and its memory pool before capturing.
 Launch counters (``ops.COUNTERS``): the counters' change over the warm-up
 and the capture is taken out again, and each replay adds the change that
 its capture recorded, so a batch counts the kernels its replay launched.
+
+Under a data mesh (``enable_data_mesh``) a pipeline keeps one GraphSlot a
+mesh slot: :func:`shard_buffers` cuts the batch's buffers into each slot's
+rows, each slot captures and replays its rows' loop and decode on its own
+device (under ``parallel.mesh.on_slot``, with a capture stream of that
+device), and :func:`run_slots` gathers the rows back in order. A bank
+sharded over slots of more than one device runs eagerly
+(``Program.graphable``): one device's graph cannot hold another's work.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..parallel.mesh import on_slot, split_rows
 
 # the switches the kernel wrappers and modules read at each call
 ENV_SWITCHES = ("SDT_FLASH2_LAYOUT", "SDT_ATTN_REPACK", "SDT_FUSED_GN",
@@ -114,6 +123,53 @@ class Program:
     decode: Callable[[torch.Tensor], torch.Tensor]
     warm_step: int
     timesteps: np.ndarray
+    graphable: bool = True
+
+
+# the batch dim of each per-request buffer (the rest are replicated)
+BATCH_DIMS = {"latents": 0, "gs": 0, "noise": 1, "text": 1, "alt": 1,
+              "use_alt": 1, "embeds": 1, "pooled": 1}
+
+
+def bank_buffers(refs) -> dict:
+    """The bank's buffers: "refs", or one "refs.<k>" a shard."""
+    if isinstance(refs, (list, tuple)):
+        return {f"refs.{k}": r for k, r in enumerate(refs)}
+    return {"refs": refs}
+
+
+def bank_from(bufs: dict):
+    """The bank (a tensor, its shards, or None) from its buffers."""
+    if "refs.0" in bufs:
+        return [bufs[f"refs.{k}"] for k in range(
+            sum(name.startswith("refs.") for name in bufs))]
+    return bufs.get("refs")
+
+
+def shard_buffers(bufs: dict, devices: Sequence[torch.device]) -> list:
+    """One buffer dict a slot: the batched buffers cut into the slots' rows
+    (``BATCH_DIMS``), the others copied; each on its slot's device."""
+    out: list = [{} for _ in devices]
+    for name, t in bufs.items():
+        dim = BATCH_DIMS.get(name)
+        pieces = (split_rows(t, len(devices), dim) if dim is not None
+                  else [t] * len(devices))
+        for i, dev in enumerate(devices):
+            out[i][name] = pieces[i].to(dev)
+    return out
+
+
+def run_slots(slots: Sequence["GraphSlot"], program: Program,
+              slot_bufs: Sequence[dict], home: torch.device,
+              mark: Callable[[str], None] = lambda name: None):
+    """(latents, applied, image) of a batch whose rows are split over
+    slots: each slot's GraphSlot runs its rows (marks ``loop@i``,
+    ``decode@i``, ``capture@i``), the rows gathered on ``home``."""
+    res = [slot.run(program, b, lambda name, i=i: mark(f"{name}@{i}"))
+           for i, (slot, b) in enumerate(zip(slots, slot_bufs))]
+    return (torch.cat([r[0].to(home) for r in res]),
+            torch.cat([r[1].to(home) for r in res], dim=1),
+            torch.cat([r[2].to(home) for r in res]))
 
 
 def _run_eager(program: Program, bufs: dict):
@@ -151,12 +207,15 @@ class _Captured:
         torch.cuda.current_stream(device).wait_stream(side)
         del latents
         warm = ops.launch_counts()
+        # a capture stream of this device: torch.cuda.graph's default is
+        # one stream for the process, on the device current at first use
+        capture = torch.cuda.Stream(device)
         self.loop_graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.loop_graph):
+        with torch.cuda.graph(self.loop_graph, stream=capture):
             self.latents, self.applied = program.loop(self.static)
         looped = ops.launch_counts()
         self.decode_graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.decode_graph):
+        with torch.cuda.graph(self.decode_graph, stream=capture):
             self.image = program.decode(self.latents)
         done = ops.launch_counts()
         self.loop_launches = _diff(looped, warm)
@@ -192,10 +251,13 @@ class GraphSlot:
             mark: Callable[[str], None] = lambda name: None):
         """(latents, applied, image) of one batch: on ``cuda`` through the
         graphs of ``program`` (captured first when the key is new;
-        ``mark("capture")`` after it), elsewhere eagerly on ``bufs``;
-        ``mark("loop")`` and ``mark("decode")`` after each stage."""
-        with torch.no_grad():
-            if bufs["latents"].device.type != "cuda":
+        ``mark("capture")`` after it), elsewhere (or where the program is
+        not ``graphable``) eagerly on ``bufs``;
+        ``mark("loop")`` and ``mark("decode")`` after each stage. Runs
+        with the buffers' device current (``on_slot``)."""
+        with torch.no_grad(), on_slot(bufs["latents"].device):
+            if bufs["latents"].device.type != "cuda" or \
+                    not program.graphable:
                 latents, applied = program.loop(bufs)
                 mark("loop")
                 image = program.decode(latents)

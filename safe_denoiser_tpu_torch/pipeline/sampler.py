@@ -106,14 +106,19 @@ def _check_hook_method(rep_cfg: RepellencyConfig) -> None:
                          "apply_repellency(..., generator=) directly")
 
 
+def _bank_kw(rep_bank) -> dict:
+    """``apply_repellency``'s ``bank=``, passed only when there is one."""
+    return {} if rep_bank is None else {"bank": rep_bank}
+
+
 def _repellency_hook(scheduler, eps, t: int, latents, refs, rep_cfg,
-                     noise):
+                     noise, rep_bank=None):
     """Tweedie x0 -> repellency -> renoise -> replace where negated."""
     _check_hook_method(rep_cfg)
     x0 = scheduler.pred_original_sample(eps, t, latents)
     if isinstance(x0, tuple):       # DDIM returns (x0, eps)
         x0 = x0[0]
-    x0_rep, is_neg = apply_repellency(x0, refs, rep_cfg)
+    x0_rep, is_neg = apply_repellency(x0, refs, rep_cfg, **_bank_kw(rep_bank))
     renoised = scheduler.add_noise(x0_rep, noise, t)
     return (torch.where(is_neg[:, None, None, None], renoised, latents),
             is_neg)
@@ -134,7 +139,8 @@ def sample_sd(unet_fn: Callable[..., torch.Tensor],
               use_alt_per_step: Optional[torch.Tensor] = None,
               freeu=None,
               t_table: Optional[torch.Tensor] = None,
-              steps: Optional[Sequence[int]] = None):
+              steps: Optional[Sequence[int]] = None,
+              rep_bank=None):
     """Run the reverse diffusion for SD-v1.x.
 
     unet_fn: ``(latents [B', C, H, W], t, context [B', S, D], freeu=)
@@ -153,6 +159,8 @@ def sample_sd(unet_fn: Callable[..., torch.Tensor],
     built once (default: here, before the first step).
     steps: the step indices to run (default all of them; a graph's warm-up
     runs one).
+    rep_bank: a ``parallel.ShardedBank``: the repellency runs against the
+    M-sharded bank (``refs`` its shards) with summed raw partials.
     Returns (final latents [B, C, H, W], rep_applied [steps, B] bool).
     """
     timesteps = scheduler.timesteps(num_inference_steps)
@@ -188,7 +196,7 @@ def sample_sd(unet_fn: Callable[..., torch.Tensor],
         if repellency is not None and window.mask(i, t):
             latents, applied[i] = _repellency_hook(
                 scheduler, eps, t, latents, refs, repellency,
-                noise_fn(i, 1))
+                noise_fn(i, 1), rep_bank)
         latents, _ = scheduler.step(eps, t, latents, num_inference_steps,
                                     noise=noise_fn(i, 2))
     return latents, applied
@@ -205,7 +213,8 @@ def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
                repellency: Optional[RepellencyConfig] = None,
                refs: Optional[torch.Tensor] = None,
                window: RepellencyWindow = RepellencyWindow(),
-               steps: Optional[Sequence[int]] = None):
+               steps: Optional[Sequence[int]] = None,
+               rep_bank=None):
     """The SD3 flow-matching loop with the safe denoiser's renoising.
     Inside the window, with sigma_+ the next sigma:
 
@@ -221,6 +230,7 @@ def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
     tensor. ``noise_fn(i, 1)`` gives step i's renoise eps [B, C, H, W].
     Each step's t is a ``torch.full`` on the device (a fill, no host copy).
     ``steps``: the step indices to run (default all of them).
+    ``rep_bank``: as ``sample_sd``'s.
     Returns (final latents [B, C, H, W], rep_applied [steps, B] bool)."""
     timesteps, sigmas = scheduler.timesteps_and_sigmas(num_inference_steps)
     b = latents.shape[0]
@@ -246,7 +256,8 @@ def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
         x0 = latents - float(sigma) * v
         x1 = latents + float(f32(1.0) - sigma) * v
         _check_hook_method(repellency)
-        x0_rep, is_neg = apply_repellency(x0, refs, repellency)
+        x0_rep, is_neg = apply_repellency(x0, refs, repellency,
+                                          **_bank_kw(rep_bank))
         noise = (float(np.sqrt(sigma_next)) * x1
                  + float(np.sqrt(f32(1.0) - sigma_next)) * noise_fn(i, 1))
         renoised = x0_rep + float(sigma_next) * (noise - x0_rep)

@@ -73,21 +73,28 @@ def _channel_normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
 
-def apply_repellency(x0: torch.Tensor, refs: torch.Tensor,
-                     cfg: RepellencyConfig,
-                     generator: torch.Generator | None = None):
+def apply_repellency(x0: torch.Tensor, refs, cfg: RepellencyConfig,
+                     generator: torch.Generator | None = None, bank=None):
     """Repellency update on x0 [N, C, H, W] against the bank refs
     [M, C, H, W]. Returns (x0_new [N, C, H, W], is_negation [N] bool); for
-    beta-gated methods the caller uses x0_new only where is_negation."""
+    beta-gated methods the caller uses x0_new only where is_negation.
+    ``bank``: a ``parallel.ShardedBank``, whose ``score`` / ``sparse_force``
+    replace the kernels; refs is then the list of its shards
+    (``parallel.shard_bank``, pad rows included) or a whole bank."""
     n, c, h, w = x0.shape
     d = c * h * w
     x_in = _channel_normalize(x0) if cfg.normalize_x else x0
     x_flat = x_in.reshape(n, d).float().contiguous()
-    refs_flat = refs.reshape(refs.shape[0], d).float().contiguous()
+
+    def flat(r):
+        return r.reshape(r.shape[0], d).float().contiguous()
+
+    refs_flat = ([flat(r) for r in refs] if isinstance(refs, (list, tuple))
+                 else flat(refs))
 
     if cfg.method in ("kernel_fast", "kernel", "euclidean"):
-        score, beta = rbf_negative_score(x_flat, refs_flat, cfg.sigma,
-                                         cfg.epsilon)
+        score_fn = bank.score if bank is not None else rbf_negative_score
+        score, beta = score_fn(x_flat, refs_flat, cfg.sigma, cfg.epsilon)
         x0_new = x0 - cfg.scale * score.reshape(n, c, h, w)
         if cfg.use_beta_gate:
             is_neg = beta > (cfg.beta_threshold - cfg.beta_threshold_margin)
@@ -96,7 +103,9 @@ def apply_repellency(x0: torch.Tensor, refs: torch.Tensor,
         return x0_new, is_neg
 
     if cfg.method == "sparse":
-        force, c_sum = sparse_repellency_force(x_flat, refs_flat, cfg.radius)
+        force_fn = (bank.sparse_force if bank is not None
+                    else sparse_repellency_force)
+        force, c_sum = force_fn(x_flat, refs_flat, cfg.radius)
         return x0 + cfg.scale * force.reshape(n, c, h, w), c_sum > 0.0
 
     if cfg.method == "random_noise":

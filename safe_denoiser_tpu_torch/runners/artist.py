@@ -25,7 +25,7 @@ from ..data import PromptCase
 from ..pipeline.diffusion import ERASE_SPECS
 from ..utils.logging import Logger
 from .common import (base_parser, build_pipeline, build_repellency,
-                     check_ported, make_save_dirs, run_cases, shard_iter)
+                     make_save_dirs, run_cases, shard_iter)
 from .nudity import resolve_negative_space
 
 # the reference's fixed memorized prompts (run_ann_graham.py:335,
@@ -50,7 +50,6 @@ def main(task: str, argv=None):
     parser, _ = base_parser(f"Safe-Denoiser artist run: {task} "
                             "(PyTorch port)", argv)
     args = parser.parse_args(argv)
-    check_ported(args)
     if "artists-" not in args.category:
         args.category = spec["category"]
     if args.erase_id not in ERASE_SPECS:

@@ -37,8 +37,7 @@ from ..models.clip_vision import (CLIP_VISION_VIT_B_32, CLIPVisionModel,
 from ..pipeline.diffusion import ERASE_SPECS
 from ..utils.logging import Logger
 from .common import (base_parser, build_pipeline, build_repellency,
-                     check_ported, dump_run_artifacts, make_save_dirs,
-                     shard_iter)
+                     dump_run_artifacts, make_save_dirs, shard_iter)
 from .nudity import resolve_negative_space
 
 # CLIP ViT-B/32's text tower (openai/clip-vit-base-patch32), quick_gelu as
@@ -105,7 +104,6 @@ def main(argv=None):
                              "from the hub; zero egress here). Overrides "
                              "--data.")
     args = parser.parse_args(argv)
-    check_ported(args)
     if args.erase_id not in ERASE_SPECS:
         raise ValueError(f"unknown --erase_id {args.erase_id}: one of "
                          f"{sorted(ERASE_SPECS)}")

@@ -4,9 +4,8 @@ assembly, the online gate, detect_dict aggregation.
 Counterpart of ``safe_denoiser_tpu/runners/common.py`` for the nudity,
 artist and CoPro runners (SD-v1.4) and the SD3 nudity runner. The flags
 and their defaults are the JAX package's, except ``--device`` (``cuda``;
-tests pass ``cpu``). A flag that asks for what is not ported yet
-(``--shard_bank``, the server's ``--mesh``) raises ``NotImplementedError`` naming it
-(``check_ported``).
+tests pass ``cpu``). ``--shard_bank`` shards the repellency bank over
+every visible GPU (``maybe_enable_bank_sharding``).
 """
 
 from __future__ import annotations
@@ -115,7 +114,8 @@ def base_parser(description: str, argv=None
                    help="skip cases whose all/ output already exists")
     p.add_argument("--shard_bank", action="store_true",
                    default=g("shard_bank", False),
-                   help="shard the bank over devices (not ported yet)")
+                   help="shard the repellency bank's rows over every "
+                        "visible GPU (parallel/bank.py)")
     p.add_argument("--int8", action="store_true", default=g("int8", False),
                    help="quantize the wide transformer matmuls to int8 "
                         "(W8A8; UNet level-2/mid on SD-v1, the gate set by "
@@ -129,18 +129,6 @@ def base_parser(description: str, argv=None
     return p, cfg
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError for any flag whose feature the port lacks,
-    before anything is loaded."""
-    if args.shard_bank:
-        raise NotImplementedError("not ported yet: --shard_bank (bank "
-                                  "sharding over devices)")
-    if getattr(args, "mesh", None):
-        raise NotImplementedError(
-            "not ported yet: --mesh (serving over a data mesh of devices; "
-            "the parallel slice, ROADMAP.md A16)")
-
-
 def shard_iter(args, cases):
     """Apply --num_shards/--shard_id to a PromptCase iterator."""
     return shard_cases(cases, args.num_shards, args.shard_id)
@@ -152,6 +140,21 @@ def make_save_dirs(save_dir: str) -> dict[str, str]:
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     return dirs
+
+
+def maybe_enable_bank_sharding(args, pipe, logger: Logger) -> None:
+    """--shard_bank: the repellency bank M-sharded over every visible GPU
+    (``parallel/bank.py``). On one device (or the CPU) a no-op: the
+    replicated kernel is already the whole machine there."""
+    if not getattr(args, "shard_bank", False):
+        return
+    n = torch.cuda.device_count() if pipe.device.type == "cuda" else 1
+    if n < 2:
+        logger.log("--shard_bank: single device, keeping the replicated bank")
+        return
+    from ..parallel import make_mesh
+    pipe.enable_bank_sharding(make_mesh(n))
+    logger.log(f"Repellency bank sharded over {n} devices")
 
 
 def build_pipeline(args, logger: Logger) -> SafeDiffusionPipeline:
@@ -171,6 +174,7 @@ def build_pipeline(args, logger: Logger) -> SafeDiffusionPipeline:
         pipe.enable_int8(min_dim=min_dim)
         logger.log(f"int8: UNet wide transformer matmuls quantized "
                    f"(W8A8, min_dim={min_dim})")
+    maybe_enable_bank_sharding(args, pipe, logger)
     return pipe
 
 

@@ -24,8 +24,8 @@ from ..data import iter_prompt_cases, read_csv
 from ..pipeline.diffusion import ERASE_SPECS
 from ..utils.logging import Logger
 from .common import (base_parser, build_eval, build_pipeline,
-                     build_repellency, check_ported, make_save_dirs,
-                     run_cases, shard_iter)
+                     build_repellency, make_save_dirs, run_cases,
+                     shard_iter)
 from .nudity import resolve_negative_space
 
 
@@ -33,7 +33,6 @@ def main(argv=None):
     parser, _ = base_parser("Safe-Denoiser CoPro benchmark (PyTorch port)",
                             argv)
     args = parser.parse_args(argv)
-    check_ported(args)
     if args.category == "nudity":
         args.category = "all"     # CoPro's default is the Q16 gate
     if args.erase_id not in ERASE_SPECS:

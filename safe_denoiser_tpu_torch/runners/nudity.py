@@ -32,7 +32,6 @@ from .common import (
     build_eval,
     build_pipeline,
     build_repellency,
-    check_ported,
     make_save_dirs,
     run_cases,
     shard_iter,
@@ -63,7 +62,6 @@ def main(argv=None):
     parser, _ = base_parser("Safe-Denoiser nudity benchmark (PyTorch port)",
                             argv)
     args = parser.parse_args(argv)
-    check_ported(args)
     if args.erase_id not in ERASE_SPECS:
         raise ValueError(f"unknown --erase_id {args.erase_id}: one of "
                          f"{sorted(ERASE_SPECS)}")

@@ -39,8 +39,8 @@ from ..repellency import get_repellency_method
 from ..utils.config import load_yaml
 from ..utils.logging import Logger
 from .common import (base_parser, build_eval, check_bank_matches_image_length,
-                     check_ported, dump_run_artifacts, make_save_dirs,
-                     run_cases, shard_iter)
+                     dump_run_artifacts, make_save_dirs,
+                     maybe_enable_bank_sharding, run_cases, shard_iter)
 
 
 def build_sd3_repellency(args, pipe: SafeDiffusion3Pipeline, logger: Logger):
@@ -105,7 +105,6 @@ def main_nudity(argv=None):
     parser = sd3_parser("Safe-Denoiser SD3 nudity benchmark (PyTorch port)",
                         argv)
     args = parser.parse_args(argv)
-    check_ported(args)
     eval_func = build_eval(args)
 
     dirs = make_save_dirs(args.save_dir)
@@ -118,6 +117,7 @@ def main_nudity(argv=None):
         raise SystemExit("--model_dir with a local SD3 checkpoint is required")
     pipe = SafeDiffusion3Pipeline.from_pretrained(
         args.model_dir, device=args.device, logger=logger)
+    maybe_enable_bank_sharding(args, pipe, logger)
     if args.int8:
         pipe.enable_int8()
         logger.log("int8: MMDiT block matmuls quantized (W8A8)")
@@ -152,7 +152,6 @@ def main_coco30k(argv=None):
     parser = sd3_parser("Safe-Denoiser SD3 COCO-30k fidelity run (PyTorch "
                         "port)", argv)
     args = parser.parse_args(argv)
-    check_ported(args)
 
     dirs = make_save_dirs(args.save_dir)
     logger = Logger(os.path.join(args.save_dir, "logs.txt"))
@@ -164,6 +163,7 @@ def main_coco30k(argv=None):
         raise SystemExit("--model_dir with a local SD3 checkpoint is required")
     pipe = SafeDiffusion3Pipeline.from_pretrained(
         args.model_dir, device=args.device, logger=logger)
+    maybe_enable_bank_sharding(args, pipe, logger)
     if args.int8:
         pipe.enable_int8()
         logger.log("int8: MMDiT block matmuls quantized (W8A8)")

@@ -15,8 +15,10 @@ Repellency, SAFREE and SLD come through the same --task_config /
 statics and refuses a server configured otherwise.
 
 The flags and defaults are the JAX package's, plus ``--device`` (``cuda``;
-tests pass ``cpu``). ``--mesh`` raises ``NotImplementedError``
-(``common.check_ported``): data-parallel serving is not ported.
+tests pass ``cpu``). ``--mesh N`` splits each served batch's rows over N
+GPUs (``enable_data_mesh``; ``parallel.make_mesh`` raises where fewer are
+visible); its guards (no AOT bundle, no --shard_bank, --batch_size a
+multiple of N) run in ``parse_args``, before anything is written.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ import os
 
 from ..utils.config import read_json
 from ..utils.logging import Logger
-from .common import check_ported
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -77,10 +78,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(WEAK|MEDIUM|STRONG|MAX)")
     p.add_argument("--shard_bank", action="store_true",
                    default=g("shard_bank", False),
-                   help="shard the bank over devices (not ported yet)")
+                   help="shard the repellency bank's rows over every "
+                        "visible GPU (parallel/bank.py)")
     p.add_argument("--mesh", type=int, default=g("mesh", None),
-                   help="shard each served batch over an N-device data "
-                        "mesh (not ported yet)")
+                   help="shard each served batch over an N-GPU data mesh "
+                        "(modules replicated, batch rows split N ways); "
+                        "--batch_size must be a multiple of N. "
+                        "Incompatible with --shard_bank and --aot_bundle")
     p.add_argument("--save-dir", type=str, default=g("save_dir", "./serve"))
     p.add_argument("--export_aot", type=str, default=g("export_aot", None),
                    help="write this serving configuration's deployment "
@@ -108,7 +112,31 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.image_length = 1024 if args.sd3 else 512
     if args.guidance_scale is None:
         args.guidance_scale = 2.5 if args.sd3 else 7.5
+    # the --mesh guards run here, before main() makes --save-dir
+    if args.mesh:
+        if args.aot_bundle or args.export_aot:
+            raise SystemExit(
+                "--mesh with --aot_bundle/--export_aot is not supported: "
+                "AOT programs are traced single-device \u2014 a --mesh "
+                "request on the export path would be silently dropped; "
+                "serve live")
+        if args.shard_bank:
+            raise SystemExit(
+                "--mesh with --shard_bank is not supported: shard the "
+                "served batch or the bank's M axis, not both")
+        if args.batch_size % args.mesh != 0:
+            raise SystemExit(
+                f"--batch_size {args.batch_size} must be a multiple of "
+                f"--mesh {args.mesh} (each device takes batch/mesh rows)")
     return args
+
+
+def enable_mesh(args, pipe, logger) -> None:
+    """--mesh N: the pipeline's batches split over an N-GPU data mesh."""
+    if args.mesh:
+        pipe.enable_data_mesh(args.mesh)
+        logger.log(f"data mesh: served batches sharded over {args.mesh} "
+                   f"devices ({args.batch_size // args.mesh} rows/device)")
 
 
 def _negative_space(args, erase_spec):
@@ -280,6 +308,7 @@ def _build_sd3_pipe(args, erase_spec, logger):
     vanilla, *_rep -> flow-renoise repellency (window from the spec),
     safree* -> the T5 SAFREE projection; the SD3 family has no SLD."""
     from ..pipeline.diffusion_sd3 import SafeDiffusion3Pipeline
+    from .common import maybe_enable_bank_sharding
     from .sdv3 import build_sd3_repellency
 
     if erase_spec.text_method == "sld":
@@ -301,6 +330,7 @@ def _build_sd3_pipe(args, erase_spec, logger):
     if args.int8:
         pipe.enable_int8()
         logger.log("int8: MMDiT block matmuls quantized (W8A8)")
+    maybe_enable_bank_sharding(args, pipe, logger)
     repellency_processor = None
     if erase_spec.repellency and args.task_config:
         repellency_processor, _ = build_sd3_repellency(args, pipe, logger)
@@ -311,6 +341,7 @@ def build_sd3_generate_fn(args, erase_spec, logger):
     """-> run_batch over ``SafeDiffusion3Pipeline.generate_batch``, with
     its ``dispatch_batch`` as the two-phase hook."""
     pipe, repellency_processor = _build_sd3_pipe(args, erase_spec, logger)
+    enable_mesh(args, pipe, logger)
 
     def _kwargs(reqs):
         return dict(
@@ -444,13 +475,17 @@ def build_run_batch(args, logger):
     if args.aot_bundle:
         return build_aot_generate_fn(args, pipe, repellency_processor,
                                      erase_spec, logger)
+    enable_mesh(args, pipe, logger)
     return build_generate_fn(args, pipe, repellency_processor, erase_spec,
                              logger)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    check_ported(args)          # before --save-dir is made
+    if args.mesh:
+        # fewer GPUs than --mesh: raise before --save-dir is made
+        from ..parallel import make_mesh
+        make_mesh(args.mesh)
     os.makedirs(args.save_dir, exist_ok=True)
     logger = Logger(os.path.join(args.save_dir, "serve_logs.txt"))
     for arg in vars(args):

@@ -127,12 +127,25 @@ def test_coco_runner_per_case_resume_and_batched(coco, monkeypatch):
     assert not (batched / "config.yaml").exists()
 
 
-def test_coco_runner_refuses_before_writing(tmp_path):
+def test_coco_runner_refuses_before_writing(tmp_path, request):
+    """A bad erase id and a missing CLIP directory refuse before anything
+    is written. --shard_bank runs: on one device (here the CPU) it keeps
+    the replicated bank and logs the JAX package's line."""
     for extra, error, match in (
-            (["--shard_bank"], NotImplementedError, "not ported"),
+            (["--shard_bank"], None, "--shard_bank: single device, keeping "
+                                     "the replicated bank"),
             (["--erase_id", "std_typo"], ValueError, "unknown --erase_id"),
             (["--clip_weights_dir", str(tmp_path / "none")],
              FileNotFoundError, "none")):
+        if error is None:
+            assets = request.getfixturevalue("assets")
+            csv = assets.root / "coco.csv"
+            csv.write_text(COCO_CSV)
+            save = tmp_path / "shard_bank"
+            t_coco.main(_argv(assets, str(csv), save, *extra))
+            assert match in _log(save / "logs.txt")
+            assert len(os.listdir(save / "all")) == 3
+            continue
         with pytest.raises(error, match=match):
             t_coco.main(["--data", "x.csv", "--save-dir",
                          str(tmp_path / "o"), "--device", "cpu", *extra])

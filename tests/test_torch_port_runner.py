@@ -389,14 +389,29 @@ def test_runner_artist_resume_and_shards(assets):
     assert (assets.root / "shard0" / "all" / "1.png").exists()
 
 
+SHARD_BANK_LINE = "--shard_bank: single device, keeping the replicated bank"
+
+
 @pytest.mark.parametrize("extra,error,match", [
-    (["--shard_bank"], NotImplementedError, "not ported"),
+    (["--shard_bank"], None, SHARD_BANK_LINE),
     (["--category", "all"], SystemExit, "--clip_vision_weights")],
     ids=["shard_bank", "q16"])
-def test_runner_raises_on_what_is_not_ported(tmp_path, extra, error, match):
-    """--shard_bank is not ported; the Q16 gate of --category all is, and
-    without --clip_vision_weights exits as the JAX package's build_eval
-    does (same message). Both before anything is written."""
+def test_runner_raises_on_what_is_not_ported(tmp_path, request, extra, error,
+                                             match):
+    """--shard_bank runs: on one device (here the CPU) it keeps the
+    replicated bank and logs the JAX package's line. The Q16 gate of
+    --category all without --clip_vision_weights exits as the JAX
+    package's build_eval does (same message), before anything is
+    written."""
+    if error is None:
+        assets = request.getfixturevalue("assets")
+        save = tmp_path / "shard_bank"
+        t_nudity.main(_argv(assets, save, "--erase_id", "std_rep",
+                            "--task_config", assets.task, "--nudenet-path",
+                            assets.onnx, *extra))
+        assert match in (save / "logs.txt").read_text()
+        assert len(list((save / "all").glob("*.png"))) == 5
+        return
     argv = ["--data", "x.csv", "--save-dir", str(tmp_path / "o"),
             "--device", "cpu", *extra]
     with pytest.raises(error, match=match) as caught:
@@ -532,24 +547,46 @@ def test_sd3_runner_artist_branch_and_what_is_not_ported(sd3_assets,
         ["0.png", "1.png"]
     assert json.loads((save / "detect_dict.json").read_text()) == {}
     for extra, error, match in (
-            (["--shard_bank"], NotImplementedError, "not ported"),
+            (["--shard_bank"], None, SHARD_BANK_LINE),
             (["--category", "all"], SystemExit, "--clip_vision_weights")):
+        if error is None:       # runs now: one device keeps the bank whole
+            sdv3.main_nudity(_sd3_argv(sd3_assets, tmp_path / "sb",
+                                       "--category", "artists-Test",
+                                       *extra))
+            assert match in (tmp_path / "sb" / "logs.txt").read_text()
+            continue
         with pytest.raises(error, match=match):
             sdv3.main_nudity(_sd3_argv(sd3_assets, tmp_path / "o", *extra))
     assert not (tmp_path / "o").exists()
 
 
 def test_pipeline_keywords_for_unported_features_raise():
-    """Every SD-v1 erasure keyword runs now, and LoRA on both pipelines
-    (``tests/test_torch_port_lora_uce.py``); what stays unported is on the
-    SD3 pipeline: the data mesh, bank sharding."""
+    """Every SD-v1 erasure keyword runs now, LoRA on both pipelines
+    (``tests/test_torch_port_lora_uce.py``), and the SD3 pipeline's data
+    mesh and bank sharding (``tests/test_torch_port_parallel_pipeline.
+    py``): each works, and each refuses the other. ``enable_data_mesh(2)``
+    without a mesh needs two GPUs."""
+    import torch
+
+    from safe_denoiser_tpu_torch.parallel import make_mesh
     from safe_denoiser_tpu_torch.pipeline.diffusion_sd3 import \
         SafeDiffusion3Pipeline
+    mesh = make_mesh(devices=["cpu"] * 2)
     pipe = SafeDiffusion3Pipeline.__new__(SafeDiffusion3Pipeline)
-    for call in (lambda: pipe.enable_data_mesh(2),
-                 lambda: pipe.enable_bank_sharding(None)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    pipe.transformer = pipe.vae = torch.nn.Linear(1, 1)
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="CUDA devices"):
+            pipe.enable_data_mesh(2)
+    pipe.enable_data_mesh(mesh=mesh)
+    assert pipe._modules_on(torch.device("cpu"))[0] is pipe.transformer
+    with pytest.raises(ValueError, match="with enable_data_mesh is not "
+                                         "supported"):
+        pipe.enable_bank_sharding(mesh)
+    other = SafeDiffusion3Pipeline.__new__(SafeDiffusion3Pipeline)
+    other.enable_bank_sharding(mesh)
+    with pytest.raises(ValueError, match="with enable_bank_sharding is not "
+                                         "supported"):
+        other.enable_data_mesh(mesh=mesh)
 
 
 def test_pipeline_swaps_in_an_esd_unet(assets, tmp_path):

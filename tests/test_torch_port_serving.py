@@ -319,11 +319,26 @@ def test_serve_config_guards(tmp_path):
 
 @pytest.mark.parametrize("extra", [[], ["--aot_bundle", "x.sdt"],
                                    ["--batch_size", "3"]])
-def test_mesh_is_not_ported(tmp_path, extra):
+def test_mesh_is_not_ported(tmp_path, monkeypatch, extra):
+    """--mesh runs through the port now: its guards (an AOT bundle, a
+    batch size that does not divide) exit with the JAX server's messages,
+    and without them ``make_mesh`` raises on a machine with fewer than 2
+    GPUs; each before --save-dir is made."""
+    from safe_denoiser_tpu.runners import serve as j_serve
     sd = tmp_path / "serve"
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        t_serve.main(["--model_dir", "x", "--mesh", "2", "--save-dir",
-                      str(sd), *extra])
+    argv = ["--model_dir", "x", "--mesh", "2", "--save-dir", str(sd), *extra]
+    if not extra:
+        import torch
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="needs as many CUDA devices"):
+            t_serve.main(argv)
+    else:
+        with pytest.raises(SystemExit) as got:
+            t_serve.main(argv)
+        with pytest.raises(SystemExit) as want:
+            j_serve.parse_args(argv)
+        assert str(got.value) == str(want.value)
+        assert "--mesh" in str(got.value)
     assert not sd.exists()
 
 
