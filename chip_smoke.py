@@ -163,6 +163,20 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      its slot's generate_batch), and ``runners.serve --mesh 2`` raising on
      one GPU before it writes anything; the 16 paths of
      ``dryrun.dryrun_multichip`` over 8 cuda:0 slots.
+  12. the tail (after phase 6, on its checkpoint, gate and output): the
+     seed-sweep classifier runner (``runners.classify``, 4 seeds x 50
+     steps, each PNG equal to ``dispatch(seed)``); the negative-bank data
+     loop (``tools.data_prep.generate_negative_bank`` over 4 prompts, the
+     filed PNGs encoded by the runners' bank loader into a .pt bank, a
+     kernel_fast batch against it with the beta gate open moving the
+     latents); phase 6's run in two shards whose merged detect_dict.json
+     (``tools.logs``) equals phase 6's, and ``parse_log`` on its logs;
+     ``utils.profiling.trace`` around a graphed sd14-main batch (B1, B4
+     and the annotated region in the trace) and ``StepTimer`` against the
+     CUDA events; the model FLOPs of an sd14-main and an sd3-main image
+     (``utils.flops`` on ``meta``) and the MFU of this run's sd14-main
+     batch; the native BPE engine's ids against the Python path's; the
+     NudeNet ``Detector`` and ``censor`` on a toy detector graph.
 The last line of standard output is the result, {"ok": true, "device": ...};
 the line before it lists the kernels as JSON.
 """
@@ -2094,10 +2108,11 @@ def first_step_x0(pipe, steps: int, seeds: list) -> tuple:
     return t, x0.float()
 
 
-def gate_runs(pipe, bank: torch.Tensor, scales=(0.33, 0.0)) -> dict:
+def gate_runs(pipe, bank, scales=(0.33, 0.0), sigma: float = 3.15,
+              beta_threshold: float = 7.0) -> dict:
     """{scale: (latents, applied, B2 launches)} of two 5-step batches of
-    PROMPTS against ``bank`` (saved as a torch.save cache, as users load
-    one), window [1000, 780], beta threshold 7."""
+    PROMPTS against ``bank`` (a tensor, saved as a torch.save cache as
+    users load one, or the path of such a cache), window [1000, 780]."""
     from safe_denoiser_tpu_torch import ops
     from safe_denoiser_tpu_torch.pipeline import EraseSpec, RepellencyWindow
     from safe_denoiser_tpu_torch.repellency import KernelFastRepellency
@@ -2106,13 +2121,14 @@ def gate_runs(pipe, bank: torch.Tensor, scales=(0.33, 0.0)) -> dict:
     spec = EraseSpec(repellency=True, window=RepellencyWindow(1000.0, 780.0))
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "bank.pt")
-        torch.save(bank.cpu(), path)
+        path = bank if isinstance(bank, str) else os.path.join(tmp, "bank.pt")
+        if not isinstance(bank, str):
+            torch.save(bank.cpu(), path)
         for scale in scales:
             proc = KernelFastRepellency(
                 ref_data=None, embed_fn=None, cache_proj_ref=True,
-                proj_ref_path=path, sigma=3.15, scale=scale,
-                beta_threshold=7.0)
+                proj_ref_path=path, sigma=sigma, scale=scale,
+                beta_threshold=beta_threshold)
             ops.reset_launch_counts()
             pending = pipe.dispatch_batch(
                 PROMPTS, seeds=[0, 1, 2, 3], guidance_scales=[7.5] * n,
@@ -2373,6 +2389,37 @@ def _pb(num: int, payload, wire: int = 2) -> bytes:
     return key + _pb_varint(len(payload)) + payload
 
 
+def _onnx_node(op, ins, outs, attrs=b""):
+    return _pb(1, b"".join(_pb(1, i) for i in ins)
+               + b"".join(_pb(2, o) for o in outs) + _pb(4, op) + attrs)
+
+
+def _onnx_ints(name, vals):
+    return _pb(5, _pb(1, name) + b"".join(_pb(8, v, 0) for v in vals)
+               + _pb(20, 7, 0))
+
+
+def _onnx_int(name, val):
+    return _pb(5, _pb(1, name) + _pb(3, val, 0) + _pb(20, 2, 0))
+
+
+def _onnx_tensor(name, arr):
+    import numpy as np
+    dtype = {np.dtype("float32"): 1, np.dtype("int64"): 7}[arr.dtype]
+    return _pb(5, b"".join(_pb(1, d, 0) for d in arr.shape)
+               + _pb(2, dtype, 0) + _pb(8, name) + _pb(9, arr.tobytes()))
+
+
+def _onnx_model(name: str, nodes, inits: dict, inp: str, outs) -> bytes:
+    """An ONNX ModelProto (IR 7, opset 13) of one graph."""
+    graph = (b"".join(nodes) + _pb(2, name)
+             + b"".join(_onnx_tensor(k, v) for k, v in inits.items())
+             + _pb(11, _pb(1, inp))
+             + b"".join(_pb(12, _pb(1, o)) for o in outs))
+    return (_pb(1, 7, 0) + _pb(8, _pb(1, "") + _pb(2, 13, 0))
+            + _pb(7, graph))
+
+
 def nudenet_like_onnx(seed: int = 0) -> bytes:
     """A small classifier with NudeNet's interface as an ONNX ModelProto:
     NHWC [N, 256, 256, 3] in [0, 1] -> Transpose -> 3x3 stride-4 Conv(8) ->
@@ -2388,23 +2435,7 @@ def nudenet_like_onnx(seed: int = 0) -> bytes:
         "fc_w": (rs.randn(8, 2) * 0.5).astype(np.float32),
         "fc_b": np.zeros(2, dtype=np.float32),
     }
-
-    def node(op, ins, outs, attrs=b""):
-        return _pb(1, b"".join(_pb(1, i) for i in ins)
-                   + b"".join(_pb(2, o) for o in outs) + _pb(4, op) + attrs)
-
-    def ints(name, vals):
-        return _pb(5, _pb(1, name) + b"".join(_pb(8, v, 0) for v in vals)
-                   + _pb(20, 7, 0))
-
-    def one_int(name, val):
-        return _pb(5, _pb(1, name) + _pb(3, val, 0) + _pb(20, 2, 0))
-
-    def tensor(name, arr):
-        dtype = {np.dtype("float32"): 1, np.dtype("int64"): 7}[arr.dtype]
-        return _pb(5, b"".join(_pb(1, d, 0) for d in arr.shape)
-                   + _pb(2, dtype, 0) + _pb(8, name) + _pb(9, arr.tobytes()))
-
+    node, ints = _onnx_node, _onnx_ints
     nodes = [
         node("Transpose", ["input_1"], ["x"], ints("perm", [0, 3, 1, 2])),
         node("Conv", ["x", "w_conv", "b_conv"], ["c"],
@@ -2415,13 +2446,10 @@ def nudenet_like_onnx(seed: int = 0) -> bytes:
         node("Reshape", ["gap", "shape"], ["flat"]),
         node("MatMul", ["flat", "fc_w"], ["l0"]),
         node("Add", ["l0", "fc_b"], ["logits"]),
-        node("Softmax", ["logits"], ["dense_out"], one_int("axis", 1)),
+        node("Softmax", ["logits"], ["dense_out"], _onnx_int("axis", 1)),
     ]
-    graph = (b"".join(nodes) + _pb(2, "nudenet_like")
-             + b"".join(tensor(k, v) for k, v in inits.items())
-             + _pb(11, _pb(1, "input_1")) + _pb(12, _pb(1, "dense_out")))
-    return (_pb(1, 7, 0) + _pb(8, _pb(1, "") + _pb(2, 13, 0))
-            + _pb(7, graph))
+    return _onnx_model("nudenet_like", nodes, inits, "input_1",
+                       ["dense_out"])
 
 
 def write_runner_assets(pipe, tmp: str) -> dict:
@@ -4976,6 +5004,452 @@ def phase_parallel(pipe, kw, gate) -> dict:
     return counts
 
 
+# phase 12, the tail: the classify runner's seeds, the data loop's prompts
+# (their images filed at threshold 0, every one), the toy detector's image
+TAIL_SEEDS = 4
+TAIL_PROMPT = PROMPTS[0]
+LOOP_SEED = 200
+DETECTOR_HW = (192, 256)
+
+
+# the packages the port's tail must run without: phase 12 runs with each
+# made unimportable
+NO_PACKAGES = ("PIL", "cv2", "pandas", "yaml")
+
+
+@contextlib.contextmanager
+def without_packages(names):
+    """``import name`` raises ImportError inside the block, for each of
+    ``names`` and its submodules; ``sys.modules`` restored on exit."""
+    saved = {k: v for k, v in sys.modules.items()
+             if k.split(".")[0] in names}
+    for k in saved:
+        del sys.modules[k]
+    for name in names:
+        sys.modules[name] = None
+    try:
+        yield
+    finally:
+        for name in names:
+            sys.modules.pop(name, None)
+        sys.modules.update(saved)
+
+
+def toy_detector_onnx(seed: int = 3) -> tuple:
+    """A detector graph with the NudeNet detector's outputs, as an ONNX
+    ModelProto and its weights: NHWC caffe-mode input -> Transpose ->
+    GlobalAveragePool -> the [1, 3] channel means -> sigmoid scores [1, 3],
+    boxes [1, 3, 4] and int32 labels [1, 3] in {0, 1, 2}, listed scores
+    first and labels last (the detector sniffs them by dtype and shape)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    w = {"w_box": (rs.rand(3, 12) * 2 + 1).astype(np.float32),
+         "w_score": (rs.rand(3, 3) * 0.1 + 0.02).astype(np.float32),
+         "w_label": (rs.rand(3, 3) * 3).astype(np.float32)}
+    inits = dict(w, shape2=np.array([0, -1], dtype=np.int64),
+                 shape_boxes=np.array([1, 3, 4], dtype=np.int64),
+                 lo=np.array(0.0, np.float32), hi=np.array(2.0, np.float32))
+    node = _onnx_node
+    nodes = [
+        node("Transpose", ["input_1"], ["x"], _onnx_ints("perm", [0, 3, 1, 2])),
+        node("GlobalAveragePool", ["x"], ["gap"]),
+        node("Reshape", ["gap", "shape2"], ["feat"]),
+        node("MatMul", ["feat", "w_score"], ["s0"]),
+        node("Sigmoid", ["s0"], ["scores"]),
+        node("MatMul", ["feat", "w_box"], ["b0"]),
+        node("Reshape", ["b0", "shape_boxes"], ["boxes"]),
+        node("MatMul", ["feat", "w_label"], ["l0"]),
+        node("Clip", ["l0", "lo", "hi"], ["l1"]),
+        node("Cast", ["l1"], ["labels"], _onnx_int("to", 6)),
+    ]
+    return _onnx_model("toy_detector", nodes, inits, "input_1",
+                       ["scores", "boxes", "labels"]), w
+
+
+def model_flops_per_image() -> dict:
+    """Model FLOPs (matrix products and convolutions, ``utils.flops``) of
+    one sd14-main image (CLIP-L over the batch's 2 x 4 prompts, 50 UNet
+    steps at the CFG batch 8, the decode of 4, over 4) and of one sd3-main
+    image (CLIP-L, bigG and T5-XXL over 2 prompts, 50 MMDiT steps at batch
+    2, one decode), counted on ``meta`` at full width, and the counting's
+    host seconds."""
+    from safe_denoiser_tpu_torch.models import (
+        CLIP_BIG_G, CLIP_VIT_L_14, SD3_MEDIUM, SD3_VAE, SD14_UNET, SD14_VAE,
+        T5_XXL, AutoencoderKL, CLIPTextModel, MMDiT, T5Encoder,
+        UNet2DConditionModel)
+    from safe_denoiser_tpu_torch.utils.flops import model_flops
+
+    t0 = time.perf_counter()
+    e = torch.empty
+    with torch.device("meta"):
+        unet, vae = UNet2DConditionModel(SD14_UNET), AutoencoderKL(SD14_VAE)
+        clip_l = CLIPTextModel(CLIP_VIT_L_14)
+        clip_lp = CLIPTextModel(CLIP_VIT_L_14, with_projection=True)
+        clip_g = CLIPTextModel(CLIP_BIG_G, with_projection=True)
+        t5, mmdit, vae3 = T5Encoder(T5_XXL), MMDiT(SD3_MEDIUM), \
+            AutoencoderKL(SD3_VAE)
+    b, steps = 4, 50
+    ids = torch.zeros(2 * b, 77, dtype=torch.long)
+    sd14 = {"encode": model_flops(clip_l, ids),
+            "step": model_flops(unet, e(2 * b, 4, 64, 64), 500,
+                                e(2 * b, 77, CLIP_VIT_L_14.hidden_size)),
+            "decode": model_flops(vae.decode, e(b, 4, 64, 64))}
+    sd14["image"] = (sd14["encode"] + steps * sd14["step"]
+                     + sd14["decode"]) / b
+    ids2 = torch.zeros(2, 77, dtype=torch.long)
+    ctx = 77 + 256
+    sd3 = {"encode": (model_flops(clip_lp, ids2) + model_flops(clip_g, ids2)
+                      + model_flops(t5, torch.zeros(2, 256,
+                                                    dtype=torch.long))),
+           "step": model_flops(mmdit, e(2, 16, 128, 128), e(2),
+                               e(2, ctx, SD3_MEDIUM.joint_attention_dim),
+                               e(2, SD3_MEDIUM.pooled_projection_dim)),
+           "decode": model_flops(vae3.decode, e(1, 16, 128, 128))}
+    sd3["image"] = sd3["encode"] + steps * sd3["step"] + sd3["decode"]
+    return {"sd14": sd14, "sd3": sd3, "host_s": time.perf_counter() - t0}
+
+
+def phase_tail(pipe, kw, assets: dict, card: str) -> dict:
+    """12: the JAX package's last modules through the port, on phase 4's
+    pipeline and phase 6's checkpoint, gate and output, with PIL, cv2,
+    pandas and yaml made unimportable (``without_packages``). Returns the
+    launch counts of its runs.
+
+    - profiling: ``utils.profiling.trace`` around one graphed sd14-main
+      batch inside an ``annotate`` region: the trace names B1's and B4's
+      kernels and the region; ``StepTimer`` on another batch within 5% of
+      its CUDA-event stage times;
+    - flops: the model FLOPs of an sd14-main and an sd3-main image counted
+      on ``meta`` at full width, and the MFU of this run's graphed
+      sd14-main loop and batch against 989e12;
+    - classify: ``runners.classify`` (TAIL_SEEDS seeds x 50 steps at 512^2,
+      the one-conv gate as the path-based Classifier); each PNG equal to
+      phase 4's pipeline's ``dispatch(seed).fetch()`` (the same weights),
+      launches as derived; the per-seed time of those dispatches;
+    - data loop: ``tools.data_prep.generate_negative_bank`` on phase 4's
+      pipeline with the NudeNet gate over PROMPTS, then the runners' bank
+      loader (``runners.common.build_repellency``) encodes the filed PNGs
+      into a .pt bank through B4, and two 5-step kernel_fast batches
+      against that .pt (scale 0.33 and 0) with the beta gate open (sigma
+      from the first step's distances to the bank): B2 launched, the
+      latents moved;
+    - logs: ``runners.nudity`` on phase 6's cases as --num_shards 2 (shard
+      0, shard 1): each shard's PNGs equal phase 6's, ``merge_detect_dicts``
+      of the two equal to phase 6's detect_dict.json (sizes, ratios and
+      the unsafe flags exactly; the mean predictions, re-summed, to 1e-12),
+      and ``parse_log`` on phase 6's logs.txt, one record per case;
+    - tokenizer: ``text.native``'s ids equal the Python path's on the
+      runners' prompts; the path phase 4's pipeline takes;
+    - detector: ``evals.nudenet_detector.Detector`` on a toy detector
+      graph: ``detect`` against the numpy reference and ``censor``'s
+      blanked boxes."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    tmp, ckpt, onnx = assets["tmp"], assets["ckpt"], assets["onnx"]
+    runs = {}
+    installed = [m for m in NO_PACKAGES if importlib.util.find_spec(m)]
+    with without_packages(NO_PACKAGES):
+        _tail_body(pipe, kw, tmp, ckpt, onnx, card, runs)
+    print(f"tail: phase 12 took {time.perf_counter() - t_phase:.1f} s, "
+          f"with {list(NO_PACKAGES)} made unimportable (installed here: "
+          f"{installed})")
+    return runs
+
+
+def _tail_body(pipe, kw, tmp, ckpt, onnx, card, runs) -> None:
+    """Phase 12's checks, in the order of ``phase_tail``'s docstring."""
+    import re
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from safe_denoiser_tpu_torch import ops
+    from safe_denoiser_tpu_torch.data.images import read_png, write_png
+    from safe_denoiser_tpu_torch.evals.nudenet import NudeClassifier
+    from safe_denoiser_tpu_torch.evals.nudenet_detector import (
+        Detector, preprocess_image)
+    from safe_denoiser_tpu_torch.runners.classify import main as run_classify
+    from safe_denoiser_tpu_torch.runners.common import build_repellency
+    from safe_denoiser_tpu_torch.runners.nudity import main as run_nudity
+    from safe_denoiser_tpu_torch.text.clip_tokenizer import (basic_clean,
+                                                             whitespace_clean)
+    from safe_denoiser_tpu_torch.text.native import NativeBPE
+    from safe_denoiser_tpu_torch.tools.data_prep import \
+        generate_negative_bank
+    from safe_denoiser_tpu_torch.tools.logs import (merge_detect_dicts,
+                                                    parse_log)
+    from safe_denoiser_tpu_torch.utils import profiling
+    from safe_denoiser_tpu_torch.utils.flops import H100_PEAK_BF16, mfu
+
+
+    # profiling and MFU
+    flops = model_flops_per_image()
+    seeds = [0, 1, 2, 3]
+    # phase 4's graphs of this batch are still captured: a replay
+    pipe.dispatch_batch(PROMPTS, seeds=seeds, num_inference_steps=50,
+                        **kw).fetch()
+    trace_dir = os.path.join(tmp, "trace")
+    ops.reset_launch_counts()
+    with profiling.trace(trace_dir):
+        with profiling.annotate("sd14-main batch"):
+            pipe.dispatch_batch(PROMPTS, seeds=seeds, num_inference_steps=50,
+                                **kw).fetch()
+    runs["traced"] = ops.launch_counts()
+    text = open(os.path.join(trace_dir, profiling.TRACE_FILE)).read()
+    names = {"B1 attn_kernel": "attn_kernel" in text,
+             "B4 conv_kernel<false>": ("conv_kernel<false>" in text
+                                       or "conv_kernelILb0E" in text),
+             "annotate": "sd14-main batch" in text}
+    timer = profiling.StepTimer()
+    ops.reset_launch_counts()
+    timer.start()
+    pending = pipe.dispatch_batch(PROMPTS, seeds=seeds,
+                                  num_inference_steps=50, **kw)
+    timer.stop(pending)
+    pending.fetch()
+    runs["timed"] = ops.launch_counts()
+    event_ms = sum(pending.stage_ms.values())
+    timer_ms = timer.times[-1] * 1e3
+    loop_ms = pending.stage_ms["loop"]
+    ips = 4 / timer.times[-1]
+    mfu_loop = mfu(4 / (loop_ms / 1e3), 50 * flops["sd14"]["step"] / 4)
+    print(f"tail profiling: trace of one graphed sd14-main batch, "
+          f"{os.path.getsize(os.path.join(trace_dir, profiling.TRACE_FILE))} "
+          f"bytes, names {json.dumps(names)}; StepTimer {timer_ms:.2f} ms "
+          f"against the batch's CUDA events {event_ms:.2f} ms "
+          f"(stages {json.dumps({k: round(v, 2) for k, v in pending.stage_ms.items()})})")
+    f14, f3 = flops["sd14"], flops["sd3"]
+    print(f"tail flops ({card}): counted on meta at full width in "
+          f"{flops['host_s']:.1f} s; sd14-main image {f14['image']:.6e} "
+          f"(CLIP 2x4 prompts {f14['encode']:.6e}, UNet step at batch 8 "
+          f"{f14['step']:.6e}, decode of 4 {f14['decode']:.6e}); sd3-main "
+          f"image {f3['image']:.6e} (encoders {f3['encode']:.6e}, MMDiT step "
+          f"at batch 2 {f3['step']:.6e}, decode {f3['decode']:.6e})")
+    print(f"tail mfu ({card}): peak {H100_PEAK_BF16:.4g}; sd14-main graphed "
+          f"loop {loop_ms:.2f} ms -> mfu_loop={mfu_loop:.4f}; batch "
+          f"{timer_ms:.2f} ms, images_per_s={ips:.4f} -> "
+          f"mfu_e2e={mfu(ips, f14['image']):.4f}")
+    if not all(names.values()):
+        fail(f"tail profiling: the trace lacks {names}")
+    if abs(timer_ms - event_ms) > 0.05 * event_ms:
+        fail("tail profiling: StepTimer is not within 5% of the CUDA events")
+    check_launches(runs["traced"], EXPECTED_LAUNCHES, "tail traced batch")
+    check_launches(runs["timed"], EXPECTED_LAUNCHES, "tail timed batch")
+
+    # classify
+    img_dir = os.path.join(tmp, "classify")
+    wall, counts, log = _run_quiet(run_classify, [
+        "--model_dir", ckpt, "--nudenet-path", onnx, "--img_dir", img_dir,
+        "--prompt", TAIL_PROMPT, "--num_seeds", str(TAIL_SEEDS),
+        "--num_inference_steps", "50", "--device", "cuda"])
+    runs["classify"] = counts
+    want = runner_launches(pipe, TAIL_SEEDS, 0)
+    nude = re.findall(r"Nude cnt:\s+(\d+)", log)
+    pngs = sorted(os.listdir(img_dir))
+    seed_ms, same = [], []
+    for seed in range(TAIL_SEEDS):
+        t0 = time.perf_counter()
+        img = pipe.dispatch(TAIL_PROMPT, seed=seed, num_inference_steps=50,
+                            guidance_scale=7.5).fetch()[0]
+        seed_ms.append((time.perf_counter() - t0) * 1e3)
+        same.append(bool(np.array_equal(
+            img, read_png(os.path.join(img_dir, f"{seed}.png")))))
+    print(f"tail classify ({card}): runners.classify {TAIL_SEEDS} seeds x "
+          f"50 steps at 512^2: wall_s={wall:.3f} "
+          f"wall_s_per_seed={wall / TAIL_SEEDS:.3f} (checkpoint load, graph "
+          f"capture and classification included) nude_cnt={nude} "
+          f"PNGs equal to dispatch(seed)={same}; dispatch to fetch per seed "
+          f"ms={[round(v, 2) for v in seed_ms]} (the first captures)")
+    print(f"tail classify launches: {json.dumps(counts)} expected "
+          f"{json.dumps(want)}")
+    if pngs != [f"{s}.png" for s in range(TAIL_SEEDS)] or not all(same) \
+            or len(nude) != 1 or "Nude rate:" not in log:
+        print(log[-2000:])
+        fail("tail classify: output or PNGs differ from dispatch(seed)")
+    check_launches(counts, want, "tail classify")
+
+    # the data loop
+    gate = NudeClassifier(onnx)
+    preds = []
+
+    def eval_func(imgs, threshold):
+        is_unsafe, pred = gate(imgs, threshold=threshold)
+        preds.append(pred)
+        return is_unsafe, pred
+
+    lines = _Lines()
+    loop_root = os.path.join(tmp, "loop")
+    loop_dir = os.path.join(loop_root, "i2p_sexual")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    n_filed = generate_negative_bank(pipe, PROMPTS, eval_func, loop_dir,
+                                     threshold=0.0, num_inference_steps=50,
+                                     seed=LOOP_SEED, logger=lines)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    runs["data_loop"] = ops.launch_counts()
+    filed = sorted(os.listdir(loop_dir))
+    print(f"tail data loop ({card}): generate_negative_bank over "
+          f"{len(PROMPTS)} prompts x 50 steps at 512^2, threshold 0: "
+          f"filed {n_filed} {filed} preds={[round(p, 4) for p in preds]} "
+          f"wall_s={loop_s:.3f} per_prompt_s={loop_s / len(PROMPTS):.3f}")
+    check_launches(runs["data_loop"], runner_launches(pipe, len(PROMPTS), 0),
+                   "tail data loop")
+    if n_filed != len(PROMPTS) or filed != [f"{i:06d}.png" for i in
+                                            range(len(PROMPTS))] \
+            or len(lines.lines) != len(PROMPTS):
+        fail("tail data loop: the bank's files or log lines")
+    bank_pt = os.path.join(tmp, "loop_bank.pt")
+    task = os.path.join(tmp, "loop_task.yaml")
+    with open(task, "w") as f:
+        f.write(f"""repellency:
+  method: kernel_fast
+  n_embed: {len(PROMPTS)}
+  params:
+    sigma: 3.15
+    scale: 0.33
+    beta_threshold: 1.0e-12
+    proj_ref_path: {bank_pt}
+data:
+  name: nudity
+  root: {loop_root}
+  class_info: i2p_sexual
+  size: 512
+""")
+    ops.reset_launch_counts()
+    build_repellency(SimpleNamespace(task_config=task, image_length=512,
+                                     num_inference_steps=GATE_STEPS),
+                     pipe, _Lines())
+    torch.cuda.synchronize()
+    enc_counts = ops.launch_counts()
+    enc_want = dict.fromkeys(EXPECTED_LAUNCHES, 0)
+    enc_want.update(vae_kernel_plan(pipe.vae.config, len(PROMPTS), 512, 512,
+                                    "encoder")[0])
+    check_launches(enc_counts, enc_want, "tail bank encode")
+    bank = torch.load(bank_pt, weights_only=True).to(pipe.device)
+    t, x0 = first_step_x0(pipe, GATE_STEPS, [0, 1, 2, 3])
+    d2 = torch.cdist(x0.flatten(1), bank.flatten(1)) ** 2
+    sigma = math.sqrt(float(d2.min(1).values.max()) / 40.0)
+    out = gate_runs(pipe, bank_pt, sigma=sigma, beta_threshold=1e-12)
+    (lat_a, applied, rbf_n), (lat_b, _, _) = out[0.33], out[0.0]
+    gap = (lat_a - lat_b).abs().max().item()
+    runs["loop_bank"] = enc_counts
+    print(f"tail data loop bank: {tuple(bank.shape)} from the filed PNGs "
+          f"through the bank loader (B4 {enc_counts['conv3x3']}); "
+          f"{GATE_STEPS}-step kernel_fast batches at sigma={sigma:.4f} "
+          f"(nearest weight >= e^-20 at t={t}), beta threshold 1e-12: "
+          f"applied per step {applied.any(1).tolist()} rbf launches {rbf_n} "
+          f"max|latents(0.33) - latents(0)|={gap:.4e}")
+    if not (bool(applied[0].all()) and rbf_n == 1 and gap > 0
+            and bool(torch.isfinite(lat_a).all())):
+        fail("tail data loop: the loop's bank did not reach the latents")
+    del out, lat_a, lat_b, bank
+
+    # logs: phase 6's run in two shards
+    base = ["--data", os.path.join(tmp, "prompts.csv"), "--erase_id",
+            "std_rep", "--model_dir", ckpt, "--task_config",
+            os.path.join(tmp, "task.yaml"), "--nudenet-path", onnx,
+            "--num_inference_steps", "50", "--image_length", "512",
+            "--device", "cuda", "--num_shards", "2"]
+    full = os.path.join(tmp, "out")
+    shards, shard_walls = [], []
+    for k in range(2):
+        out_k = os.path.join(tmp, f"out_shard{k}")
+        wall, counts, _ = _run_quiet(run_nudity, base + [
+            "--shard_id", str(k), "--save-dir", out_k])
+        n_k = len(range(k, RUNNER_CASES, 2))
+        check_launches(counts, runner_launches(
+            pipe, n_k, 10, RUNNER_BANK // RUNNER_N_EMBED, RUNNER_N_EMBED),
+            f"tail shard {k}")
+        runs[f"shard{k}"] = counts
+        shard_walls.append(wall)
+        for name in os.listdir(os.path.join(out_k, "all")):
+            a = read_png(os.path.join(out_k, "all", name))
+            if not np.array_equal(a, read_png(os.path.join(full, "all",
+                                                            name))):
+                fail(f"tail shard {k}: {name} differs from phase 6's")
+        shards.append(json.load(open(os.path.join(out_k,
+                                                  "detect_dict.json"))))
+    merged = merge_detect_dicts(shards)
+    want = json.load(open(os.path.join(full, "detect_dict.json")))
+    pred_d = max(abs(merged["toxic_pred_ratio"][c] - v) / max(abs(v), 1e-30)
+                 for c, v in want["toxic_pred_ratio"].items())
+    records = parse_log(open(os.path.join(full, "logs.txt")).read())
+    print(f"tail logs: 2 shards of phase 6's {RUNNER_CASES} cases, wall_s="
+          f"{[round(w, 3) for w in shard_walls]}; merged sizes "
+          f"{merged['toxic_size']} ratios {merged['toxic_ratio']} (phase 6: "
+          f"{want['toxic_size']} {want['toxic_ratio']}), mean predictions' "
+          f"rel. diff {pred_d:.3e}; parse_log: {len(records)} records, "
+          f"cases {[r.case_number for r in records]} seeds "
+          f"{[r.seed for r in records]} unsafe {[r.unsafe for r in records]} "
+          f"wall_s {[r.wall_clock_s for r in records]} (the overlapped "
+          f"runner logs a case's result lines after the next case begins)")
+    if not (merged["toxic_size"] == want["toxic_size"]
+            and merged["toxic_ratio"] == want["toxic_ratio"]
+            and sorted(merged["unsafe"]) == sorted(want["unsafe"])
+            and set(merged["toxic_pred_ratio"]) == set(
+                want["toxic_pred_ratio"]) and pred_d <= 1e-12):
+        fail("tail logs: the merged shards differ from the unsharded run")
+    if [(r.case_number, r.seed, r.prompt) for r in records] != [
+            (str(i), 100 + i, p) for i, p in
+            enumerate(PROMPTS[:RUNNER_CASES])]:
+        fail("tail logs: parse_log does not read one record per case")
+
+    # tokenizer
+    tok = pipe.tokenizer
+    prompts = [*PROMPTS, TAIL_PROMPT, "naïve café, the DOG's 123 runs!!"]
+    native = NativeBPE(tok.vocab, sorted(tok.bpe_ranks, key=tok.bpe_ranks.get))
+    ids_n = [native.encode(whitespace_clean(basic_clean(p)).lower())
+             for p in prompts]
+    ids_p = [tok.encode_python(p) for p in prompts]
+    print(f"tail tokenizer: native ids equal the Python path's on "
+          f"{len(prompts)} prompts: {ids_n == ids_p}; the pipelines' "
+          f"tokenizer path: {tok.engine}")
+    if ids_n != ids_p or tok.engine != "native":
+        fail("tail tokenizer: the native engine's ids differ or it is not "
+             "in use")
+
+    # detector
+    model, w = toy_detector_onnx()
+    det_path = os.path.join(tmp, "detector.onnx")
+    with open(det_path, "wb") as f:
+        f.write(model)
+    rs = np.random.RandomState(5)
+    img = rs.randint(0, 256, (*DETECTOR_HW, 3), dtype=np.uint8)
+    img_path = os.path.join(tmp, "detect.png")
+    write_png(img, img_path)
+    det = Detector(det_path)
+    got = det.detect(img_path, min_prob=0.0)
+    image, scale = preprocess_image(img_path)
+    feat = image.transpose(2, 0, 1).reshape(3, -1).mean(axis=1)[None]
+    scores = 1 / (1 + np.exp(-(feat @ w["w_score"])))
+    boxes = (feat @ w["w_box"]).reshape(1, 3, 4) / scale
+    labels = np.clip(feat @ w["w_label"], 0.0, 2.0).astype(np.int32)
+    ref = [{"box": [int(c) for c in b.astype(int)], "score": float(s),
+            "label": det.classes[int(lab)]}
+           for b, s, lab in zip(boxes[0], scores[0], labels[0])]
+    censored_path = os.path.join(tmp, "censored.png")
+    det.censor(img_path, out_path=censored_path)
+    cens = read_png(censored_path)
+    blank = np.zeros(DETECTOR_HW, bool)
+    for r in det.detect(img_path):       # cv2.rectangle's filled corners
+        x1, y1, x2, y2 = r["box"]
+        blank[max(min(y1, y2), 0):max(max(y1, y2) + 1, 0),
+              max(min(x1, x2), 0):max(max(x1, x2) + 1, 0)] = True
+    print(f"tail detector: {len(got)} boxes {[g['box'] for g in got]} scores "
+          f"{[round(g['score'], 5) for g in got]}; censored {int(blank.sum())} "
+          f"pixels")
+    if len(got) != 3 or any(
+            g["box"] != r["box"] or g["label"] != r["label"]
+            or abs(g["score"] - r["score"]) > 1e-5 for g, r in zip(got, ref)):
+        fail(f"tail detector: {got} against {ref}")
+    if not blank.any() or (cens[blank] != 0).any() or \
+            not np.array_equal(cens[~blank], img[~blank]):
+        fail("tail detector: censor did not blank exactly the boxes")
+
+
 def phase_profile(pipe, kw, steps: int = 10) -> None:
     """One batch of the main path at ``steps`` DDPM steps, profiled twice on
     the same buffers: replayed from its CUDA graphs (captured first), then
@@ -5018,6 +5492,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         assets = write_runner_assets(pipe, tmp)
         phase_runner(pipe, assets)
+        tail_counts = phase_tail(pipe, kw, assets, card)
         runner_counts = phase_artist_sparse(pipe, assets, args.profile)
         runner_counts.update(phase_copro(pipe, assets, args.profile))
         coco_counts, coco = phase_coco(pipe, assets)
@@ -5034,12 +5509,14 @@ def main() -> None:
     sd3_counts = phase_sd3(args.profile)
     sd3_counts.update(phase_sd3_runner())
     # launches over the main paths: sd14-main, the artist, SPELL, CoPro and
-    # three COCO runner runs (6e, 6f, 6g), the SD-v1 server's requests (9),
+    # three COCO runner runs (6e, 6f, 6g), phase 12's classify, data-loop,
+    # bank-encode, shard, traced and timed runs, the SD-v1 server's requests (9),
     # the four DDIM runs (6b, 6c), the three erasure runs (6d), the three
     # SD3 runs, the SD3 decode under SDT_UP_FORM=interleave, the SD3 COCO
     # run (8b), the SD3 server's requests (9), and phase 11's sd14-mesh,
     # sharded-bank, unet-tp, serve-mesh and SD3 runs
-    runs = [counts, *runner_counts.values(), *ddim_counts.values(),
+    runs = [counts, *runner_counts.values(), *tail_counts.values(),
+            *ddim_counts.values(),
             *erasure_counts.values(), *sd3_counts.values(),
             *parallel_counts.values()]
     total = {name: sum(c.get(name, 0) for c in runs)

@@ -19,7 +19,8 @@ so:
   package reads it); without PIL it raises: decode the bank elsewhere, or
   give the run its projected bank as a ``.pt`` cache (``cache_proj_ref``).
 
-``write_png`` is the runners' image writer (filter 0, one IDAT chunk).
+``write_png`` is the runners' image writer (filter 0, one IDAT chunk);
+``read_rgb`` reads any image file, PNG without PIL.
 """
 
 from __future__ import annotations
@@ -263,19 +264,42 @@ def get_dataset(name: str, root: str, **kwargs):
     return __DATASET__[name](root=root, **kwargs)
 
 
-def read_with_pil(path: str) -> np.ndarray:
-    """An image PIL decodes (a JPEG bank) as uint8 RGB [H, W, 3]. PIL is
-    optional (the GPU machine has none): without it this raises."""
+def _pil_rgb(path: str) -> np.ndarray:
+    """An image PIL decodes as uint8 RGB [H, W, 3]. PIL is optional (the
+    GPU machine has none): without it this raises ImportError."""
     try:
         pil_image = importlib.import_module("PIL.Image")
+    except ImportError:
+        raise ImportError(
+            f"{path}: this port decodes PNG itself; other formats need PIL, "
+            "which is not installed") from None
+    with pil_image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def read_with_pil(path: str) -> np.ndarray:
+    """A bank image PIL decodes (a JPEG) as uint8 RGB [H, W, 3]; without
+    PIL this raises, saying how to run without it."""
+    try:
+        return _pil_rgb(path)
     except ImportError:
         raise ValueError(
             f"{path}: without PIL this port decodes PNG only. Convert the "
             "bank to PNG, or pass the projected bank as a .pt cache "
             "(repellency.params.proj_ref_path with cache_proj_ref: "
             "True).") from None
-    with pil_image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """Any image file as uint8 RGB [H, W, 3], as PIL's
+    ``Image.open(path).convert("RGB")``: a PNG (by its magic bytes) through
+    ``decode_png``, anything else (JPEG, ...) through PIL, which must then
+    be installed (``ImportError`` without it)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == _PNG_SIG:
+        return decode_png(data, path)
+    return _pil_rgb(path)
 
 
 def get_transform(name: str = "", size: int = 512, **kwargs) -> Callable:

@@ -259,7 +259,11 @@ def shard_cases(cases: Iterator[PromptCase], num_shards: int,
                 shard_id: int) -> Iterator[PromptCase]:
     """Fleet mode: round-robin partition of the cases over ``num_shards``
     processes; shard k takes the cases whose enumeration order % num_shards
-    == k."""
+    == k.
+
+    Each shard writes its own --save-dir; merge the per-shard
+    ``detect_dict.json`` files with ``tools/logs.py::merge_detect_dicts``
+    (``python -m safe_denoiser_tpu_torch.tools.logs merge``)."""
     if num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
     if not 0 <= shard_id < num_shards:

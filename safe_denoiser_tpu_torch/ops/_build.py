@@ -13,6 +13,7 @@ Nothing here runs at import time: the CPU test host has no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -178,3 +179,29 @@ def stream_ptr(device) -> int:
     import torch
     require_current(device)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# devices whose tensors the kernel wrappers hand to their plain versions
+_PLAIN_DEVICES = {"cpu"}
+
+
+def takes_plain(t) -> bool:
+    """Whether a kernel wrapper takes its plain PyTorch version for tensor
+    ``t``: a CPU tensor always, a ``meta`` tensor only inside
+    ``plain_on_meta()``, a CUDA tensor never (it launches the kernel or
+    raises)."""
+    return t.device.type in _PLAIN_DEVICES
+
+
+@contextlib.contextmanager
+def plain_on_meta():
+    """Inside the block the kernel wrappers take their plain versions for
+    ``meta`` tensors as well, so a forward traces on shapes alone (the
+    model-FLOP count, ``utils/flops.py``). Restored on exit."""
+    saved = set(_PLAIN_DEVICES)
+    _PLAIN_DEVICES.add("meta")
+    try:
+        yield
+    finally:
+        _PLAIN_DEVICES.clear()
+        _PLAIN_DEVICES.update(saved)

@@ -232,7 +232,7 @@ class SelfAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
-        if q.device.type == "cpu":
+        if _build.takes_plain(q):
             out = attention_ref(q, k, v, sm_scale)
         else:
             out = _self_attention_cuda(q, k, v, sm_scale)
@@ -243,7 +243,7 @@ class SelfAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        if q.device.type == "cpu":
+        if _build.takes_plain(q):
             grads = attention_bwd_ref(q, k, v, out, dout, ctx.sm_scale)
         else:
             grads = _attention_bwd_cuda(q, k, v, out, dout.to(q.dtype),
@@ -430,7 +430,7 @@ def attention_nt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  ) -> torch.Tensor:
     """Head-major attention over contiguous [BH, S, D] q/k/v, keys at or
     past ``valid_kv`` masked (B9, ``csrc/attention_nt.cu``)."""
-    if q.device.type == "cpu":
+    if _build.takes_plain(q):
         return attention_nt_ref(q, k, v, sm_scale, valid_kv)
     return _attention_nt_cuda(q, k, v, sm_scale, valid_kv)
 
@@ -460,7 +460,7 @@ def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    sm_scale: float) -> torch.Tensor:
     """Natural-layout attention over contiguous [B, S, H, D] q/k/v with S %
     512 == 0; returns [B, S, H, D] (B10, ``csrc/attention_bshd.cu``)."""
-    if q.device.type == "cpu":
+    if _build.takes_plain(q):
         return attention_bshd_ref(q, k, v, sm_scale)
     return _attention_bshd_cuda(q, k, v, sm_scale)
 
@@ -479,7 +479,7 @@ def repack_to_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     """[B, S, H*D] -> [B, H, S, D], a copy in x's dtype (B11,
     ``csrc/repack_heads.cu``)."""
     global to_heads_launches
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return repack_to_heads_ref(x, n_heads)
     check_no_grad("repack_to_heads (B11)", x)
     _check_same("repack_to_heads", (x,), (x.dtype,), 3)
@@ -497,7 +497,7 @@ def repack_from_heads(x: torch.Tensor) -> torch.Tensor:
     """[B, H, S, D] -> [B, S, H*D], a copy in x's dtype (B12,
     ``csrc/repack_heads.cu``)."""
     global from_heads_launches
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return repack_from_heads_ref(x)
     check_no_grad("repack_from_heads (B12)", x)
     _check_same("repack_from_heads", (x,), (x.dtype,), 4)
@@ -563,9 +563,9 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _self_attention_nt(q, k, v, sm_scale, dtype).to(out_dtype)
     q, k, v = (t.to(dtype) for t in (q, k, v))
     if (not quant and needs_grad(q, k, v)
-            and (q.device.type == "cpu" or dtype == torch.bfloat16)):
+            and (_build.takes_plain(q) or dtype == torch.bfloat16)):
         out = SelfAttention.apply(q, k, v, sm_scale)
-    elif q.device.type == "cpu":
+    elif _build.takes_plain(q):
         out = (attention_i8_ref if quant else attention_ref)(q, k, v,
                                                              sm_scale)
     else:

@@ -162,7 +162,7 @@ def conv3x3_up(h: torch.Tensor, w_oihw: torch.Tensor,
         raise ValueError(f"form must be one of {UP_FORMS}, got {form!r}")
     if form == "planar" and needs_grad(h, w_oihw, b):
         return ConvUp.apply(h, w_oihw, b, packed)
-    if h.device.type == "cpu":
+    if _build.takes_plain(h):
         return conv3x3_up_ref(h, w_oihw, b)
     return _conv3x3_up_cuda(h, w_oihw, b, packed, form)
 
@@ -282,7 +282,7 @@ class ConvUp(torch.autograd.Function):
     def forward(ctx, h, w_oihw, b, packed):
         ctx.save_for_backward(h, w_oihw)
         ctx.has_bias = b is not None
-        if h.device.type == "cpu":
+        if _build.takes_plain(h):
             return conv3x3_up_ref(h, w_oihw, b)
         return _conv3x3_up_cuda(h, w_oihw, b, packed, "planar")
 
@@ -291,7 +291,7 @@ class ConvUp(torch.autograd.Function):
         h, w = ctx.saved_tensors
         need_h, need_w, need_b = ctx.needs_input_grad[:3]
         dh = dw = db = None
-        if h.device.type == "cpu":
+        if _build.takes_plain(h):
             dh, dw, db = conv3x3_up_bwd_ref(h, w, dy)
         else:
             dy = _bf16_nhwc(dy)
@@ -461,7 +461,7 @@ def conv3x3(x: torch.Tensor, w_oihw: torch.Tensor,
     a CPU tensor takes the plain version. ``packed``:
     ``pack_weights_3x3(w_oihw, b)``, computed once by a caller that reuses
     the weights; built per call when None."""
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return conv3x3_ref(x, w_oihw, b, pre_scale, pre_shift, act, residual)
     return _conv3x3_cuda(x, w_oihw, b, pre_scale, pre_shift, act, residual,
                          packed)

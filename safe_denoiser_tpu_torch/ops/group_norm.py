@@ -228,14 +228,14 @@ class GNStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        if x.device.type == "cpu":
+        if _build.takes_plain(x):
             return gn_stats_ref(x)
         return _gn_stats_cuda(x)
 
     @staticmethod
     def backward(ctx, ds1, ds2):
         (x,) = ctx.saved_tensors
-        if x.device.type == "cpu":
+        if _build.takes_plain(x):
             return gn_stats_bwd_ref(x, ds1, ds2)
         return _gn_stats_bwd_cuda(x, ds1, ds2)
 
@@ -246,7 +246,7 @@ def gn_stats(x: torch.Tensor):
     version; under autograd both go through ``GNStats``."""
     if needs_grad(x):
         return GNStats.apply(x)
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return gn_stats_ref(x)
     return _gn_stats_cuda(x)
 
@@ -474,7 +474,7 @@ def group_norm_fused(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """The fused GroupNorm (+SiLU) of [B, S, C] x; scale and bias [C]. A
     CUDA tensor launches the kernel or raises; a CPU tensor takes the
     plain version."""
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return group_norm_fused_ref(x, scale, bias, groups, epsilon, act)
     return _group_norm_fused_cuda(x, scale, bias, groups, epsilon, act)
 

@@ -135,7 +135,7 @@ def rbf_negative_score(x: torch.Tensor, refs: torch.Tensor, sigma: float,
     """(score [N, D], beta [N]); ``normalize=False`` gives the raw partials.
     A CUDA tensor launches the kernel or raises; a CPU tensor takes the
     plain version."""
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return rbf_negative_score_ref(x, refs, sigma, epsilon, normalize)
     return _rbf_cuda(x, refs, sigma, epsilon, normalize)
 

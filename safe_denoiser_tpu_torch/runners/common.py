@@ -120,9 +120,14 @@ def base_parser(description: str, argv=None
                    help="quantize the wide transformer matmuls to int8 "
                         "(W8A8; UNet level-2/mid on SD-v1, the gate set by "
                         "SDT_INT8_MIN_DIM; MMDiT blocks on SD3)")
+    # fleet mode: each shard writes its own --save-dir; merge their
+    # detect_dict.json afterwards with
+    # `python -m safe_denoiser_tpu_torch.tools.logs merge <out> <dicts...>`
     p.add_argument("--num_shards", type=int, default=g("num_shards", 1),
                    help="fleet mode: total number of independent shard "
-                        "processes splitting the prompt set")
+                        "processes splitting the prompt set (merge their "
+                        "detect_dict.json with `python -m "
+                        "safe_denoiser_tpu_torch.tools.logs merge`)")
     p.add_argument("--shard_id", type=int, default=g("shard_id", 0),
                    help="fleet mode: this process's shard index in "
                         "[0, num_shards)")

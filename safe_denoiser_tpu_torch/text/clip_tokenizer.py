@@ -1,7 +1,10 @@
 """CLIP byte-pair-encoding tokenizer (self-contained, no torch/HF deps).
 
-The port's own copy of ``safe_denoiser_tpu/text/clip_tokenizer.py``: the
-pure-Python BPE path only (the native C++ engine is not used here).
+The port's own copy of ``safe_denoiser_tpu/text/clip_tokenizer.py``.
+``encode`` runs the native C++ BPE engine (``text/native.py``, built with
+g++ at first use) as the JAX package does; where it cannot be built it
+warns and takes the pure-Python path, the reference semantics, whose ids
+the engine's equal. ``engine`` says which path a tokenizer takes.
 
 The reference tokenizes through HF ``CLIPTokenizer`` (diffusers pipelines)
 and a vendored OpenCLIP SimpleTokenizer (open_clip/tokenizer.py). This
@@ -24,6 +27,7 @@ import html
 import json
 import os
 import re
+import warnings
 from typing import Iterable
 
 
@@ -158,8 +162,34 @@ class CLIPTokenizer:
         self._cache[token] = out
         return out
 
+    def _native(self):
+        """Lazy native C++ BPE engine (``text/native.py``); None, with a
+        warning, where it cannot be built or loaded."""
+        if not hasattr(self, "_native_engine"):
+            try:
+                from .native import NativeBPE
+                merges = sorted(self.bpe_ranks, key=self.bpe_ranks.get)
+                self._native_engine = NativeBPE(self.vocab, merges)
+            except (RuntimeError, OSError) as e:
+                warnings.warn(f"native BPE engine unavailable, the tokenizer "
+                              f"takes the Python path: {e}")
+                self._native_engine = None
+        return self._native_engine
+
+    @property
+    def engine(self) -> str:
+        """"native" or "python": the path ``encode`` takes."""
+        return "python" if self._native() is None else "native"
+
     def encode(self, text: str) -> list[int]:
         """Raw BPE ids without BOS/EOS framing."""
+        native = self._native()
+        if native is not None:
+            return native.encode(whitespace_clean(basic_clean(text)).lower())
+        return self.encode_python(text)
+
+    def encode_python(self, text: str) -> list[int]:
+        """``encode`` on the pure-Python path (the reference semantics)."""
         text = whitespace_clean(basic_clean(text)).lower()
         ids: list[int] = []
         for token in _WORD_PAT.findall(text):
