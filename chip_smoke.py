@@ -27,16 +27,19 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      (``cuda_ms``: events around Python calls); then the backward kernels
      (B1b, B5b, B3b-dx, B3b-dw) at the training slice's shapes against
      their plain backward in f32, with the autograd backward of the
-     PyTorch call as the library time, and two calls of B1b and B3b-dw
-     equal bit for bit;
+     PyTorch call as the library time (for B1b also aten's flash backward
+     alone as the library device time), B1's forward that keeps the
+     logsumexp for B1b (its output the no-grad one bit for bit, the
+     logsumexp within LSE_ATOL of the plain one), and two calls of B1b
+     and B3b-dw equal bit for bit;
   3b. with --parent DIR (the root of an earlier checkout, unpacked with
      ``git archive``): its attention.cu, attention_nt.cu, attention_bshd.cu,
-     conv3x3.cu, conv3x3_up.cu, attention_i8.cu, conv3x3_up_interleave.cu
-     and rbf.cu built with the same flags, and its ops/group_norm.py loaded
-     by path (B6 in Triton before this checkout's CUDA kernel); B1, B9,
-     B10, B4, B3, B8, B7, B2 and B6 of both timed in turns (parent, this,
-     this, parent; device times) at the main path's shapes (B8, B7, B2 and
-     B6 at phase 3's);
+     conv3x3.cu, conv3x3_up.cu, attention_i8.cu, conv3x3_up_interleave.cu,
+     rbf.cu and attention_bwd.cu built with the same flags, and its
+     ops/group_norm.py loaded by path (B6 in Triton before this checkout's
+     CUDA kernel); B1, B1b, B9, B10, B4, B3, B8, B7, B2 and B6 of both
+     timed in turns (parent, this, this, parent; device times) at the main
+     path's shapes (B1b, B8, B7, B2 and B6 at phase 3's);
   4. main path: the tiny f32 slice on cuda against the CPU, at 8^2 latents
      and at 32^2 (S = 1024) under each attention layout (bhsd, nt, nt with
      the head repacks, bshd: SDT_FLASH2_LAYOUT / SDT_ATTN_REPACK), then
@@ -1377,6 +1380,10 @@ BWD_B3 = ((1, 32, 32, 640, 640),)
 # bf16 products in f32 in another order (a dropped tap or lost Delta is
 # O(1))
 BWD_B1_RTOL, BWD_DX_RTOL, BWD_DW_RTOL = 2e-2, 1e-2, 1e-3
+# max |lse - plain| (exp2 domain, f32) of the logsumexp B1 keeps for B1b:
+# f32 sums of exp2 terms in another order; a row that lost a tile's sum
+# or its max is off by O(1)
+LSE_ATOL = 1e-3
 BWD_KERNELS = ("attention_bwd", "gn_stats_bwd", "conv3x3_up_bwd_dx",
                "conv3x3_up_bwd_dw")
 
@@ -1407,21 +1414,42 @@ def phase_backward_kernels() -> dict:
         results[name]["err"] = max(results[name]["err"], row["err"])
 
     # B1b: q, k, v, dO ~ N(0, 1) in bf16, O from B1; plain from the same
-    # bf16 values in f32. Library: SDPA's backward (flash) on the
-    # [B, H, S, D] views
+    # bf16 values in f32. B1's forward under autograd keeps each row's
+    # logsumexp (its output the no-grad one bit for bit), which the timed
+    # calls read, as training does. Library: SDPA's backward (flash) on
+    # the [B, H, S, D] views, wrapper-paced as the autograd call and, on
+    # the device, aten's flash backward alone on the flash forward's
+    # logsumexp
     for b, s, h, d in BWD_B1:
         q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g)
                        .to(torch.bfloat16) for _ in range(4))
         scale = d ** -0.5
         o = attention.self_attention(q, k, v, scale)
+        o_lse, lse = attention._self_attention_cuda(q, k, v, scale,
+                                                    with_lse=True)
+        if not torch.equal(o_lse, o):
+            fail(f"attention {[b, s, h, d]}: the forward that keeps the "
+                 "logsumexp changed the output")
+        lse_err = (lse - attention.attention_lse_ref(q, k, scale)
+                   ).abs().max().item()
+        print(f"kernel attention {[b, s, h, d]}: logsumexp max|d|="
+              f"{lse_err:.3e} tol={LSE_ATOL:.1e}, output bit for bit the "
+              "no-grad one")
+        if not lse_err <= LSE_ATOL:
+            fail(f"attention {[b, s, h, d]}: logsumexp max|d| {lse_err:.3e}"
+                 f" above {LSE_ATOL:.1e}")
         got = attention._attention_bwd_cuda(q, k, v, o, do, scale)
         want = attention.attention_bwd_ref(*(t.float() for t in
                                              (q, k, v, o, do)), scale)
         err = max(_rel_err(x, y) for x, y in zip(got, want))
-        del got, want
 
         def kernel():
-            return attention._attention_bwd_cuda(q, k, v, o, do, scale)
+            return attention._attention_bwd_cuda(q, k, v, o, do, scale, lse)
+
+        if not all(torch.equal(x, y) for x, y in zip(kernel(), got)):
+            fail(f"attention_bwd {[b, s, h, d]}: the call on the kept "
+                 "logsumexp differs from the call that recomputes it")
+        del got, want, o_lse
 
         ms = cuda_ms(kernel, reps=5)
         plain = cuda_ms(lambda: attention.attention_bwd_ref(
@@ -1432,14 +1460,25 @@ def phase_backward_kernels() -> dict:
         dot = do.transpose(1, 2)
         lib = cuda_ms(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True), reps=5)
-        dtm = (device_ms(kernel, reps=5), lib)
+        fo = torch.ops.aten._scaled_dot_product_flash_attention(
+            *(t.detach() for t in (qt, kt, vt)), scale=scale)
+
+        def flash_bwd():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dot, *(t.detach() for t in (qt, kt, vt)), fo[0], fo[1],
+                fo[2], fo[3], fo[4], fo[5], 0.0, False, fo[6], fo[7],
+                scale=scale)
+
+        dtm = (device_ms(kernel, reps=5), device_ms(flash_bwd, reps=5))
         bnd = bound_ms(8 * b * s * h * d * 2, attention.bwd_flops(b, s, h, d),
                        PEAK_BF16)
         _report("attention_bwd", [b, s, h, d], err, BWD_B1_RTOL, ms, plain,
                 lib, bnd, "autograd of F.scaled_dot_product_attention; "
-                "library_device_ms from events around the call", dtm,
+                "library_device_ms: aten's flash backward alone", dtm,
                 metric="max|d|/max|plain|")
-        del qt, kt, vt, ot
+        print(f"kernel attention_bwd {[b, s, h, d]}: "
+              f"{dtm[0] / dtm[1]:.2f}x the flash backward's device time")
+        del qt, kt, vt, ot, fo
         keep("attention_bwd", dict(err=err, ms=ms, plain=plain, lib=lib,
                                    bound=bnd, dev=dtm))
 
@@ -1555,14 +1594,14 @@ PARENT_ENTRIES = {"attention": "sdt_self_attention_bf16",
                   "attention_i8": "sdt_self_attention_i8_bf16",
                   "conv3x3_up_interleave": "sdt_conv3x3_up_interleave_bf16",
                   "rbf": "sdt_rbf_score_f32",
-                  "group_norm": "sdt_group_norm_fused"}
+                  "group_norm": "sdt_group_norm_fused",
+                  "attention_bwd": "sdt_attention_bwd_bf16"}
 # entries whose arguments changed since the checkout that 3b is run
-# against: the parent's argument list. B2's took no plan before its
-# cluster kernels (x, refs, w, num, beta, N, M, D, two_sigma2, eps,
-# normalize, stream).
-PARENT_ARGTYPES = {"rbf": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p]}
+# against (this one's parent): the parent's argument list. B1b's
+# recomputed the logsumexp before it read the forward's (q, k, v, o, dout,
+# dq, dk, dv, lse and delta scratch, B, S, H, D, sm_scale, stream).
+PARENT_ARGTYPES = {"attention_bwd": [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]}
 
 
 def build_parent(root: str) -> dict:
@@ -1613,7 +1652,7 @@ def load_parent_group_norm(root: str):
 
 
 def phase_parent(root: str) -> None:
-    """Phase 3b: B1, B9, B10, B4, B3, B8, B7, B2 and B6 of the checkout at
+    """Phase 3b: B1, B1b, B9, B10, B4, B3, B8, B7, B2 and B6 of the checkout at
     ``root`` against this checkout's on the same seeded inputs, device
     times (``device_ms``) in turns (parent, this, this, parent), with the
     largest difference of their outputs."""
@@ -1654,6 +1693,32 @@ def phase_parent(root: str) -> None:
             return out
 
         turns("attention", attn, [b, s, h, d])
+    # B1b at phase 3's shapes: the parent's entry on its own list (it
+    # recomputes the logsumexp), this one on the forward's
+    for b, s, h, d in BWD_B1:
+        q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g)
+                       .bfloat16() for _ in range(4))
+        o, lse = attention._self_attention_cuda(q, k, v, d ** -0.5,
+                                                with_lse=True)
+        sp = attention.lse_pitch(s)
+        stats = torch.empty((2, b * h * sp), dtype=torch.float32, device=dev)
+
+        def attn_bwd(fn):
+            grads = [torch.empty_like(q) for _ in range(3)]
+            ptrs = [t.data_ptr() for t in (q, k, v, o, do, *grads)]
+            if fn is parent["attention_bwd"] and "attention_bwd" in \
+                    PARENT_ARGTYPES:
+                args = (*ptrs, stats[0].data_ptr(), stats[1].data_ptr(), b,
+                        s, h, d)
+            else:
+                args = (*ptrs, lse.data_ptr(), stats[1].data_ptr(), b, s, h,
+                        d, sp)
+            _build.check(fn(*args, d ** -0.5, _build.stream_ptr(dev)),
+                         "sdt_attention_bwd_bf16")
+            return torch.cat([t.flatten() for t in grads])
+
+        turns("attention_bwd", attn_bwd, [b, s, h, d])
+        del q, k, v, do, o, lse, stats
     for bh, s, d, valid in PARENT_B9:
         q, k, v = (torch.randn(bh, s, d, device=dev, generator=g)
                    for _ in range(3))

@@ -32,6 +32,21 @@ extern "C" int sdt_self_attention_bf16(const void* q, const void* k,
                                sm_scale, static_cast<cudaStream_t>(stream));
 }
 
+// The bf16 entry under autograd (ops/attention.py::SelfAttention): the same
+// output bit for bit, and each row's logsumexp in the exp2 domain written
+// to lse, f32 [B*H, lse_pitch] (lse_pitch >= S, a multiple of 4), which the
+// backward (attention_bwd.cu) reads. D <= 128.
+extern "C" int sdt_self_attention_lse_bf16(const void* q, const void* k,
+                                           const void* v, void* o, float* lse,
+                                           int B, int S, int H, int D,
+                                           long long sb, long long ss,
+                                           long long sh, float sm_scale,
+                                           int lse_pitch, void* stream) {
+  return sdt_attn::launch_bf16_lse(q, k, v, o, lse, B, S, H, D, sb, ss, sh,
+                                   sm_scale, lse_pitch,
+                                   static_cast<cudaStream_t>(stream));
+}
+
 // The dynamic shared memory of a block of the bf16 kernel at head dim D
 // (the template sdt_self_attention_bf16 launches), or -1 if it takes no D.
 extern "C" int sdt_self_attention_bf16_smem(int D) {

@@ -120,7 +120,13 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// one 16-deep step of S = Q K^T over a tile of 64 or 128 keys
+// one 16-deep step of S = Q K^T over a tile of 32 (the backward's query
+// tiles at D > 64), 64 or 128 keys
+__device__ __forceinline__ void qk_step(float (&s)[16], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  wgmma_ss_m64n32k16(s, da, db, scale_d);
+}
+
 __device__ __forceinline__ void qk_step(float (&s)[32], uint64_t da,
                                         uint64_t db, int scale_d) {
   wgmma_ss_m64n64k16(s, da, db, scale_d);
@@ -259,13 +265,17 @@ __device__ __forceinline__ void fence_all(float (&acc)[NV / 2],
 // kv_len comes last: placed after S it moved H, D and c_log2 to other
 // parameter offsets, and ptxas' code for them cost B1 4% at D = 40 on an
 // H100 (same registers; PERF.md, PR 7)
-template <int DP>
+// LSE (the forward under autograd, whose backward reads it): also write
+// each row's logsumexp in the exp2 domain, m + log2(l) from the running
+// max and sum, to lse[b*H + h][row] (rows lse_pitch apart); without it
+// lse is not read and the kernel is the no-grad one.
+template <int DP, bool LSE = false>
 __global__ void __launch_bounds__(NTHREADS, 1)
 attn_kernel(const __grid_constant__ CUtensorMap map_q,
             const __grid_constant__ CUtensorMap map_k,
             const __grid_constant__ CUtensorMap map_v,
             __nv_bfloat16* __restrict__ o, int S, int H, int D, float c_log2,
-            int kv_len) {
+            int kv_len, float* __restrict__ lse, int lse_pitch) {
   using C = Cfg<DP>;
   constexpr int NB = C::NB, NV = C::NV, NS = C::NS, BK = C::BK;
   extern __shared__ unsigned char smem_raw[];
@@ -389,6 +399,13 @@ attn_kernel(const __grid_constant__ CUtensorMap map_q,
   // stage the bf16 output in this warpgroup's own Q rows (its wgmma reads
   // of them are complete), then store whole rows
   const int r0 = wg * 64 + warp * 16 + g;
+  if constexpr (LSE) {  // each row's logsumexp, for the backward
+    if (t4 == 0) {
+      float* lrow = lse + (long long)blockIdx.y * lse_pitch + q0;
+      if (q0 + r0 < S) lrow[r0] = m0 + log2f(l0);
+      if (q0 + r0 + 8 < S) lrow[r0 + 8] = m1 + log2f(l1);
+    }
+  }
 #pragma unroll
   for (int j = 0; j < NV / 8; ++j) {
     const int c = j * 8 + t4 * 2;
@@ -739,10 +756,11 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int B, int rows,
   return make_map_bf16(map, ptr, 4, dims, strides, boxdim);
 }
 
-template <int DP>
+template <int DP, bool LSE = false>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int kv_len, int H, int D, long long sb, long long ss, long long sh,
-           float c, cudaStream_t stream) {
+           float c, cudaStream_t stream, float* lse = nullptr,
+           int lse_pitch = 0) {
   alignas(64) CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, B, S, H, D, sb, ss, sh, BQ) ||
       !make_map(&mk, k, B, kv_len, H, D, sb, ss, sh, Cfg<DP>::BK) ||
@@ -750,11 +768,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
     return (int)cudaErrorInvalidValue;
   const int smem = Cfg<DP>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attn_kernel<DP, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((S + BQ - 1) / BQ, B * H);
-  attn_kernel<DP><<<grid, NTHREADS, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, H, D, c, kv_len);
+  attn_kernel<DP, LSE><<<grid, NTHREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, H, D, c, kv_len, lse,
+      lse_pitch);
   return (int)cudaGetLastError();
 }
 
@@ -788,6 +808,34 @@ inline int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (D <= 256)
     return launch<256>(q, k, v, o, B, S, kv_len, H, D, sb, ss, sh, c, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// launch_bf16 with kv_len = S that also writes each row's logsumexp (exp2
+// domain) to lse, f32 [B*H, lse_pitch] (lse_pitch >= S, a multiple of 4),
+// for the backward (attention_bwd.cu) at the head dims it takes, D <= 128.
+// The output is launch_bf16's bit for bit.
+inline int launch_bf16_lse(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int B, int S, int H, int D,
+                           long long sb, long long ss, long long sh,
+                           float sm_scale, int lse_pitch, cudaStream_t st) {
+  const float c = sm_scale * 1.4426950408889634f;  // log2(e)
+  const uintptr_t align =
+      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
+  if (D <= 0 || D > 128 || D % 8 != 0 || S < 1 || B < 1 || H < 1 ||
+      (long long)B * H > MAX_GRID_Y || align % 16 != 0 || sb % 8 != 0 ||
+      ss % 8 != 0 || sh % 8 != 0 || lse == nullptr || lse_pitch < S)
+    return (int)cudaErrorInvalidValue;
+  if (D <= 48)
+    return launch<48, true>(q, k, v, o, B, S, S, H, D, sb, ss, sh, c, st, lse,
+                            lse_pitch);
+  if (D <= 64)
+    return launch<64, true>(q, k, v, o, B, S, S, H, D, sb, ss, sh, c, st, lse,
+                            lse_pitch);
+  if (D <= 80)
+    return launch<80, true>(q, k, v, o, B, S, S, H, D, sb, ss, sh, c, st, lse,
+                            lse_pitch);
+  return launch<128, true>(q, k, v, o, B, S, S, H, D, sb, ss, sh, c, st, lse,
+                           lse_pitch);
 }
 
 // The dynamic shared memory of a block of the bf16 kernel at head dim D

@@ -211,6 +211,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32], A and B from shared memory
+// (descriptors), both K-major; f32 accumulators in d. scale_d 0
+// overwrites d, 1 adds to it.
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory
 // (descriptors), both K-major; f32 accumulators in d. scale_d 0
 // overwrites d, 1 adds to it.

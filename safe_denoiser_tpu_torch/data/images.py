@@ -353,3 +353,28 @@ class NudityDataset(_GlobImageDataset):
 class ArtistsDataset(_GlobImageDataset):
     max_images = None
     exts = ("png",)
+
+
+def get_dataloader(dataset, batch_size: int, num_workers: int = 0,
+                   train: bool = False):
+    """Batches of ``dataset``'s images in order, each an [n, 3, H, W] f32
+    array, the last one short (the reference's get_dataloader; the JAX
+    package's, for chunked VAE encoding). ``num_workers`` and ``train`` are
+    taken for the reference's signature and not read."""
+    for start in range(0, len(dataset), batch_size):
+        yield np.stack([dataset[i] for i in
+                        range(start, min(start + batch_size, len(dataset)))])
+
+
+def get_all_imgs(dataset, batch_size: int = 64) -> np.ndarray:
+    """The whole bank as one [M, 3, H, W] f32 array (the reference's
+    get_all_imgs: the bank is small enough by design)."""
+    return np.stack([dataset[i] for i in range(len(dataset))], axis=0)
+
+
+def load_image_bank(name: str, root: str, class_info: str = "",
+                    size: int = 512) -> np.ndarray:
+    """The registry, the transform and ``get_all_imgs`` in one call."""
+    ds = get_dataset(name, root=root, class_info=class_info,
+                     transforms=get_transform("", size=size))
+    return get_all_imgs(ds)

@@ -135,6 +135,12 @@ def read_csv(path: str) -> PromptTable:
     return PromptTable(columns, rows, list(range(len(body))))
 
 
+def load_prompt_csv(path: str) -> PromptTable:
+    """The JAX package's ``load_prompt_csv`` (``pandas.read_csv``): the
+    CSV as ``read_csv`` types it."""
+    return read_csv(path)
+
+
 def load_hf_coco_dataset(path: str, limit: int = 10000) -> PromptTable:
     """The COCO runner's local Recap-COCO-30K copy (the JAX package's
     ``load_hf_coco_dataset``; the reference loads

@@ -44,7 +44,9 @@ _REPACK = [_P] * 2 + [_I] * 5 + [_P]
 SIGNATURES = {
     "attention": {"sdt_self_attention_bf16": _ATTN,
                   "sdt_self_attention_f32": _ATTN,
-                  "sdt_self_attention_bf16_smem": [_I]},
+                  "sdt_self_attention_bf16_smem": [_I],
+                  "sdt_self_attention_lse_bf16": [_P] * 5 + [_I] * 4
+                  + [_L] * 3 + [_F, _I, _P]},
     "attention_i8": {
         "sdt_self_attention_i8_bf16":
             [_P] * 7 + [_I] * 4 + [_L] * 3 + [_F, _F, _P],
@@ -69,7 +71,7 @@ SIGNATURES = {
                        "sdt_attention_bshd_f32": _LAYOUT},
     "repack_heads": {"sdt_repack_to_heads": _REPACK,
                      "sdt_repack_from_heads": _REPACK},
-    "attention_bwd": {"sdt_attention_bwd_bf16": [_P] * 10 + [_I] * 4
+    "attention_bwd": {"sdt_attention_bwd_bf16": [_P] * 10 + [_I] * 5
                       + [_F, _P]},
     "conv3x3_up_bwd": {
         "sdt_conv3x3_up_bwd_dx_bf16": [_P] * 3 + [_I] * 5 + [_P],

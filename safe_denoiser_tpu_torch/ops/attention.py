@@ -31,7 +31,7 @@ from . import _build
 from ._grad import acc_dtype, check_no_grad, needs_grad
 
 launches = 0        # kernel launches of the bf16/f32 kernel on CUDA tensors
-bwd_launches = 0    # calls of the bf16 backward (B1b, three kernels a call)
+bwd_launches = 0    # calls of the bf16 backward (B1b, two launches a call)
 # bf16 calls (B1, B9, B10) whose q/k/v the wrapper first copied into
 # contiguous tensors, because the kernels' tensor maps cannot take their
 # strides, head dim or alignment (0 on every main path)
@@ -160,23 +160,69 @@ def _check_qkv(q, k, v, dtypes) -> None:
                          "kernel")
 
 
-def _self_attention_cuda(q, k, v, sm_scale: float) -> torch.Tensor:
+def lse_pitch(s: int) -> int:
+    """The row pitch of the logsumexp and Delta rows B1b reads through a
+    tensor map: S rounded up to 4 (a 16-byte multiple of f32)."""
+    return -(-s // 4) * 4
+
+
+def _launch_lse(q, k, v, out, sm_scale: float) -> torch.Tensor:
+    """B1's bf16 kernel into ``out`` that also writes each row's logsumexp
+    (exp2 domain): returns it as f32 [B, H, lse_pitch(S)], the columns past
+    S unwritten. q/k/v as the tensor maps take them, D <= 128."""
+    b, s, h, d = q.shape
+    if d > 128:
+        raise ValueError(f"the attention backward (B1b) takes D <= 128, got "
+                         f"D={d}")
+    lse = torch.empty((b, h, lse_pitch(s)), dtype=torch.float32,
+                      device=q.device)
+    err = _build.library("attention").sdt_self_attention_lse_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, s, h, d, q.stride(0), q.stride(1), q.stride(2),
+        float(sm_scale), lse.shape[2], _build.stream_ptr(q.device))
+    _build.check(err, "sdt_self_attention_lse_bf16")
+    return lse
+
+
+def _self_attention_cuda(q, k, v, sm_scale: float, with_lse: bool = False):
+    """B1 on CUDA tensors. ``with_lse`` (bf16, D <= 128; the forward under
+    autograd): also each query row's logsumexp in the exp2 domain for B1b,
+    returned as ``(out, lse)`` with lse f32 [B, H, S] (a view of rows
+    ``lse_pitch(S)`` apart); the output is the no-grad kernel's bit for bit
+    and counts the same one launch."""
     global launches
     check_no_grad("attention (B1) in f32 or outside SelfAttention", q, k,
                   v)
     _check_qkv(q, k, v, tuple(_ENTRY))
+    if with_lse and q.dtype != torch.bfloat16:
+        raise ValueError("the logsumexp is kept by the bf16 kernel only")
     d_out = q.shape[3]
     if q.dtype == torch.bfloat16:
         q, k, v = _staged(q, k, v)
     b, s, h, d = q.shape
-    fn = getattr(_build.library("attention"), _ENTRY[q.dtype])
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, s, h, d, q.stride(0), q.stride(1), q.stride(2),
-             float(sm_scale), _build.stream_ptr(q.device))
-    _build.check(err, _ENTRY[q.dtype])
+    if with_lse:
+        lse = _launch_lse(q, k, v, out, sm_scale)
+    else:
+        fn = getattr(_build.library("attention"), _ENTRY[q.dtype])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, s, h, d, q.stride(0), q.stride(1), q.stride(2),
+                 float(sm_scale), _build.stream_ptr(q.device))
+        _build.check(err, _ENTRY[q.dtype])
     launches += 1
-    return out if d == d_out else out[..., :d_out].contiguous()
+    out = out if d == d_out else out[..., :d_out].contiguous()
+    return (out, lse[..., :s]) if with_lse else out
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                      sm_scale: float) -> torch.Tensor:
+    """Plain version of the logsumexp B1 keeps for its backward: per query
+    row, log2 of the sum over keys of 2^(c q.k), c = sm_scale * log2(e) (the
+    exp2 domain of the kernels' softmax); [B, H, S] in f32 (f64 for f64
+    inputs)."""
+    acc = acc_dtype(q)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc) * sm_scale, k.to(acc))
+    return torch.logsumexp(logits, dim=-1) * LOG2E
 
 
 def attention_bwd_ref(q, k, v, out, dout, sm_scale: float):
@@ -198,56 +244,93 @@ def attention_bwd_ref(q, k, v, out, dout, sm_scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _attention_bwd_cuda(q, k, v, out, dout, sm_scale: float):
-    """B1b (``csrc/attention_bwd.cu``): bf16 dq, dk, dv of one call; three
-    kernels (row statistics, dK/dV by key blocks, dQ by query blocks), one
-    count."""
+def _check_lse(lse: torch.Tensor, b: int, s: int, h: int, device) -> None:
+    """Raise unless ``lse`` is [B, H, S] f32 on ``device`` with rows
+    ``lse_pitch(S)`` apart on a 16-byte aligned base: the view
+    ``_self_attention_cuda(..., with_lse=True)`` returns, which B1b's tensor
+    map reads."""
+    sp = lse_pitch(s)
+    if not (lse.shape == (b, h, s) and lse.dtype == torch.float32
+            and lse.device == device and lse.stride() == (h * sp, sp, 1)
+            and lse.data_ptr() % 16 == 0):
+        raise ValueError("attention backward takes the logsumexp as the "
+                         "forward returns it: f32 [B, H, S], rows "
+                         f"{sp} apart, got {tuple(lse.shape)} {lse.dtype} "
+                         f"strides {lse.stride()}")
+
+
+def _attention_bwd_cuda(q, k, v, out, dout, sm_scale: float, lse=None):
+    """B1b (``csrc/attention_bwd.cu``): bf16 dq, dk, dv of one call; two
+    launches (Delta, then dK/dV by key blocks beside dQ by query blocks),
+    one count.
+    ``lse``: each query row's logsumexp in the exp2 domain, [B, H, S] f32,
+    as the forward under autograd keeps it (``_self_attention_cuda(...,
+    with_lse=True)``); without it the call first runs that forward for it
+    (the same bits). Head dims that are not a multiple of 8 are padded with
+    zero columns, which add nothing to any product."""
     global bwd_launches
-    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
-    for t in (k, v, out, dout):
+    for t in (q, k, v, out, dout):
         if t.shape != q.shape or t.dtype != torch.bfloat16 \
-                or t.device != q.device:
+                or t.device != q.device or not t.is_cuda:
             raise ValueError("attention backward takes bf16 q/k/v/out/dout "
                              "of one [B,S,H,D] shape on one GPU")
     b, s, h, d = q.shape
     if d > 128 or b * h > 65535:
         raise ValueError(f"attention backward takes D <= 128 and B*H <= "
                          f"65535, got D={d}, B*H={b * h}")
+    d8 = max(8, -(-d // 8) * 8)
+
+    def ready(t):
+        t = t.contiguous()
+        if d8 != d:
+            t = F.pad(t, (0, d8 - d))
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    q, k, v, out, dout = (ready(t) for t in (q, k, v, out, dout))
+    if lse is None:
+        lse = _launch_lse(q, k, v, torch.empty_like(q), sm_scale)
+    else:
+        _check_lse(lse, b, s, h, q.device)
+    sp = lse_pitch(s)
+    delta = torch.empty((b, h, sp), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((2, b * h * s), dtype=torch.float32, device=q.device)
     err = _build.library("attention_bwd").sdt_attention_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), b, s, h, d,
+        lse.data_ptr(), delta.data_ptr(), b, s, h, d8, sp,
         float(sm_scale), _build.stream_ptr(q.device))
     _build.check(err, "sdt_attention_bwd_bf16")
     bwd_launches += 1
+    if d8 != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
 class SelfAttention(torch.autograd.Function):
     """B1 with a backward: on CUDA (bf16) the forward launches B1 as the
-    no-grad path does, bit for bit and counted the same, and the backward
-    launches B1b; on the CPU the plain version and ``attention_bwd_ref``."""
+    no-grad path does, bit for bit and counted the same, keeping each row's
+    logsumexp, and the backward launches B1b on it; on the CPU the plain
+    version and ``attention_bwd_ref``."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
+        lse = None
         if _build.takes_plain(q):
             out = attention_ref(q, k, v, sm_scale)
         else:
-            out = _self_attention_cuda(q, k, v, sm_scale)
-        ctx.save_for_backward(q, k, v, out)
+            out, lse = _self_attention_cuda(q, k, v, sm_scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.sm_scale = sm_scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if _build.takes_plain(q):
             grads = attention_bwd_ref(q, k, v, out, dout, ctx.sm_scale)
         else:
             grads = _attention_bwd_cuda(q, k, v, out, dout.to(q.dtype),
-                                        ctx.sm_scale)
+                                        ctx.sm_scale, lse)
         return (*grads, None)
 
 

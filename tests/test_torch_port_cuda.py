@@ -1553,6 +1553,52 @@ def test_attention_backward_through_autograd(dev):
         assert torch.equal(g_, w_)
 
 
+@pytest.mark.parametrize("d", [40, 64, 80])
+@pytest.mark.parametrize("s", [77, 333, 1001])
+def test_attention_backward_on_the_forward_logsumexp(dev, s, d):
+    """B1b at odd S on the logsumexp B1's forward keeps: within
+    chip_smoke.BWD_B1_RTOL of the plain backward, bit for bit the call
+    that recomputes the logsumexp, two calls equal; the kept logsumexp
+    within chip_smoke.LSE_ATOL of ``attention_lse_ref``."""
+    import chip_smoke
+    q, k, v, do = (torch.randn(2, s, 3, d, device=dev, generator=_gen(i))
+                   .to(torch.bfloat16) for i in range(4))
+    scale = d ** -0.5
+    o, lse = attention._self_attention_cuda(q, k, v, scale, with_lse=True)
+    assert lse.shape == (2, 3, s) and lse.dtype == torch.float32
+    assert (lse - attention.attention_lse_ref(q, k, scale)).abs().max() \
+        <= chip_smoke.LSE_ATOL
+    got = attention._attention_bwd_cuda(q, k, v, o, do, scale, lse)
+    again = attention._attention_bwd_cuda(q, k, v, o, do, scale, lse)
+    recomputed = attention._attention_bwd_cuda(q, k, v, o, do, scale)
+    want = attention.attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)),
+                                       scale)
+    for x, y, z, w in zip(got, again, recomputed, want):
+        assert torch.equal(x, y) and torch.equal(x, z)
+        assert _rel(x, w) <= chip_smoke.BWD_B1_RTOL
+
+
+@pytest.mark.parametrize("s,d", [(1024, 40), (600, 80), (4429, 64)])
+def test_forward_that_keeps_the_logsumexp_is_the_no_grad_one(dev, s, d):
+    """Under autograd B1's forward keeps each row's logsumexp for B1b: its
+    output is the no-grad output bit for bit, each counts one launch of
+    B1, and the logsumexp it saved is the plain one."""
+    import chip_smoke
+    q, k, v = (torch.randn(1, s, 2, d, device=dev, generator=_gen(i))
+               .to(torch.bfloat16) for i in range(3))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        want = attention.self_attention(q, k, v, d ** -0.5)
+    assert ops.launch_counts()["attention"] == 1
+    qg = q.clone().requires_grad_()
+    out = attention.self_attention(qg, k, v, d ** -0.5)
+    assert ops.launch_counts()["attention"] == 2
+    assert torch.equal(out.detach(), want)
+    lse = out.grad_fn.saved_tensors[4]
+    assert (lse - attention.attention_lse_ref(q, k, d ** -0.5)).abs().max() \
+        <= chip_smoke.LSE_ATOL
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,s,c", [(2, 1000, 200), (1, 4096, 640)])
 def test_gn_stats_backward_matches_plain(dev, dtype, b, s, c):
