@@ -1394,6 +1394,32 @@ def _rel_err(got, want) -> float:
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
+def dx_sweep(shape, dy, w4, hh) -> None:
+    """B3b-dx's conv alone at each tile width and split that its plan
+    chooses among (``csrc/conv3x3_up_bwd.cu::dx_plan``), device times,
+    beside the clusters of each split that the card holds at once."""
+    from safe_denoiser_tpu_torch.ops import _build, conv3x3
+
+    b, h2, w2, ci, co = shape
+    lib = _build.library("conv3x3_up_bwd")
+    dh = torch.empty_like(hh)
+    for tn in conv3x3.DX_TNS:
+        times = []
+        for split in range(1, 5):
+            def tiled(tn=tn, split=split):
+                _build.check(lib.sdt_conv3x3_up_bwd_dx_tiled(
+                    dy.data_ptr(), w4.data_ptr(), dh.data_ptr(), b, h2, w2,
+                    ci, co, tn, split, _build.stream_ptr(dy.device)),
+                    "sdt_conv3x3_up_bwd_dx_tiled")
+            times.append(device_ms(tiled))
+        held = [lib.sdt_conv3x3_up_bwd_dx_clusters(tn, s)
+                for s in range(1, 5)]
+        print(f"kernel conv3x3_up_bwd_dx {shape}: the conv alone at {tn} "
+              "input channels a block, splits 1..4: device_ms="
+              + "/".join(f"{t:.4f}" for t in times)
+              + f" (clusters held at once: {held})")
+
+
 def phase_backward_kernels() -> dict:
     """Each backward kernel against its plain backward on the same inputs
     (the plain one in f32) at the training slice's shapes, with its device
@@ -1521,8 +1547,11 @@ def phase_backward_kernels() -> dict:
              / (9 * ci) ** 0.5).to(torch.bfloat16)
         dy = torch.randn(b, 2 * h2, 2 * w2, co, device=dev,
                          generator=g).to(torch.bfloat16)
-        w4 = conv3x3.bwd_dx_weights(w)
-        dh = conv3x3._conv3x3_up_bwd_dx_cuda(dy, w4, hh.shape)
+        w4 = conv3x3._bwd_dx_fold_cuda(w)
+        if not torch.equal(w4.view(torch.int16),
+                           conv3x3.bwd_dx_weights(w).view(torch.int16)):
+            fail("B3b-dx's fold pass differs from bwd_dx_weights")
+        dh = conv3x3._conv3x3_up_bwd_dx_cuda(dy, w, hh.shape)
         dw, db = conv3x3._conv3x3_up_bwd_dw_cuda(dy, hh)
         want = conv3x3.conv3x3_up_bwd_ref(hh.float(), w.float(), dy.float())
         err_dx = _rel_err(dh, want[0])
@@ -1536,7 +1565,7 @@ def phase_backward_kernels() -> dict:
         n_h, n_y, n_w = hh.numel() * 2, dy.numel() * 2, w.numel() * 2
         for name, err, tol, fn, mask, bytes_, plain_fn in (
                 ("conv3x3_up_bwd_dx", err_dx, BWD_DX_RTOL,
-                 lambda: conv3x3._conv3x3_up_bwd_dx_cuda(dy, w4, hh.shape),
+                 lambda: conv3x3._conv3x3_up_bwd_dx_cuda(dy, w, hh.shape),
                  [True, False, False], n_y + n_w + n_h,
                  lambda: conv3x3.conv3x3_up_bwd_ref(hh, w, dy)[0]),
                 ("conv3x3_up_bwd_dw", err_dw, BWD_DW_RTOL,
@@ -1557,19 +1586,34 @@ def phase_backward_kernels() -> dict:
                     "aten.convolution_backward (cuDNN) on the upsampled "
                     f"input, output_mask {mask}", dtm,
                     metric="max|d|/max|plain|")
+            if name == "conv3x3_up_bwd_dx":
+                # the weight fold, the first of B3b-dx's two launches (its
+                # plain version, bwd_dx_weights, as torch ops on the card),
+                # and the plan the conv took
+                tn, split = conv3x3.dx_plan(b, h2, w2, ci, co)
+                fold = device_ms(lambda: conv3x3._bwd_dx_fold_cuda(w))
+                fold_plain = device_ms(lambda: conv3x3.bwd_dx_weights(w))
+                print(f"kernel conv3x3_up_bwd_dx {[b, h2, w2, ci, co]}: "
+                      f"fold pass device_ms={fold:.4f} (bit for bit "
+                      f"bwd_dx_weights, {fold_plain:.4f} as torch ops); "
+                      f"plan: {tn} input channels a block, {split} blocks "
+                      "a tile")
+                dx_sweep([b, h2, w2, ci, co], dy, w4, hh)
             keep(name, dict(err=err, ms=ms, plain=plain, lib=lib, bound=bnd,
                             dev=dtm))
         del x_up, want, dh, dw
     # two calls give the same bits (no atomics)
     for name, fn in (("attention_bwd", lambda: attention._attention_bwd_cuda(
             q, k, v, o, do, d ** -0.5)),
+            ("conv3x3_up_bwd_dx", lambda: (conv3x3._conv3x3_up_bwd_dx_cuda(
+                dy, w, hh.shape),)),
             ("conv3x3_up_bwd_dw", lambda: conv3x3._conv3x3_up_bwd_dw_cuda(
                 dy, hh))):
         one, two = fn(), fn()
         if not all(torch.equal(x, y) for x, y in zip(one, two)):
             fail(f"{name}: two calls on the same inputs differ")
-    print("backward kernels: two calls of B1b and of B3b-dw gave the same "
-          "bits")
+    print("backward kernels: two calls of B1b, of B3b-dx and of B3b-dw gave "
+          "the same bits")
     return results
 
 
@@ -1586,29 +1630,44 @@ PARENT_B4 = ((4, 64, 64, 512, 512, False), (4, 256, 256, 512, 256, False),
              (4, 512, 512, 128, 128, True))
 PARENT_B3 = ((8, 32, 32, 640, 640), (4, 128, 128, 512, 512),
              (4, 256, 256, 256, 256))
-PARENT_ENTRIES = {"attention": "sdt_self_attention_bf16",
-                  "attention_nt": "sdt_attention_nt_bf16",
-                  "attention_bshd": "sdt_attention_bshd_bf16",
-                  "conv3x3": "sdt_conv3x3_bf16",
-                  "conv3x3_up": "sdt_conv3x3_up_bf16",
-                  "attention_i8": "sdt_self_attention_i8_bf16",
-                  "conv3x3_up_interleave": "sdt_conv3x3_up_interleave_bf16",
-                  "rbf": "sdt_rbf_score_f32",
-                  "group_norm": "sdt_group_norm_fused",
-                  "attention_bwd": "sdt_attention_bwd_bf16"}
+PARENT_ENTRIES = {"attention": ("sdt_self_attention_bf16",),
+                  "attention_nt": ("sdt_attention_nt_bf16",),
+                  "attention_bshd": ("sdt_attention_bshd_bf16",),
+                  "conv3x3": ("sdt_conv3x3_bf16",),
+                  "conv3x3_up": ("sdt_conv3x3_up_bf16",),
+                  "attention_i8": ("sdt_self_attention_i8_bf16",),
+                  "conv3x3_up_interleave": (
+                      "sdt_conv3x3_up_interleave_bf16",),
+                  "rbf": ("sdt_rbf_score_f32",),
+                  "group_norm": ("sdt_group_norm_fused",),
+                  "attention_bwd": ("sdt_attention_bwd_bf16",),
+                  "conv3x3_up_bwd": ("sdt_conv3x3_up_bwd_dx_bf16",
+                                     "sdt_conv3x3_up_bwd_dw_bf16")}
 # entries whose arguments changed since the checkout that 3b is run
-# against (this one's parent): the parent's argument list. B1b's
-# recomputed the logsumexp before it read the forward's (q, k, v, o, dout,
-# dq, dk, dv, lse and delta scratch, B, S, H, D, sm_scale, stream).
-PARENT_ARGTYPES = {"attention_bwd": [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]}
+# against (this one's parent), by entry: the parent's argument list.
+# B3b-dw took an f32 partials scratch and its position split (dy, h, part,
+# dw, db, B, H, W, Ci, Co, nsplit, chunk, stream).
+PARENT_ARGTYPES = {
+    "sdt_conv3x3_up_bwd_dw_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p]}
+
+
+def parent_dw_split(bsz: int, h2: int, w2: int, ci: int, co: int) -> tuple:
+    """(nsplit, chunk) of the parent's B3b-dw (its ``dw_split``): the
+    B*H2*W2 positions in runs of ``chunk`` (a multiple of 32) so that
+    16 x tiles x nsplit blocks fill 264 slots."""
+    m = bsz * h2 * w2
+    blocks = 16 * (ci // 64) * (co // 64)
+    want = max(1, min(-(-m // 32), -(-264 // blocks)))
+    chunk = -(-(-(-m // want)) // 32) * 32
+    return -(-m // chunk), chunk
 
 
 def build_parent(root: str) -> dict:
     """The C entry points of PARENT_ENTRIES from the checkout at ``root``
-    (those whose source it has), built (all sources at once) with this
-    checkout's nvcc flags into build/torch_kernels_parent/; they take the
-    arguments of this checkout's, or those of PARENT_ARGTYPES."""
+    (those whose source it has), by entry name, built (all sources at once)
+    with this checkout's nvcc flags into build/torch_kernels_parent/; they
+    take the arguments of this checkout's, or those of PARENT_ARGTYPES."""
     from safe_denoiser_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR.parent / "torch_kernels_parent"
@@ -1628,12 +1687,13 @@ def build_parent(root: str) -> dict:
         _, err = proc.communicate()
         if proc.returncode:
             fail(f"nvcc failed for the parent's {name}.cu:\n{err}")
-        entry = PARENT_ENTRIES[name]
-        fn = getattr(ctypes.CDLL(lib), entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = PARENT_ARGTYPES.get(name,
-                                          _build.SIGNATURES[name][entry])
-        fns[name] = fn
+        loaded = ctypes.CDLL(lib)
+        for entry in PARENT_ENTRIES[name]:
+            fn = getattr(loaded, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = PARENT_ARGTYPES.get(
+                entry, _build.SIGNATURES[name][entry])
+            fns[entry] = fn
     return fns
 
 
@@ -1652,24 +1712,27 @@ def load_parent_group_norm(root: str):
 
 
 def phase_parent(root: str) -> None:
-    """Phase 3b: B1, B1b, B9, B10, B4, B3, B8, B7, B2 and B6 of the checkout at
-    ``root`` against this checkout's on the same seeded inputs, device
-    times (``device_ms``) in turns (parent, this, this, parent), with the
-    largest difference of their outputs."""
+    """Phase 3b: B1, B1b, B3b-dx, B3b-dw, B9, B10, B4, B3, B8, B7, B2 and B6
+    of the checkout at ``root`` against this checkout's on the same seeded
+    inputs, device times (``device_ms``) in turns (parent, this, this,
+    parent), with the largest difference of their outputs."""
     from safe_denoiser_tpu_torch.models import SD3_VAE
     from safe_denoiser_tpu_torch.ops import (
         _build, attention, conv3x3, group_norm, repellency_kernels)
 
     parent = build_parent(root)
-    this = {name: getattr(_build.library(name), entry)
-            for name, entry in PARENT_ENTRIES.items() if name in parent}
+    this = {entry: getattr(_build.library(name), entry)
+            for name, entries in PARENT_ENTRIES.items()
+            for entry in entries if entry in parent}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def turns(name, call, shape, fns=None):
-        """``call(fn)`` with the parent's and this checkout's entry of
-        ``name`` (or the two callables of ``fns``)."""
-        fns = fns or {"parent": parent[name], "this": this[name]}
+    def turns(name, call, shape, fns=None, entry=None):
+        """``call(fn)`` with the parent's and this checkout's ``entry``
+        (by default the one entry of library ``name``), or the two
+        callables of ``fns``."""
+        entry = entry or PARENT_ENTRIES.get(name, (None,))[0]
+        fns = fns or {"parent": parent[entry], "this": this[entry]}
         diff = (call(fns["this"]).float()
                 - call(fns["parent"]).float()).abs().max().item()
         ms = {"parent": [], "this": []}
@@ -1693,8 +1756,7 @@ def phase_parent(root: str) -> None:
             return out
 
         turns("attention", attn, [b, s, h, d])
-    # B1b at phase 3's shapes: the parent's entry on its own list (it
-    # recomputes the logsumexp), this one on the forward's
+    # B1b at phase 3's shapes, on the logsumexp B1's forward keeps
     for b, s, h, d in BWD_B1:
         q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g)
                        .bfloat16() for _ in range(4))
@@ -1706,19 +1768,55 @@ def phase_parent(root: str) -> None:
         def attn_bwd(fn):
             grads = [torch.empty_like(q) for _ in range(3)]
             ptrs = [t.data_ptr() for t in (q, k, v, o, do, *grads)]
-            if fn is parent["attention_bwd"] and "attention_bwd" in \
-                    PARENT_ARGTYPES:
-                args = (*ptrs, stats[0].data_ptr(), stats[1].data_ptr(), b,
-                        s, h, d)
-            else:
-                args = (*ptrs, lse.data_ptr(), stats[1].data_ptr(), b, s, h,
-                        d, sp)
-            _build.check(fn(*args, d ** -0.5, _build.stream_ptr(dev)),
+            _build.check(fn(*ptrs, lse.data_ptr(), stats[1].data_ptr(), b,
+                            s, h, d, sp, d ** -0.5, _build.stream_ptr(dev)),
                          "sdt_attention_bwd_bf16")
             return torch.cat([t.flatten() for t in grads])
 
         turns("attention_bwd", attn_bwd, [b, s, h, d])
         del q, k, v, do, o, lse, stats
+    # B3b-dx and B3b-dw at phase 3's shape, each entry on its own list
+    # where PARENT_ARGTYPES has the parent's (dw's time: all its launches)
+    dx_entry, dw_entry = PARENT_ENTRIES["conv3x3_up_bwd"]
+    for b, h2, w2, ci, co in BWD_B3:
+        hh = torch.randn(b, h2, w2, ci, device=dev, generator=g).bfloat16()
+        w = (torch.randn(co, ci, 3, 3, device=dev, generator=g)
+             / (9 * ci) ** 0.5).bfloat16()
+        dy = torch.randn(b, 2 * h2, 2 * w2, co, device=dev,
+                         generator=g).bfloat16()
+        w4 = conv3x3.bwd_dx_weights(w)
+
+        def old(fn, entry):
+            return fn is parent.get(entry) and entry in PARENT_ARGTYPES
+
+        def up_dx(fn):
+            dh = torch.empty_like(hh)
+            _build.check(fn(dy.data_ptr(), w4.data_ptr(), dh.data_ptr(), b,
+                            h2, w2, ci, co, _build.stream_ptr(dev)),
+                         dx_entry)
+            return dh
+
+        def up_dw(fn):
+            out = torch.empty(co * ci * 9 + co, device=dev)  # dW, then db
+            dw, db = out[:co * ci * 9], out[co * ci * 9:]
+            if old(fn, dw_entry):
+                nsplit, chunk = parent_dw_split(b, h2, w2, ci, co)
+                part = torch.empty(nsplit * 16 * co * ci, device=dev)
+                args = (dy.data_ptr(), hh.data_ptr(), part.data_ptr(),
+                        dw.data_ptr(), db.data_ptr(), b, h2, w2, ci, co,
+                        nsplit, chunk)
+            else:
+                args = (dy.data_ptr(), hh.data_ptr(), dw.data_ptr(),
+                        db.data_ptr(), b, h2, w2, ci, co)
+            _build.check(fn(*args, _build.stream_ptr(dev)), dw_entry)
+            return out
+
+        if dx_entry in parent:
+            turns("conv3x3_up_bwd_dx", up_dx, [b, h2, w2, ci, co],
+                  entry=dx_entry)
+            turns("conv3x3_up_bwd_dw", up_dw, [b, h2, w2, ci, co],
+                  entry=dw_entry)
+        del hh, w, dy, w4
     for bh, s, d, valid in PARENT_B9:
         q, k, v = (torch.randn(bh, s, d, device=dev, generator=g)
                    for _ in range(3))
@@ -1839,7 +1937,8 @@ def phase_parent(root: str) -> None:
 
         def rbf(fn):
             num = torch.empty((n, dd), device=dev)
-            old = fn is parent["rbf"] and "rbf" in PARENT_ARGTYPES
+            old = (fn is parent["sdt_rbf_score_f32"]
+                   and "sdt_rbf_score_f32" in PARENT_ARGTYPES)
             plan = [] if old else list(p)
             _build.check(fn(x.data_ptr(), refs.data_ptr(), w.data_ptr(),
                             num.data_ptr(), beta.data_ptr(), n, m, dd,
@@ -1852,7 +1951,7 @@ def phase_parent(root: str) -> None:
     # B6 at its phase-3 shapes: the parent's C entry on this checkout's
     # plan, or its Triton kernels, loaded by path, where it has no
     # csrc/group_norm.cu
-    parent_gn = (None if "group_norm" in parent
+    parent_gn = (None if "sdt_group_norm_fused" in parent
                  else load_parent_group_norm(root))
     for b, s, c, dtype in GN_SHAPES:
         xx = (torch.randn(b, s, c, device=dev, generator=g) * 2 + 1).to(dtype)

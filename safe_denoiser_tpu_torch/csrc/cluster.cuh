@@ -3,9 +3,10 @@
 // memory, DSMEM) and, on the host, a launch with a cluster dimension.
 //
 // Used by the kernels that reduce across the blocks of a cluster in rank
-// order (group_norm.cu, rbf.cu): every block adds the peers' partials in
-// the order 0, 1, ..., CL-1, so all of them derive bit-identical sums, with
-// no atomics. A block's shared memory must stay alive while peers read it:
+// order (group_norm.cu, rbf.cu, conv3x3_up_bwd.cu): a block adds the
+// peers' partials in the order 0, 1, ..., CL-1, so every sum has one
+// order and any two blocks that derive it get the same bits, with no
+// atomics. A block's shared memory must stay alive while peers read it:
 // each kernel arrives on the cluster barrier once it has read its peers
 // and waits on it before exiting.
 
@@ -50,6 +51,23 @@ __device__ __forceinline__ float ld_peer(const float* local, uint32_t peer) {
                : "r"(a), "r"(peer));
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
                : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// four f32 at the same shared-memory offset as `local` (16-byte aligned),
+// in block `peer` of this cluster
+__device__ __forceinline__ float4 ld_peer_v4(const float* local,
+                                             uint32_t peer) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(local));
+  uint32_t remote;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(a), "r"(peer));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
                : "r"(remote)
                : "memory");
   return v;

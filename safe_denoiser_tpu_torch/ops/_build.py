@@ -75,7 +75,11 @@ SIGNATURES = {
                       + [_F, _P]},
     "conv3x3_up_bwd": {
         "sdt_conv3x3_up_bwd_dx_bf16": [_P] * 3 + [_I] * 5 + [_P],
-        "sdt_conv3x3_up_bwd_dw_bf16": [_P] * 5 + [_I] * 7 + [_P]},
+        "sdt_conv3x3_up_bwd_dx_plan": [_I] * 5,
+        "sdt_conv3x3_up_bwd_fold": [_P] * 2 + [_I] * 3 + [_P],
+        "sdt_conv3x3_up_bwd_dx_tiled": [_P] * 3 + [_I] * 7 + [_P],
+        "sdt_conv3x3_up_bwd_dx_clusters": [_I] * 2,
+        "sdt_conv3x3_up_bwd_dw_bf16": [_P] * 4 + [_I] * 5 + [_P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -30,7 +30,7 @@ up_launches = 0      # kernel launches of conv3x3_up (planar) on CUDA tensors
 interleave_launches = 0   # ... of conv3x3_up(form="interleave")
 fused_launches = 0   # kernel launches of conv3x3 on CUDA tensors
 bwd_dx_launches = 0  # calls of B3's backward for dh (B3b-dx)
-bwd_dw_launches = 0  # calls of B3's backward for dW, db (B3b-dw, 3 kernels)
+bwd_dw_launches = 0  # calls of B3's backward for dW, db (B3b-dw)
 UP_FORMS = ("planar", "interleave")
 
 # tap groups of the 3x3 kernel per output parity: j=0/1 -> taps of dy
@@ -173,14 +173,34 @@ def conv3x3_up(h: torch.Tensor, w_oihw: torch.Tensor,
 _FOLD = ((0, 0, 1), (0, 1, 1), (1, 1, 0), (1, 0, 0))
 
 
+def _fold_taps(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The 3 taps of ``t`` along ``dim`` -> a new leading dim of the 4
+    offsets u + 1 of ``_FOLD``, each the sum of its taps in increasing
+    order."""
+    taps = [t.select(dim, k) for k in range(3)]
+    rows = []
+    for row in _FOLD:
+        picked = [taps[k] for k in range(3) if row[k]]
+        acc = picked[0]
+        for p in picked[1:]:
+            acc = acc + p
+        rows.append(acc)
+    return torch.stack(rows)
+
+
 def bwd_dx_weights(w_oihw: torch.Tensor) -> torch.Tensor:
     """diffusers [Co, Ci, 3, 3] -> B3b-dx's [16, Ci, Co] bf16 weights of the
     4x4 stride-2 conv over dy: tap (u + 1) * 4 + (v + 1) holds the sum of
     W[:, :, ky, kx] over the parities with py - ky + 1 = u and
-    px - kx + 1 = v, summed in f32."""
-    fold = torch.tensor(_FOLD, dtype=torch.float32, device=w_oihw.device)
-    w4 = torch.einsum("uy,vx,oiyx->uvio", fold, fold, w_oihw.float())
-    return w4.reshape(16, *w4.shape[2:]).to(torch.bfloat16).contiguous()
+    px - kx + 1 = v: weight slices summed in f32 on the weight's device,
+    over ky, then over kx, each in increasing tap order (B3b-dx's fold
+    pass takes the same order); no table is copied from the host."""
+    co, ci = w_oihw.shape[:2]
+    wv = _fold_taps(_fold_taps(w_oihw.float(), 2), 3)   # [v, u, Co, Ci]
+    w4 = torch.empty((16, ci, co), dtype=torch.bfloat16,
+                     device=w_oihw.device)
+    w4.view(4, 4, ci, co).copy_(wv.permute(1, 0, 3, 2))
+    return w4
 
 
 def conv3x3_up_bwd_ref(h: torch.Tensor, w_oihw: torch.Tensor,
@@ -215,16 +235,74 @@ def _bf16_nhwc(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _conv3x3_up_bwd_dx_cuda(dy: torch.Tensor, w4: torch.Tensor,
+# B3b's tiles (csrc/conv3x3_up_bwd.cu): dx's block owns an 8 x 16 patch of
+# half-resolution pixels x 128 or 160 input channels, its k slices are
+# (tap, 64 output channels), split over 1..4 blocks (dx_plan); dw's stage
+# is a 4 x 16 patch of positions, its block 128 output x 64 input channels
+# of one parity
+DX_PATCH, DX_TNS, DX_CK = (8, 16), (128, 160), 64
+DW_PATCH, DW_TM, DW_TN = (4, 16), 128, 64
+
+
+def dx_plan(bsz: int, h2: int, w2: int, ci: int, co: int) -> tuple:
+    """(input channels a block, blocks that share an output tile) that
+    B3b-dx takes for this shape on the current GPU: the C side's choice
+    from the clusters the card holds at once (``csrc/conv3x3_up_bwd.cu::
+    dx_plan``)."""
+    v = _build.library("conv3x3_up_bwd").sdt_conv3x3_up_bwd_dx_plan(
+        bsz, h2, w2, ci, co + co % 64)
+    if v == 0:
+        raise RuntimeError("B3b-dx's occupancy query failed")
+    return v // 8, v % 8
+
+
+def _bwd_dx_fold_cuda(w_oihw: torch.Tensor) -> torch.Tensor:
+    """``bwd_dx_weights`` on the card in one pass (``csrc/conv3x3_up_bwd.cu
+    ::fold_kernel``), bit for bit: [16, Ci, Co] bf16 from a bf16 or f32
+    [Co, Ci, 3, 3] weight."""
+    co, ci = w_oihw.shape[:2]
+    if tuple(w_oihw.shape) != (co, ci, 3, 3) or not w_oihw.is_cuda:
+        raise ValueError(f"the weight must be [Co, Ci, 3, 3] on a GPU, got "
+                         f"{tuple(w_oihw.shape)} on {w_oihw.device}")
+    if w_oihw.dtype not in (torch.bfloat16, torch.float32):
+        w_oihw = w_oihw.float()
+    w_oihw = w_oihw.contiguous()
+    w4 = torch.empty((16, ci, co), dtype=torch.bfloat16,
+                     device=w_oihw.device)
+    err = _build.library("conv3x3_up_bwd").sdt_conv3x3_up_bwd_fold(
+        w_oihw.data_ptr(), w4.data_ptr(), ci, co,
+        int(w_oihw.dtype == torch.float32), _build.stream_ptr(w_oihw.device))
+    _build.check(err, "sdt_conv3x3_up_bwd_fold")
+    return w4
+
+
+def _conv3x3_up_bwd_dx_cuda(dy: torch.Tensor, w_oihw: torch.Tensor,
                             h_shape) -> torch.Tensor:
-    """B3b-dx: dh [B, H2, W2, Ci] bf16 of the 4x4 stride-2 conv of dy with
-    ``bwd_dx_weights``."""
+    """B3b-dx: dh [B, H2, W2, Ci] bf16, the 4x4 stride-2 conv of dy with the
+    folded weights; two launches, one count: the fold
+    (``_bwd_dx_fold_cuda``), then the conv. Co % 64 == 32 is taken by zero
+    output channels appended to dy and the weight (no model's upsample has
+    it)."""
     global bwd_dx_launches
     bsz, h2, w2, ci = h_shape
     co = dy.shape[3]
     if ci % 64 or co % 32:
         raise ValueError(f"up-conv backward needs Ci % 64 == 0 and "
                          f"Co % 32 == 0, got Ci={ci}, Co={co}")
+    if (tuple(dy.shape) != (bsz, 2 * h2, 2 * w2, co)
+            or tuple(w_oihw.shape) != (co, ci, 3, 3)):
+        raise ValueError(f"dy {tuple(dy.shape)} and the weight "
+                         f"{tuple(w_oihw.shape)} do not match h "
+                         f"{tuple(h_shape)}")
+    if (dy.dtype != torch.bfloat16 or not dy.is_contiguous()
+            or dy.data_ptr() % 16 or w_oihw.device != dy.device):
+        raise ValueError("dy must be a contiguous, 16-byte aligned bf16 "
+                         "tensor on the weight's GPU")
+    if co % 64:
+        dy, w_oihw = F.pad(dy, (0, 32)), F.pad(w_oihw, (0, 0, 0, 0, 0, 0,
+                                                         0, 32))
+        co += 32
+    w4 = _bwd_dx_fold_cuda(w_oihw)
     dh = torch.empty(tuple(h_shape), dtype=torch.bfloat16, device=dy.device)
     err = _build.library("conv3x3_up_bwd").sdt_conv3x3_up_bwd_dx_bf16(
         dy.data_ptr(), w4.data_ptr(), dh.data_ptr(), bsz, h2, w2, ci, co,
@@ -234,39 +312,28 @@ def _conv3x3_up_bwd_dx_cuda(dy: torch.Tensor, w4: torch.Tensor,
     return dh
 
 
-_DW_FILL = 2 * 132      # blocks that fill the H100 twice over
-
-
-def dw_split(bsz: int, h2: int, w2: int, ci: int, co: int) -> tuple:
-    """(nsplit, chunk) of B3b-dw's pass 1: the B*H2*W2 half-resolution
-    positions cut into runs of ``chunk`` (a multiple of 32) so that
-    16 x tiles x nsplit blocks fill the card; 1 split where the tiles do."""
-    m = bsz * h2 * w2
-    blocks = 16 * (ci // 64) * (co // 64)
-    want = max(1, min(-(-m // 32), -(-_DW_FILL // blocks)))
-    chunk = -(-(-(-m // want)) // 32) * 32
-    return -(-m // chunk), chunk
-
-
 def _conv3x3_up_bwd_dw_cuda(dy: torch.Tensor, h: torch.Tensor):
-    """B3b-dw: (dW [Co, Ci, 3, 3], db [Co]) in f32; three kernels (the 16
-    parity partials, their fixed-order fold into the 9 taps, db), one
-    count."""
+    """B3b-dw: (dW [Co, Ci, 3, 3], db [Co]) in f32, one launch: the 16
+    parity products, their fixed-order fold into the 9 taps and db."""
     global bwd_dw_launches
     bsz, h2, w2, ci = h.shape
     co = dy.shape[3]
     if ci % 64 or co % 64:
         raise ValueError(f"up-conv backward needs Ci % 64 == 0 and "
                          f"Co % 64 == 0, got Ci={ci}, Co={co}")
-    nsplit, chunk = dw_split(bsz, h2, w2, ci, co)
-    part = torch.empty(nsplit * 16 * co * ci, dtype=torch.float32,
-                       device=dy.device)
+    if tuple(dy.shape) != (bsz, 2 * h2, 2 * w2, co):
+        raise ValueError(f"dy {tuple(dy.shape)} does not match h "
+                         f"{tuple(h.shape)}")
+    for t in (dy, h):
+        if (t.dtype != torch.bfloat16 or not t.is_contiguous()
+                or t.data_ptr() % 16 or t.device != dy.device):
+            raise ValueError("dy and h must be contiguous, 16-byte aligned "
+                             "bf16 tensors on one GPU")
     dw = torch.empty((co, ci, 3, 3), dtype=torch.float32, device=dy.device)
     db = torch.empty(co, dtype=torch.float32, device=dy.device)
     err = _build.library("conv3x3_up_bwd").sdt_conv3x3_up_bwd_dw_bf16(
-        dy.data_ptr(), h.data_ptr(), part.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), bsz, h2, w2, ci, co, nsplit, chunk,
-        _build.stream_ptr(dy.device))
+        dy.data_ptr(), h.data_ptr(), dw.data_ptr(), db.data_ptr(), bsz, h2,
+        w2, ci, co, _build.stream_ptr(dy.device))
     _build.check(err, "sdt_conv3x3_up_bwd_dw_bf16")
     bwd_dw_launches += 1
     return dw, db
@@ -296,8 +363,7 @@ class ConvUp(torch.autograd.Function):
         else:
             dy = _bf16_nhwc(dy)
             if need_h:
-                dh = _conv3x3_up_bwd_dx_cuda(dy, bwd_dx_weights(w.detach()),
-                                             h.shape)
+                dh = _conv3x3_up_bwd_dx_cuda(dy, w.detach(), h.shape)
             if need_w or need_b:
                 dw, db = _conv3x3_up_bwd_dw_cuda(dy, h)
                 dw, db = dw.to(w.dtype), db.to(w.dtype)

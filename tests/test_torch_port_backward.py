@@ -12,7 +12,9 @@ the CPU: B1 (``ops/attention.py::SelfAttention``), B5
 - numpy walks of B3b's two kernels (``csrc/conv3x3_up_bwd.cu``): dh as a
   4x4 stride-2 conv over dy with the folded weights, dW through the 16
   parity partials folded into the 9 taps, against the autograd of
-  ``conv3x3_up_ref``; a walk that drops one partial fails;
+  ``conv3x3_up_ref``; a walk that drops one partial fails (the kernels'
+  own tilings: ``test_torch_port_b3b_walk.py``); the folded weights,
+  made on the weight's device, keep the bits of the host table's fold;
 - every CUDA wrapper of a kernel without a backward raises under autograd
   (``ops/_grad.py::check_no_grad``), before anything else.
 """
@@ -293,14 +295,20 @@ def test_b3_backward_walks_match_autograd():
         assert np.abs(_walk_dw(dy, h, drop) - dw).max() > 1.0
 
 
-def test_dw_split_covers_every_position():
-    for shape in ((1, 32, 32, 640, 640), (1, 4, 4, 64, 64),
-                  (3, 7, 9, 128, 64)):
-        bsz, h2, w2, ci, co = shape
-        n, chunk = t_conv.dw_split(*shape)
-        m = bsz * h2 * w2
-        assert chunk % 32 == 0 and n * chunk >= m > (n - 1) * chunk
-    assert t_conv.dw_split(1, 32, 32, 640, 640) == (1, 1024)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_dx_weights_slice_sums_keep_the_einsums_bits(dtype):
+    """``bwd_dx_weights`` sums weight slices on the weight's device (no
+    fold table copied from the host, no wait for the stream) and gives,
+    bit for bit, the einsum over the host table ``_FOLD`` that it
+    replaces."""
+    rs = np.random.RandomState(9)
+    w = torch.from_numpy(rs.randn(48, 32, 3, 3).astype(np.float32)).to(dtype)
+    fold = torch.tensor(t_conv._FOLD, dtype=torch.float32)
+    want = torch.einsum("uy,vx,oiyx->uvio", fold, fold, w.float())
+    want = want.reshape(16, 32, 48).to(torch.bfloat16).contiguous()
+    got = t_conv.bwd_dx_weights(w)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 # ---------------------------------------------- no backward: raise first

@@ -1637,11 +1637,11 @@ def test_conv_up_backward_matches_plain(dev, b, h2, w2, ci, co):
     bias = torch.randn(co, device=dev, generator=_gen(3)).to(torch.bfloat16)
     dy = torch.randn(b, 2 * h2, 2 * w2, co, device=dev, generator=_gen(4)).to(
         torch.bfloat16)
-    dh = conv3x3._conv3x3_up_bwd_dx_cuda(dy, conv3x3.bwd_dx_weights(w),
-                                         hh.shape)
+    dh = conv3x3._conv3x3_up_bwd_dx_cuda(dy, w, hh.shape)
     dw, db = conv3x3._conv3x3_up_bwd_dw_cuda(dy, hh)
     dw2, db2 = conv3x3._conv3x3_up_bwd_dw_cuda(dy, hh)
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert torch.equal(dh, conv3x3._conv3x3_up_bwd_dx_cuda(dy, w, hh.shape))
     want = conv3x3.conv3x3_up_bwd_ref(hh.float(), w.float(), dy.float())
     assert _rel(dh, want[0]) <= chip_smoke.BWD_DX_RTOL
     assert _rel(dw, want[1]) <= chip_smoke.BWD_DW_RTOL
@@ -1657,6 +1657,59 @@ def test_conv_up_backward_matches_plain(dev, b, h2, w2, ci, co):
     counts = ops.backward_launch_counts()
     assert counts["conv3x3_up_bwd_dx"] == 1
     assert counts["conv3x3_up_bwd_dw"] == 1
+
+
+def test_conv_up_backward_makes_no_host_sync(dev):
+    """ConvUp's forward and backward (B3, the weight fold, B3b-dx and
+    B3b-dw) under ``torch.cuda.set_sync_debug_mode("error")``: nothing on
+    the path waits for the stream (the fold table is made on the card,
+    not copied from the host)."""
+    hh, w, bias = (torch.randn(shape, device=dev, generator=_gen(i)).to(
+        torch.bfloat16).requires_grad_() for i, shape in enumerate(
+        ((1, 32, 32, 640), (640, 640, 3, 3), (640,))))
+    dy = torch.randn(1, 64, 64, 640, device=dev, generator=_gen(5)).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = conv3x3.conv3x3_up(hh, w, bias)
+        y.backward(dy)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t.grad).all() for t in (hh, w, bias))
+
+
+def test_conv_up_backward_dx_pads_co_32(dev):
+    """B3b-dx at Co % 64 == 32 (zero channels appended to dy and W4) and
+    at Co % 128 == 64 for B3b-dw, against the plain backward."""
+    import chip_smoke
+    b, h2, w2, ci, co = 1, 6, 20, 64, 96
+    hh = torch.randn(b, h2, w2, ci, device=dev, generator=_gen(1)).to(
+        torch.bfloat16)
+    w = (torch.randn(co, ci, 3, 3, device=dev, generator=_gen(2))
+         / (9 * ci) ** 0.5).to(torch.bfloat16)
+    dy = torch.randn(b, 2 * h2, 2 * w2, co, device=dev, generator=_gen(4)).to(
+        torch.bfloat16)
+    dh = conv3x3._conv3x3_up_bwd_dx_cuda(dy, w, hh.shape)
+    want = conv3x3.conv3x3_up_bwd_ref(hh.float(), w.float(), dy.float())
+    assert _rel(dh, want[0]) <= chip_smoke.BWD_DX_RTOL
+    with pytest.raises(ValueError, match="Co % 64 == 0"):
+        conv3x3._conv3x3_up_bwd_dw_cuda(dy, hh)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("co,ci", [(640, 640), (96, 64), (40, 72)])
+def test_bwd_dx_fold_pass_matches_plain_bits(dev, dtype, co, ci):
+    """B3b-dx's fold pass against ``bwd_dx_weights`` (the same sums as
+    torch ops on the card), bit for bit, at channel counts that are not a
+    block's multiple."""
+    w = (torch.randn(co, ci, 3, 3, device=dev, generator=_gen(7))
+         / 8).to(dtype)
+    got = conv3x3._bwd_dx_fold_cuda(w)
+    want = conv3x3.bwd_dx_weights(w)
+    assert got.shape == (16, ci, co)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("name", [
