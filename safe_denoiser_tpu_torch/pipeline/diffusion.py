@@ -35,6 +35,7 @@ from ..device import resolve_device
 from ..models import (AutoencoderKL, CLIPTextModel, FreeUConfig,
                       UNet2DConditionModel)
 from ..schedulers import DDPMConfig, DDPMScheduler
+from ..utils import profiling
 from .safree import (f_beta, projection_and_orthogonal, projection_matrix,
                      safree_projection, svf_beta)
 from . import graph
@@ -233,8 +234,12 @@ class MeshModes:
     def _launch(self, program, bufs, timer=None) -> "PendingGeneration":
         """Run a prepared batch: through the CUDA graphs on ``cuda``,
         eagerly on the CPU (``graph.GraphSlot.run``); under a data mesh
-        each slot its rows (``graph.run_slots``)."""
-        timer = timer or _StageTimer(self.device)
+        each slot its rows (``graph.run_slots``). Without ``timer`` (the
+        AOT bundles) the batch gets its own, and with it its
+        ``sdt.dispatch`` span where none is open."""
+        if timer is None:
+            with _StageTimer(self.device) as timer:
+                return self._launch(program, bufs, timer)
         if self._data_mesh is None:
             latents, applied, image = self._graphs.run(program, bufs,
                                                        timer.mark)
@@ -486,25 +491,31 @@ class SafeDiffusionPipeline(MeshModes):
         if len(seeds) != b or len(guidance_scales) != b:
             raise ValueError("one seed and one guidance scale per prompt")
         with torch.no_grad():
-            per = [self._prepare_text(p, negative_prompt,
-                                      negative_prompt_space, sf, erase_spec,
-                                      safe_config, num_inference_steps)
-                   for p in prompts]
-            text = torch.cat([t for t, _, _, _ in per], dim=1)  # [br,B,L,D]
-            alt = use_alt = None
-            if sf.get("safree"):
-                alt = torch.cat([a for _, a, _, _ in per], dim=1)
-                use_alt = torch.stack([u for _, _, u, _ in per], dim=1)
-            mark("encode")
-            rep_cfg, refs = None, None
-            if repellency_processor is not None and erase_spec.repellency:
-                rep_cfg = dataclasses.replace(repellency_processor.config(),
-                                              use_beta_gate=use_beta_gate)
-                refs = repellency_processor.get_proj_ref()
-            return self._batch_inputs(
-                text, alt, use_alt, seeds, guidance_scales,
-                num_inference_steps, height, width, per[0][3], rep_cfg,
-                refs, erase_spec.window, freeu)
+            with profiling.span("sdt.dispatch.text"):
+                per = [self._prepare_text(p, negative_prompt,
+                                          negative_prompt_space, sf,
+                                          erase_spec, safe_config,
+                                          num_inference_steps)
+                       for p in prompts]
+                # [branches, B, L, D]
+                text = torch.cat([t for t, _, _, _ in per], dim=1)
+                alt = use_alt = None
+                if sf.get("safree"):
+                    alt = torch.cat([a for _, a, _, _ in per], dim=1)
+                    use_alt = torch.stack([u for _, _, u, _ in per], dim=1)
+                mark("encode")
+            with profiling.span("sdt.dispatch.inputs"):
+                rep_cfg, refs = None, None
+                if repellency_processor is not None and \
+                        erase_spec.repellency:
+                    rep_cfg = dataclasses.replace(
+                        repellency_processor.config(),
+                        use_beta_gate=use_beta_gate)
+                    refs = repellency_processor.get_proj_ref()
+                return self._batch_inputs(
+                    text, alt, use_alt, seeds, guidance_scales,
+                    num_inference_steps, height, width, per[0][3], rep_cfg,
+                    refs, erase_spec.window, freeu)
 
     def _batch_inputs(self, text, alt, use_alt, seeds, guidance_scales,
                       num_inference_steps: int, height: int, width: int,
@@ -580,10 +591,10 @@ class SafeDiffusionPipeline(MeshModes):
         returned handle waits and returns the images. Keywords: those of
         ``_prepare_batch`` (steps, size, repellency, erase spec, SAFREE,
         SLD, FreeU)."""
-        timer = _StageTimer(self.device)
-        program, bufs = self._prepare_batch(prompts, seeds, guidance_scales,
-                                            mark=timer.mark, **kwargs)
-        return self._launch(program, bufs, timer)
+        with _StageTimer(self.device) as timer:
+            program, bufs = self._prepare_batch(
+                prompts, seeds, guidance_scales, mark=timer.mark, **kwargs)
+            return self._launch(program, bufs, timer)
 
     def generate_batch(self, prompts: Sequence[str], seeds: Sequence[int],
                        guidance_scales: Sequence[float], **kwargs):
@@ -601,16 +612,34 @@ class SafeDiffusionPipeline(MeshModes):
 
 
 class _StageTimer:
-    """CUDA events between the stages of one batch (no synchronization
-    until read), all on the stream that was current when the batch began
-    (a data mesh's slots on other GPUs run on their own streams, which
-    these marks do not time); on the CPU the host clock after each
-    stage."""
+    """The stages of one batch, on both clocks. Device: CUDA events between
+    the stages (no synchronization until read), all on the stream that was
+    current when the batch began (a data mesh's slots on other GPUs run on
+    their own streams, which these marks do not time); on the CPU the host
+    clock after each stage. Host: inside ``with``, the batch's
+    ``sdt.dispatch`` span, opened here unless the caller (the batcher)
+    holds one open on this thread; ``root`` is its id, the parent of the
+    batch's ``sdt.fetch``. The stages' host spans close where the marks
+    are made."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.current_stream() if self.cuda else None
         self.marks: list[tuple[str, object]] = [("start", self._now())]
+        self.root: Optional[int] = None
+        self._own: Optional[profiling.span] = None
+
+    def __enter__(self) -> "_StageTimer":
+        root = profiling.enclosing("sdt.dispatch")
+        if root is None:
+            root = self._own = profiling.span("sdt.dispatch").__enter__()
+        self.root = root.id
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._own is not None:
+            self._own.__exit__(*exc)
+        return False
 
     def _now(self):
         if self.cuda:
@@ -646,16 +675,20 @@ class PendingGeneration:
         self.stage_ms: dict[str, float] | None = None
 
     def fetch(self, return_latents: bool = False):
-        if self._pipe.device.type == "cuda":
-            torch.cuda.synchronize(self._pipe.device)
-        self.stage_ms = self._timer.ms()
-        applied = self.applied.cpu().numpy()
-        logger = self._pipe.logger
-        if logger is not None:
-            for i in np.nonzero(applied.any(axis=-1))[0]:
-                logger.log("-" * 10 + f" Repellency applied at timestep "
-                           f"{self._timesteps[i]} " + "-" * 10)
-        if return_latents:
-            return self.latents
-        image = postprocess_image_host(self.image).permute(0, 2, 3, 1)
-        return [(img * 255).round().to(torch.uint8).numpy() for img in image]
+        with profiling.span("sdt.fetch", parent=self._timer.root):
+            with profiling.span("sdt.fetch.wait"):
+                if self._pipe.device.type == "cuda":
+                    torch.cuda.synchronize(self._pipe.device)
+            self.stage_ms = self._timer.ms()
+            applied = self.applied.cpu().numpy()
+            logger = self._pipe.logger
+            if logger is not None:
+                for i in np.nonzero(applied.any(axis=-1))[0]:
+                    logger.log("-" * 10 + f" Repellency applied at timestep "
+                               f"{self._timesteps[i]} " + "-" * 10)
+            if return_latents:
+                return self.latents
+            with profiling.span("sdt.fetch.host"):
+                image = postprocess_image_host(self.image)
+                return [(img * 255).round().to(torch.uint8).numpy()
+                        for img in image.permute(0, 2, 3, 1)]

@@ -38,6 +38,7 @@ from ..device import resolve_device
 from ..models import (AutoencoderKL, CLIPTextModel, MMDiT, T5Encoder)
 from ..schedulers.flow_match import (FlowMatchEulerScheduler,
                                      flow_match_config_from_checkpoint)
+from ..utils import profiling
 from .diffusion import (MeshModes, PendingGeneration, _StageTimer,
                         _merge_lora_in_place)
 from .safree import (NUDITY_NEGATIVE_PROMPT_SPACE, projection_matrix,
@@ -236,21 +237,22 @@ class SafeDiffusion3Pipeline(MeshModes):
         b = len(prompts)
         if len(seeds) != b or len(guidance_scales) != b:
             raise ValueError("one seed and one guidance scale per prompt")
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("sdt.dispatch.text"):
             embeds, pooled = self._prepare_batch_embeds(
                 prompts, negative_prompt, negative_prompt2, safree, sf_alpha)
-        mark("encode")
-        rep_cfg, refs = None, None
-        if repellency_processor is not None:
-            # the reference's fast SD3 module: channel-normalized x, no
-            # beta gate, and its default sigma 1.0 whatever the config
-            rep_cfg = dataclasses.replace(
-                repellency_processor.config(), sigma=1.0,
-                normalize_x=True, use_beta_gate=False)
-            refs = repellency_processor.get_proj_ref()
-        return self._batch_inputs(embeds, pooled, seeds, guidance_scales,
-                                  num_inference_steps, height, width,
-                                  rep_cfg, refs, window)
+            mark("encode")
+        with profiling.span("sdt.dispatch.inputs"):
+            rep_cfg, refs = None, None
+            if repellency_processor is not None:
+                # the reference's fast SD3 module: channel-normalized x, no
+                # beta gate, and its default sigma 1.0 whatever the config
+                rep_cfg = dataclasses.replace(
+                    repellency_processor.config(), sigma=1.0,
+                    normalize_x=True, use_beta_gate=False)
+                refs = repellency_processor.get_proj_ref()
+            return self._batch_inputs(embeds, pooled, seeds, guidance_scales,
+                                      num_inference_steps, height, width,
+                                      rep_cfg, refs, window)
 
     def _batch_inputs(self, embeds, pooled, seeds, guidance_scales,
                       num_inference_steps: int, height: int, width: int,
@@ -316,10 +318,10 @@ class SafeDiffusion3Pipeline(MeshModes):
         for a batch (CUDA runs them asynchronously; the loop and the decode
         from CUDA graphs, ``graph.py``); ``fetch()`` on the handle waits
         and returns the images. Keywords: those of ``_prepare_batch``."""
-        timer = _StageTimer(self.device)
-        program, bufs = self._prepare_batch(prompts, seeds, guidance_scales,
-                                            mark=timer.mark, **kwargs)
-        return self._launch(program, bufs, timer)
+        with _StageTimer(self.device) as timer:
+            program, bufs = self._prepare_batch(
+                prompts, seeds, guidance_scales, mark=timer.mark, **kwargs)
+            return self._launch(program, bufs, timer)
 
     def generate_batch(self, prompts: Sequence[str], seeds: Sequence[int],
                        guidance_scales: Sequence[float], **kwargs):

@@ -64,6 +64,7 @@ import torch
 
 from .. import ops
 from ..parallel.mesh import on_slot, split_rows
+from ..utils import profiling
 
 # the switches the kernel wrappers and modules read at each call
 ENV_SWITCHES = ("SDT_FLASH2_LAYOUT", "SDT_ATTN_REPACK", "SDT_FUSED_GN",
@@ -253,8 +254,9 @@ class GraphSlot:
         graphs of ``program`` (captured first when the key is new;
         ``mark("capture")`` after it), elsewhere (or where the program is
         not ``graphable``) eagerly on ``bufs``;
-        ``mark("loop")`` and ``mark("decode")`` after each stage. Runs
-        with the buffers' device current (``on_slot``)."""
+        ``mark("loop")`` and ``mark("decode")`` after each stage; the
+        capture and the replays each in a host span (``sdt.graph.*``).
+        Runs with the buffers' device current (``on_slot``)."""
         with torch.no_grad(), on_slot(bufs["latents"].device):
             if bufs["latents"].device.type != "cuda" or \
                     not program.graphable:
@@ -265,11 +267,14 @@ class GraphSlot:
                 return latents, applied, image
             key = (program.key, env_key(), _buffers_key(bufs))
             if self._captured is None or self._captured.key != key:
-                self.release()
-                self._captured = _Captured(key, program, bufs)
+                with profiling.span("sdt.graph.capture"):
+                    self.release()
+                    self._captured = _Captured(key, program, bufs)
                 mark("capture")
-            latents, applied = self._captured.replay_loop(bufs)
+            with profiling.span("sdt.graph.replay_loop"):
+                latents, applied = self._captured.replay_loop(bufs)
             mark("loop")
-            image = self._captured.replay_decode()
+            with profiling.span("sdt.graph.replay_decode"):
+                image = self._captured.replay_decode()
             mark("decode")
             return latents, applied, image

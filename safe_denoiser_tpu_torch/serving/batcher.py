@@ -1,11 +1,12 @@
 """Dynamic request batcher for serving the sampling pipelines.
 
-Counterpart of ``safe_denoiser_tpu/serving/batcher.py`` (a copy: standard
-library only). The reference is a one-prompt-at-a-time research loop; a
-deployment wants concurrent requests grouped onto the GPU. The pipelines
-capture one CUDA graph per static batch size (``pipeline/graph.py``), so
-the batcher runs a FIXED batch B and pads short groups by replicating the
-final request (per-sample seeds and guidance scales are graph inputs --
+Counterpart of ``safe_denoiser_tpu/serving/batcher.py`` (a copy, on the
+standard library and the port's span recorder). The reference is a
+one-prompt-at-a-time research loop; a deployment wants concurrent requests
+grouped onto the GPU. The pipelines capture one CUDA graph per static
+batch size (``pipeline/graph.py``), so the batcher runs a FIXED batch B
+and pads short groups by replicating the final request (per-sample seeds
+and guidance scales are graph inputs --
 ``SafeDiffusionPipeline.generate_batch`` -- so padding never recaptures;
 pad-slot outputs are dropped). A partial group launches after
 ``max_delay_s`` so a lone request is never stuck waiting for neighbors.
@@ -13,6 +14,13 @@ pad-slot outputs are dropped). A partial group launches after
 One worker thread owns the device and makes every dispatch; callers get
 ``concurrent.futures.Future``s. Errors in a batch propagate to exactly the
 futures of that batch; the worker keeps serving.
+
+Spans (``utils.profiling``): the worker's ``sdt.batcher.wait`` (idle for
+want of a request), ``sdt.batcher.fill`` (a group forming),
+``sdt.dispatch`` (the batch's root, which the pipeline's ``dispatch_batch``
+joins), ``sdt.batcher.join`` (waiting for the previous finisher), and one
+``sdt.request`` a request, from its submit to the start of its batch's
+dispatch, under that dispatch.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import threading
 import time
 from concurrent.futures import Future
 from typing import Any, Callable, List, Optional, Sequence
+
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +91,8 @@ class DynamicBatcher:
             if self._closed.is_set():
                 raise RuntimeError("batcher is closed")
             fut: Future = Future()
-            self._q.put((request, fut), timeout=timeout)
+            self._q.put((request, fut, time.perf_counter_ns()),
+                        timeout=timeout)
         return fut
 
     def close(self, drain: bool = True) -> None:
@@ -100,7 +111,7 @@ class DynamicBatcher:
                 break
             if item is None:
                 continue
-            req, fut = item
+            req, fut, _ = item
             if not drain:
                 fut.set_exception(RuntimeError("batcher closed"))
                 continue
@@ -113,24 +124,35 @@ class DynamicBatcher:
     # -- worker side ---------------------------------------------------------
     def _take_group(self):
         """Collect up to batch_size items; first item starts the deadline."""
-        item = self._q.get()
+        with profiling.span("sdt.batcher.wait"):
+            item = self._q.get()
         if item is None:
             return None
         group = [item]
-        t_end = time.monotonic() + self.max_delay_s
-        while len(group) < self.batch_size:
-            remaining = t_end - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                nxt = self._q.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if nxt is None:
-                self._q.put(None)    # re-post the sentinel for the outer loop
-                break
-            group.append(nxt)
+        with profiling.span("sdt.batcher.fill"):
+            t_end = time.monotonic() + self.max_delay_s
+            while len(group) < self.batch_size:
+                remaining = t_end - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._q.put(None)    # re-post the sentinel for the loop
+                    break
+                group.append(nxt)
         return group
+
+    @staticmethod
+    def _dispatch(fn, padded, submitted):
+        """``fn(padded)`` inside the batch's ``sdt.dispatch`` span, each
+        request's ``sdt.request`` (its submit to this start) under it."""
+        with profiling.span("sdt.dispatch") as root:
+            for t in submitted:
+                profiling.record("sdt.request", t, root.start_ns, root.id)
+            return fn(padded)
 
     def _resolve(self, futs, results_or_exc) -> None:
         # a client may have cancelled its Future (e.g. an HTTP handler
@@ -180,24 +202,27 @@ class DynamicBatcher:
                 if finisher is not None:
                     finisher.join()
                 break
-            reqs = [r for r, _ in group]
-            futs = [f for _, f in group]
+            reqs = [r for r, _, _ in group]
+            futs = [f for _, f, _ in group]
+            submitted = [t for _, _, t in group]
             padded = reqs + [reqs[-1]] * (self.batch_size - len(reqs))
             if self._dispatch_batch is not None:
                 try:
-                    handle = self._dispatch_batch(padded)
+                    handle = self._dispatch(self._dispatch_batch, padded,
+                                            submitted)
                 except Exception as e:  # noqa: BLE001
                     self._resolve(futs, e)
                     continue
-                if finisher is not None:
-                    finisher.join()
+                with profiling.span("sdt.batcher.join"):
+                    if finisher is not None:
+                        finisher.join()
                 finisher = threading.Thread(
                     target=self._finish, args=((futs, handle),),
                     daemon=True, name="sdt-batcher-finish")
                 finisher.start()
                 continue
             try:
-                results = self._run_batch(padded)
+                results = self._dispatch(self._run_batch, padded, submitted)
                 if len(results) != self.batch_size:
                     raise RuntimeError(
                         f"run_batch returned {len(results)} results for "

@@ -26,7 +26,6 @@ from safe_denoiser_tpu.evals import nudenet_classifier as j_cls
 from safe_denoiser_tpu.tools import data_prep as j_prep
 from safe_denoiser_tpu.tools import logs as j_logs
 from safe_denoiser_tpu.utils import images as j_images
-from safe_denoiser_tpu.utils import profiling as j_prof
 from safe_denoiser_tpu_torch.data.images import read_png, write_png
 from safe_denoiser_tpu_torch.evals import nudenet_classifier as t_cls
 from safe_denoiser_tpu_torch.evals import nudenet_detector as t_det
@@ -135,27 +134,24 @@ def test_stacks_match_jax():
 
 
 # -------------------------------------------------------------- profiling
-def test_step_timer_summary_and_sync_on_cpu_tensors():
-    times = [0.3, 0.1, 0.2, 0.5]
-    got, want = t_prof.StepTimer(), j_prof.StepTimer(sync=False)
-    got.times, want.times = list(times), list(times)
-    assert got.summary() == want.summary() and got.mean == want.mean
-    assert t_prof.StepTimer().summary() == j_prof.StepTimer().summary()
-    timer = t_prof.StepTimer(sync=True)
-    result = {"x": torch.ones(3), "y": [torch.zeros(2), 1.0]}
-    timer.start()
-    dt = timer.stop(result)          # CPU tensors: nothing to synchronize
-    assert dt >= 0 and timer.times == [dt]
-    assert t_prof.block_until_ready(result) is result
-    assert set(timer.summary()) == {"n", "mean_s", "min_s", "max_s", "p50_s"}
-
-
 def test_trace_writes_a_chrome_trace_with_the_annotated_region(tmp_path):
+    """``annotate`` is the recorder's span: it lands in ``trace.json`` on
+    this thread's track, on the profiler's clock (the profiler's own
+    ``aten::mm`` inside it within 1 ms)."""
+    import threading
+
     with t_prof.trace(str(tmp_path / "tr")):
         with t_prof.annotate("tail-region"):
             torch.ones(8, 8) @ torch.ones(8, 8)
-    text = (tmp_path / "tr" / t_prof.TRACE_FILE).read_text()
-    assert "tail-region" in text and json.loads(text)["traceEvents"]
+    events = json.loads((tmp_path / "tr" / t_prof.TRACE_FILE).read_text()
+                        )["traceEvents"]
+    region = [e for e in events if e.get("name") == "tail-region"]
+    assert len(region) == 1 and region[0]["cat"] == "sdt"
+    assert region[0]["tid"] == threading.get_native_id()
+    a, b = region[0]["ts"], region[0]["ts"] + region[0]["dur"]
+    mm = [e for e in events if e.get("name") == "aten::mm"]
+    assert mm and all(a - 1e3 <= e["ts"] and e["ts"] + e["dur"] <= b + 1e3
+                      for e in mm)
 
 
 # ------------------------------------------------------------- classifier
