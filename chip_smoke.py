@@ -1421,6 +1421,113 @@ def dx_sweep(shape, dy, w4, hh) -> None:
               + f" (clusters held at once: {held})")
 
 
+# adaln's phase-3 shapes: SD3-medium's image and context rows under CFG
+# (B = 2); the MMDiT's 143 sites a transformer call split by mode: norm 49
+# (norm1, norm1_context a block, norm_out), residual + norm 47 and residual
+# 47 (_finish's, 23 blocks with context and the last without)
+ADALN_SHAPES = ((2, 4096, 1536), (2, 333, 1536))
+ADALN_MODES = ("norm", "residual+norm", "residual")
+
+
+def phase_adaln() -> dict:
+    """adaln (the MMDiT's gated residual + LayerNorm + modulation, one pass
+    over a row) in each mode at ADALN_SHAPES against adaln_ref on the same
+    bf16 values, with the device times of the kernel, of the simplest
+    library form (the "library" column: ``F.layer_norm``, f32 statistics
+    rounded once, and ``torch.addcmul`` for the residual and the
+    modulation) and of the eager composition the MMDiT ran before the
+    kernel (an f32 LayerNorm, then the modulation in bf16), the byte bound
+    (x and delta read, x' and h written, the modulations once) and the
+    wrapper-paced times of the kernel, the library form and adaln_ref."""
+    import torch.nn.functional as F
+
+    from safe_denoiser_tpu_torch.ops import adaln
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+
+    def library(x, scale=None, shift=None, gate=None, delta=None):
+        if delta is not None:
+            x = torch.addcmul(x, gate[:, None], delta)
+            if scale is None:
+                return x
+        h = torch.addcmul(shift[:, None],
+                          F.layer_norm(x, x.shape[-1:], eps=adaln.EPS),
+                          1 + scale[:, None])
+        return h if delta is None else (x, h)
+
+    def composition(x, scale=None, shift=None, gate=None, delta=None):
+        if delta is not None:
+            x = x + gate[:, None] * delta
+            if scale is None:
+                return x
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+        ln = ((xf - mean) * torch.rsqrt(var + adaln.EPS)).to(x.dtype)
+        h = ln * (1 + scale[:, None]) + shift[:, None]
+        return h if delta is None else (x, h)
+
+    res = None
+    for b, s, d in ADALN_SHAPES:
+        x = (torch.randn(b, s, d, device=dev, generator=g) * 2 + 0.5
+             ).bfloat16()
+        delta = torch.randn(b, s, d, device=dev, generator=g).bfloat16()
+        mod = (torch.randn(b, 6 * d, device=dev, generator=g) * 0.5
+               ).bfloat16()
+        shift, scale, gate = mod.chunk(6, -1)[:3]
+        for mode in ADALN_MODES:
+            kw = {"norm": dict(scale=scale, shift=shift),
+                  "residual+norm": dict(scale=scale, shift=shift, gate=gate,
+                                        delta=delta),
+                  "residual": dict(gate=gate, delta=delta)}[mode]
+
+            def kernel():
+                return adaln.adaln(x, **kw)
+
+            def plain_fn():
+                return adaln.adaln_ref(x, **kw)
+
+            def lib_fn():
+                return library(x, **kw)
+
+            def eager():
+                return composition(x, **kw)
+
+            def outs(r):
+                return r if isinstance(r, tuple) else (r,)
+
+            got, want, lib = outs(kernel()), outs(plain_fn()), outs(lib_fn())
+            torch.cuda.synchronize()
+            if mode != "norm" and not torch.equal(got[0], want[0]):
+                fail(f"adaln {mode} [{b},{s},{d}]: x' differs from "
+                     f"adaln_ref's")
+            err = (got[-1].float() - want[-1].float()).abs().max().item()
+            lib_err = (lib[-1].float() - want[-1].float()).abs().max().item()
+            # one bf16 ulp of max|h| (sums in another order, rsqrtf)
+            tol = 2.0 ** (math.floor(math.log2(
+                want[-1].float().abs().max().item())) - 7)
+            # [b, s, d] streams and [b, d] modulations read or written
+            streams, vecs = {"norm": (2, 2), "residual+norm": (4, 3),
+                             "residual": (3, 1)}[mode]
+            bnd = bound_ms((streams * b * s + vecs * b) * d * 2, 0,
+                           PEAK_BF16)
+            dtm = (device_ms(kernel), device_ms(lib_fn))
+            ms, plain = cuda_ms(kernel), cuda_ms(plain_fn)
+            _report("adaln", [b, s, d, mode], err, tol, ms, plain,
+                    cuda_ms(lib_fn), bnd,
+                    "library: F.layer_norm + torch.addcmul", dtm)
+            print(f"kernel adaln {[b, s, d, mode]}: library max|d| against "
+                  f"adaln_ref={lib_err:.3e}; eager composition "
+                  f"device_ms={device_ms(eager):.4f}; kernel / library "
+                  f"device time={dtm[0] / dtm[1]:.3f}")
+            if res is None:
+                res = dict(err=err, ms=ms, plain=plain, lib=None, bound=bnd,
+                           dev=(dtm[0], None))
+            res["err"] = max(res["err"], err)
+    return {"adaln": res}
+
+
 def phase_backward_kernels() -> dict:
     """Each backward kernel against its plain backward on the same inputs
     (the plain one in f32) at the training slice's shapes, with its device
@@ -2021,6 +2128,8 @@ KERNEL_META = {
     "conv3x3_up_bwd_dw": ("cuda",
                           "safe_denoiser_tpu_torch/csrc/conv3x3_up_bwd.cu",
                           "safe_denoiser_tpu/ops/conv3x3.py:282"),
+    # the port's own: no TPU kernel (XLA fuses what it computes)
+    "adaln": ("cuda", "safe_denoiser_tpu_torch/csrc/adaln.cu", None),
 }
 
 
@@ -3668,15 +3777,23 @@ def sd3_expected_launches(pipe, steps: int, window, layers: int,
     """One SD3 image's launches, from the JAX package's gates: the joint
     attention once per block and step through the layout's kernels (bhsd:
     B8 under SDT_INT8_ATTN=1, else B1; nt never int8); B2 once per step
-    whose timestep lies in the window (the flow-match table); B3/B4/B5 as
-    the VAE decode's routing gives them."""
+    whose timestep lies in the window (the flow-match table); adaln 6L - 1
+    times a step; B3/B4/B5 as the VAE decode's routing gives them."""
     ts, _ = pipe.scheduler.timesteps_and_sigmas(steps)
     side = SD3_SIDE // pipe.vae_scale_factor
     dec = vae_kernel_plan(pipe.vae.config, 1, side, side)[0]
     return {**attention_launches(layout, layers * steps, int8_attention),
             "rbf": sum(bool(window.mask(i, float(t)))
                        for i, t in enumerate(ts)),
-            **dec}
+            **adaln_launches(layers, steps), **dec}
+
+
+def adaln_launches(layers: int, calls: int) -> dict:
+    """adaln's launches in ``calls`` MMDiT forwards of ``layers`` blocks: 6
+    a block (norm1, norm1_context, the two residual + norms and the two
+    trailing residuals), 4 in the last (context_pre_only), 1 for
+    norm_out."""
+    return {"adaln": (6 * layers - 1) * calls}
 
 
 def _check_images(images, side: int, what: str) -> None:
@@ -4278,6 +4395,7 @@ def phase_serve_sd3(tmp: str, ckpt: str, task: str) -> dict:
         "bhsd", n * SD3_RUNNER_LAYERS["mmdit"] * SD3_STEPS),
         "rbf": n * sum(bool(window.mask(i, float(t)))
                        for i, t in enumerate(ts)),
+        **adaln_launches(SD3_RUNNER_LAYERS["mmdit"], n * SD3_STEPS),
         **{k: n * v for k, v in vae_kernel_plan(
             vcfg, SD3_SERVE_REQUESTS, side, side)[0].items()}}
     check_launches(res["counts"], want, "serve sd3")
@@ -4762,8 +4880,10 @@ def phase_sd3_flow_lora(ckpt: str) -> dict:
           f"{len(lora) - len(still)} adapters moved, still: {still} (the "
           "last block's text stream ends at its attention, so its text "
           "queries get no gradient)")
+    # adaln in the forwards (AdaLN's backward is plain PyTorch)
     check_launches(counts, {"attention": FLOW_STEPS * cfg.num_layers,
-                            "attention_bwd": FLOW_STEPS * cfg.num_layers},
+                            "attention_bwd": FLOW_STEPS * cfg.num_layers,
+                            **adaln_launches(cfg.num_layers, FLOW_STEPS)},
                    "sd3 flow lora")
     last = f"blocks_{cfg.num_layers - 1}/attn_add_q/"
     if not (all(math.isfinite(x) for x in losses)
@@ -5012,8 +5132,15 @@ def phase_parallel_sd3(devices=None) -> dict:
         print(f"{name}: {PAR_SD3_STEPS} steps in "
               f"{time.perf_counter() - t0:.3f} s, applied "
               f"{applied.any(1).tolist()}, launches "
-              f"B1 {counts[name]['attention']} B2 {counts[name]['rbf']}")
+              f"B1 {counts[name]['attention']} B2 {counts[name]['rbf']} "
+              f"adaln {counts[name]['adaln']}")
         return lat
+
+    def check_adaln(name, sites_a_step):
+        want = sites_a_step * (PAR_SD3_STEPS if name != "sd3-tp" else 1)
+        if counts[name]["adaln"] != want:
+            fail(f"{name}: adaln launched {counts[name]['adaln']} times, "
+                 f"expected {want}")
 
     with torch.no_grad():          # warm-up: cuBLAS, B1's first load
         sample_sd3(tf, sched, ctx, pooled, lat0, lambda i, salt: noise[i],
@@ -5023,6 +5150,8 @@ def phase_parallel_sd3(devices=None) -> dict:
     steps_b1 = PAR_SD3_LAYERS * PAR_SD3_STEPS
     if counts["sd3-unsharded"]["attention"] != steps_b1:
         fail("sd3-unsharded: B1 did not run once per block and step")
+    sites = 6 * PAR_SD3_LAYERS - 1      # adaln a forward
+    check_adaln("sd3-unsharded", sites)
     tf.sp_mesh = make_mesh(devices=devices[:2], axis="seq")
     try:
         got = run("sd3-sp")
@@ -5031,6 +5160,8 @@ def phase_parallel_sd3(devices=None) -> dict:
     if counts["sd3-sp"]["attention"] != 0:
         fail("sd3-sp: the split attention must take the plain form, as "
              "JAX's does")
+    # every block's sites on each of the 2 slots' slices, norm_out once
+    check_adaln("sd3-sp", 2 * (sites - 1) + 1)
     _check_rel("sd3-sp vs unsharded", got, want)
     pp_mesh = make_mesh(devices=devices[:4], axis="pipe")
     tf.pp_mesh = pp_mesh
@@ -5045,6 +5176,7 @@ def phase_parallel_sd3(devices=None) -> dict:
     if counts["sd3-pp"]["attention"] != want_b1:
         fail(f"sd3-pp: B1 launched {counts['sd3-pp']['attention']} times, "
              f"expected {want_b1}")
+    check_adaln("sd3-pp", 6 * 8 * 2 + 4 + 1)
     _check_rel("sd3-pp vs unsharded", got, want)
     # the random bank's weights underflow to 0 (the score is 0 sharded or
     # not): 4 of its 16 rows become the run's own channel-normalized x0 at
@@ -5069,6 +5201,7 @@ def phase_parallel_sd3(devices=None) -> dict:
               rep_bank=ShardedBank(bank_mesh))
     if counts["sd3-bank-shard"]["rbf"] != 4 * in_window:
         fail("sd3-bank-shard: B2 did not run once per shard and step")
+    check_adaln("sd3-bank-shard", sites)
     _check_rel("sd3-bank-shard vs replicated", got, want_own)
     # one forward over 2 model slots
     x = torch.cat([lat0, lat0])
@@ -5088,6 +5221,7 @@ def phase_parallel_sd3(devices=None) -> dict:
           f"{counts['sd3-tp']['attention']} launches at [2,4429,12,64]")
     if counts["sd3-tp"]["attention"] != 2 * PAR_SD3_LAYERS:
         fail("sd3-tp: B1 did not run once per block and slot")
+    check_adaln("sd3-tp", sites)
     _check_rel("sd3-tp vs unsharded", got_v, want_v)
     del tf
     torch.cuda.empty_cache()
@@ -5652,6 +5786,7 @@ def main() -> None:
     phase_build()
     results = phase_kernels()
     results.update(phase_backward_kernels())
+    results.update(phase_adaln())
     if args.parent:
         phase_parent(args.parent)
     counts, pipe, kw = phase_main_path()

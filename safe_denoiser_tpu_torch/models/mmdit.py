@@ -9,6 +9,12 @@ context_pre_only), AdaLN-continuous head, unpatchify. NCHW at the
 boundary; computes in the dtype of its parameters with f32 norm
 statistics and returns f32.
 
+Both streams are carried token-major, as contiguous [B, S, D] rows, so each
+projection takes its input as it is (no copy, the bias in the GEMM). Each
+modulated LayerNorm (f32 statistics, no affine, eps 1e-6) and gated
+residual goes to ``ops.adaln``: one launch of its kernel on CUDA, its plain
+version on the CPU, differentiable under autograd.
+
 The joint attention goes through ``layers.dot_product_attention``, so its
 [2, 4429, 24, 64] call at 1024^2 with CFG reaches the attention kernel
 (or, with ``SDT_INT8_ATTN=1`` under bf16, its int8-QK^T form). The block
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import adaln
 from .layers import QDense, dot_product_attention, timestep_embedding
 from .t5 import RMSNormFp32
 
@@ -51,14 +58,6 @@ class MMDiTConfig:
 
 
 SD3_MEDIUM = MMDiTConfig()
-
-
-def layer_norm_fp32(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm without affine: f32 statistics, cast back to x's dtype."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def pos_embed_2d(embed_dim: int, grid_size: int, base_size: int,
@@ -94,8 +93,8 @@ class AdaLayerNormZero(nn.Module):
     def forward(self, x, emb):
         mod = self.linear(F.silu(emb))
         shift, scale, gate, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, -1)
-        h = layer_norm_fp32(x) * (1 + scale[:, None]) + shift[:, None]
-        return h, gate, shift_mlp, scale_mlp, gate_mlp
+        return adaln.adaln(x, scale, shift), gate, shift_mlp, scale_mlp, \
+            gate_mlp
 
 
 class AdaLayerNormContinuous(nn.Module):
@@ -105,7 +104,7 @@ class AdaLayerNormContinuous(nn.Module):
 
     def forward(self, x, emb):
         scale, shift = self.linear(F.silu(emb)).chunk(2, -1)
-        return layer_norm_fp32(x) * (1 + scale[:, None]) + shift[:, None]
+        return adaln.adaln(x, scale, shift)
 
 
 class FeedForward(nn.Module):
@@ -206,17 +205,15 @@ class JointBlock(nn.Module):
     def _finish(self, x, context, x_att, c_att, x_mod, c_mod):
         """The residuals and MLPs after the projected attention outputs."""
         x_gate, x_shift_mlp, x_scale_mlp, x_gate_mlp = x_mod
-        x = x + x_gate[:, None] * x_att
-        xh = layer_norm_fp32(x) * (1 + x_scale_mlp[:, None]) \
-            + x_shift_mlp[:, None]
-        x = x + x_gate_mlp[:, None] * self.ff(xh)
+        x, xh = adaln.adaln(x, x_scale_mlp, x_shift_mlp, x_gate, x_att)
+        x = adaln.adaln(x, gate=x_gate_mlp, delta=self.ff(xh))
         if self.context_pre_only:
             return x, None
         c_gate, c_shift_mlp, c_scale_mlp, c_gate_mlp = c_mod
-        context = context + c_gate[:, None] * c_att
-        ch = layer_norm_fp32(context) * (1 + c_scale_mlp[:, None]) \
-            + c_shift_mlp[:, None]
-        return x, context + c_gate_mlp[:, None] * self.ff_context(ch)
+        context, ch = adaln.adaln(context, c_scale_mlp, c_shift_mlp, c_gate,
+                                  c_att)
+        return x, adaln.adaln(context, gate=c_gate_mlp,
+                              delta=self.ff_context(ch))
 
     def forward(self, x, context, emb):
         xh, ch, x_mod, c_mod = self._modulate(x, context, emb)
@@ -372,7 +369,9 @@ class MMDiT(nn.Module):
         gh, gw = h // p, w // p
 
         x = self.pos_embed.proj(sample.to(dtype))               # [B,D,gh,gw]
-        x = x.flatten(2).transpose(1, 2)                        # [B,gh*gw,D]
+        # token-major rows: an elementwise op keeps its first operand's
+        # layout, so a transposed view would stay transposed in every block
+        x = x.flatten(2).transpose(1, 2).contiguous()           # [B,gh*gw,D]
         x = x + self._pos(gh, gw, dim, x.device)[None].to(dtype)
 
         t = torch.as_tensor(timesteps, device=sample.device)

@@ -15,6 +15,14 @@
 | gn_stats              | ops/group_norm.py  | Triton | ops/group_norm.py::_gn_stats_kernel    |
 | gn_fused              | ops/group_norm.py  | CUDA   | ops/group_norm.py::_gn_kernel          |
 
+The port's own forward kernels, with no Pallas counterpart (the JAX
+package leaves what they compute to XLA's fusion):
+
+| kernel                | module             | route  | computes                               |
+| --------------------- | ------------------ | ------ | -------------------------------------- |
+| adaln                 | ops/adaln.py       | CUDA   | the MMDiT's gated residual + LayerNorm |
+|                       |                    |        | + modulation, one pass over a row      |
+
 The backward kernels, the port's own (the JAX package's kernels have no
 VJP; each computes the gradient of its forward's function):
 
@@ -37,7 +45,7 @@ capture recorded at every replay, so a batch counts what it launched.
 
 from __future__ import annotations
 
-from . import attention, conv3x3, group_norm, repellency_kernels
+from . import adaln, attention, conv3x3, group_norm, repellency_kernels
 
 # kernel name -> (module, name of its launch counter there)
 COUNTERS = {
@@ -53,6 +61,7 @@ COUNTERS = {
     "conv3x3": (conv3x3, "fused_launches"),
     "gn_stats": (group_norm, "launches"),
     "gn_fused": (group_norm, "fused_launches"),
+    "adaln": (adaln, "launches"),
 }
 # the backward kernels' counters, apart: sampling and serving never launch
 # them (``backward_launch_counts``)

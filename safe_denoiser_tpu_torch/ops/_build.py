@@ -29,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("attention", "attention_i8", "rbf", "conv3x3_up", "conv3x3",
            "attention_nt", "attention_bshd", "repack_heads",
            "conv3x3_up_interleave", "group_norm", "attention_bwd",
-           "conv3x3_up_bwd")
+           "conv3x3_up_bwd", "adaln")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -80,6 +80,8 @@ SIGNATURES = {
         "sdt_conv3x3_up_bwd_dx_tiled": [_P] * 3 + [_I] * 7 + [_P],
         "sdt_conv3x3_up_bwd_dx_clusters": [_I] * 2,
         "sdt_conv3x3_up_bwd_dw_bf16": [_P] * 4 + [_I] * 5 + [_P]},
+    "adaln": {"sdt_adaln": [_P, _L, _L] * 2 + [_P, _L] * 3 + [_P] * 2
+              + [_I] * 5 + [_F, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

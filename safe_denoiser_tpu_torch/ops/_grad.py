@@ -5,7 +5,8 @@ output has no ``grad_fn``: called under autograd, it would cut the graph
 and every gradient through it would silently be missing. Three kernels
 have a backward of their own, each an ``torch.autograd.Function`` beside
 its forward (B1 ``ops/attention.py``, B5 ``ops/group_norm.py``, B3
-``ops/conv3x3.py``); every other CUDA wrapper first calls
+``ops/conv3x3.py``), and ``adaln``'s Function (``ops/adaln.py``)
+differentiates its plain version; every other CUDA wrapper first calls
 ``check_no_grad`` and raises instead.
 """
 

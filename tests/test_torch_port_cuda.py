@@ -6,8 +6,10 @@ bshd, the head repacks) and their switches, small and odd banks, odd
 image sizes, channel counts that are not a tile's, the fused GroupNorm at
 group widths that are not powers of two, in its one-read and re-read
 forms and with narrow vectors, the cluster kernels' plans and their
-determinism, the interleaved upsample conv against the planar one; and
-the host modules around the kernels on the GPU against the CPU: the
+determinism, the interleaved upsample conv against the planar one, the
+MMDiT's one-pass norm and residual kernel (adaln) at SD3-medium's rows,
+other widths and a slot's slice, under a CUDA graph, and in the MMDiT;
+and the host modules around the kernels on the GPU against the CPU: the
 repellency processors (the sparse force, LSH's bucket gather), the Q16
 gate's vision tower, and the evaluators' towers (FID Inception, OpenCLIP,
 the in-loop CLIPScore) in f32 with PyTorch's TF32 switches on; and the
@@ -28,7 +30,7 @@ import torch
 
 from safe_denoiser_tpu_torch import ops
 from safe_denoiser_tpu_torch.ops import (
-    attention, conv3x3, group_norm, repellency_kernels)
+    adaln, attention, conv3x3, group_norm, repellency_kernels)
 
 pytestmark = pytest.mark.cuda
 
@@ -1210,6 +1212,8 @@ def test_each_wrapper_call_counts_one_launch(dev):
     attention.attention_bshd(x, x, x, 0.1)
     attention.repack_from_heads(attention.repack_to_heads(
         x.reshape(1, 512, 80), 2))
+    row = torch.randn(2, 256, device=dev).bfloat16()
+    adaln.adaln(torch.randn(2, 16, 256, device=dev).bfloat16(), row, row)
     torch.cuda.synchronize()
     assert set(ops.launch_counts().values()) == {1}
 
@@ -1800,6 +1804,238 @@ def test_tiny_f32_training_step_on_gpu_matches_the_cpu(dev):
         assert _rel(out["cuda"][1][n], g_) <= 2e-3, n
     for n, p in out["cpu"][2].items():
         assert (out["cuda"][2][n] - p).abs().max() <= 2e-3, n
+
+
+# ------------------------------------------------------------------ adaln
+ADALN_MODES = ("norm", "residual+norm", "residual")
+
+
+def _adaln_inputs(b, s, d, dtype, seed, mode):
+    """x ~ N(0.5, 2^2) and delta [b, s, d], and the keywords of ``mode``
+    from the chunks of a [b, 6d] modulation row (batch stride 6d, as the
+    MMDiT's ``mod.chunk(6, -1)``)."""
+    gen = _gen(seed)
+    x = (torch.randn(b, s, d, device="cuda", generator=gen) * 2 + 0.5
+         ).to(dtype)
+    delta = torch.randn(b, s, d, device="cuda", generator=gen).to(dtype)
+    mod = (torch.randn(b, 6 * d, device="cuda", generator=gen) * 0.5
+           ).to(dtype)
+    shift, scale, gate = mod.chunk(6, -1)[:3]
+    kw = {"norm": dict(scale=scale, shift=shift),
+          "residual+norm": dict(scale=scale, shift=shift, gate=gate,
+                                delta=delta),
+          "residual": dict(gate=gate, delta=delta)}[mode]
+    return x, kw
+
+
+def _adaln_check(got, want, mode):
+    """x' equal bit for bit (the same f32 product and sum, rounded once);
+    h within one ulp of its own magnitude (the row's sums in another
+    order, rsqrtf: the same f32 value to a few ulps may round to the
+    neighbouring value), and 2^-20 of max|h| where a shift that cancels
+    the product leaves h far smaller than the terms whose f32 ulps it
+    carries."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want) == (2 if mode == "residual+norm" else 1)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.is_contiguous()
+    if mode != "norm":
+        assert torch.equal(got[0], want[0])
+    if mode != "residual":
+        g, w = got[-1].double(), want[-1].double()
+        bits = {torch.bfloat16: 7, torch.float16: 10,
+                torch.float32: 23}[got[-1].dtype]
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -14))) - bits)
+        tol = ulp + 2.0 ** -20 * w.abs().max()
+        assert ((g - w).abs() <= tol).all(), (g - w).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("mode", ADALN_MODES)
+@pytest.mark.parametrize("s", [4096, 333])
+def test_adaln_kernel_matches_plain(dev, s, mode, dtype):
+    """SD3-medium's rows: the image stream [2, 4096, 1536] and the context
+    [2, 333, 1536] (CFG's batch of 2), each mode, against adaln_ref."""
+    x, kw = _adaln_inputs(2, s, 1536, dtype, 31, mode)
+    ops.reset_launch_counts()
+    got = adaln.adaln(x, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["adaln"] == 1
+    _adaln_check(got, adaln.adaln_ref(x, **kw), mode)
+
+
+@pytest.mark.parametrize("d", [8, 520, 2432, 3072])
+@pytest.mark.parametrize("mode", ADALN_MODES)
+def test_adaln_kernel_at_other_widths(dev, d, mode):
+    """Widths whose vectors do not fill a lane's (520: 65 vectors), SD3.5-
+    large's 2432 and the widest the kernel takes; 7 rows, which leave a
+    block's last warps idle."""
+    x, kw = _adaln_inputs(1, 7, d, torch.bfloat16, 32, mode)
+    _adaln_check(adaln.adaln(x, **kw), adaln.adaln_ref(x, **kw), mode)
+
+
+def test_adaln_kernel_on_a_slot_slice(dev):
+    """A sequence-parallel slot's token slice of the stream and of delta
+    (strided rows), with the modulations of a [B, 2D] row."""
+    x, kw = _adaln_inputs(2, 600, 1536, torch.bfloat16, 33,
+                          "residual+norm")
+    x, delta = x[:, 100:400], kw["delta"][:, 200:500]
+    mod = torch.randn(2, 2 * 1536, device=dev).bfloat16()
+    kw = dict(scale=mod[:, :1536], shift=mod[:, 1536:], gate=kw["gate"],
+              delta=delta)
+    assert adaln.fits(x, **kw)
+    _adaln_check(adaln.adaln(x, **kw), adaln.adaln_ref(x, **kw),
+                 "residual+norm")
+
+
+def test_adaln_kernel_under_a_cuda_graph(dev):
+    """The three modes captured into one CUDA graph, the inputs changed in
+    place, replayed: each output that of the new inputs; the wrapper ran
+    (and counted) once per mode, at capture."""
+    ins = [_adaln_inputs(2, 4096, 1536, torch.bfloat16, 34, m)
+           for m in ADALN_MODES]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x, kw in ins:
+            adaln.adaln(x, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    ops.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [adaln.adaln(x, **kw) for x, kw in ins]
+    assert ops.launch_counts()["adaln"] == 3
+    gen = _gen(35)
+    for x, kw in ins:
+        for t in (x, *kw.values()):
+            t.copy_(torch.randn(t.shape, device=dev, generator=gen))
+    graph.replay()
+    torch.cuda.synchronize()
+    for (x, kw), out, mode in zip(ins, outs, ADALN_MODES):
+        _adaln_check(out, adaln.adaln_ref(x, **kw), mode)
+    assert ops.launch_counts()["adaln"] == 3
+
+
+def test_adaln_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    """A CUDA tensor the kernel does not take raises, with autograd too:
+    no plain form on the GPU."""
+    x, kw = _adaln_inputs(2, 64, 256, torch.bfloat16, 36, "norm")
+    ops.reset_launch_counts()
+    for bad_x, bad_kw in (
+            (x.double(), {k: v.double() for k, v in kw.items()}),
+            (x.transpose(1, 2).contiguous().transpose(1, 2), kw),
+            (x[..., :252], {k: v[:, :252] for k, v in kw.items()}),
+            (x, dict(kw, scale=kw["scale"].float())),
+            (x, dict(kw, scale=torch.cat([kw["scale"]] * 2))),
+            (x.transpose(1, 2).contiguous().transpose(1, 2)
+             .requires_grad_(), kw)):
+        assert not adaln.fits(bad_x, **bad_kw)
+        with pytest.raises(ValueError):
+            adaln.adaln(bad_x, **bad_kw)
+    assert ops.launch_counts()["adaln"] == 0
+
+
+def test_adaln_kernel_broadcasts_a_modulation_row(dev):
+    """[1, D] modulations read by every batch row (batch stride 0)."""
+    x, kw = _adaln_inputs(3, 50, 1536, torch.bfloat16, 38, "residual+norm")
+    kw = {k: (v[:1] if v.dim() == 2 else v) for k, v in kw.items()}
+    _adaln_check(adaln.adaln(x, **kw), adaln.adaln_ref(x, **kw),
+                 "residual+norm")
+
+
+@pytest.mark.parametrize("mode", ADALN_MODES)
+def test_adaln_kernel_under_autograd(dev, mode):
+    """With gradients wanted the forward still launches the kernel once,
+    its outputs as without; the backward's gradients are autograd's through
+    adaln_ref on the same inputs, bit for bit (the backward is that plain
+    code)."""
+    x, kw = _adaln_inputs(2, 333, 1536, torch.bfloat16, 39, mode)
+    leaves = [x.requires_grad_(), *(v.requires_grad_() for v in kw.values())]
+    ops.reset_launch_counts()
+    got = adaln.adaln(x, **kw)
+    assert ops.launch_counts()["adaln"] == 1
+    with torch.no_grad():
+        _adaln_check(got, adaln.adaln(x, **kw), mode)
+    want = adaln.adaln_ref(x, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    gen = _gen(40)
+    ws = [torch.randn(o.shape, device=dev, generator=gen) for o in got]
+    g_got = torch.autograd.grad(
+        sum((o.float() * w).sum() for o, w in zip(got, ws)), leaves)
+    g_want = torch.autograd.grad(
+        sum((o.float() * w).sum() for o, w in zip(want, ws)), leaves)
+    for a, b in zip(g_got, g_want):
+        assert torch.equal(a, b)
+
+
+def _adaln_composition(x, scale=None, shift=None, gate=None, delta=None):
+    """The eager composition the MMDiT ran before adaln: an f32 LayerNorm,
+    then the modulation and the gated residual in the stream's dtype."""
+    if delta is not None:
+        x = x + gate[:, None] * delta
+        if scale is None:
+            return x
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    ln = ((xf - mean) * torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True)
+                                    + adaln.EPS)).to(x.dtype)
+    h = ln * (1 + scale[:, None]) + shift[:, None]
+    return h if delta is None else (x, h)
+
+
+@pytest.mark.parametrize("dtype,grad", [(torch.bfloat16, False),
+                                        (torch.float32, False),
+                                        (torch.bfloat16, True)])
+def test_mmdit_sends_its_sites_to_adaln(dev, monkeypatch, dtype, grad):
+    """A tiny MMDiT (2 blocks) on the GPU: 6 * 2 - 1 launches, under
+    autograd too, and its output (and its parameters' gradients) within
+    round-off of the eager composition's on the GPU."""
+    from safe_denoiser_tpu_torch.models import mmdit
+
+    torch.manual_seed(0)
+    m = mmdit.MMDiT(mmdit.MMDiTConfig(
+        sample_size=16, patch_size=2, in_channels=4, out_channels=4,
+        num_layers=2, num_heads=2, head_dim=16, joint_attention_dim=24,
+        caption_projection_dim=32, pooled_projection_dim=20,
+        pos_embed_max_size=12))
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(torch.randn_like(p) * 0.05)
+    m = m.to(dev, dtype)
+    gen = _gen(37)
+    args = (torch.randn(2, 4, 8, 8, device=dev, generator=gen),
+            torch.tensor([981.0, 311.5], device=dev),
+            torch.randn(2, 5, 24, device=dev, generator=gen),
+            torch.randn(2, 20, device=dev, generator=gen))
+
+    def run():
+        m.zero_grad()
+        out = m(*args)
+        if grad:
+            out.square().mean().backward()
+        return out.detach(), [p.grad for p in m.parameters()]
+
+    ops.reset_launch_counts()
+    with torch.set_grad_enabled(grad):
+        got, g_got = run()
+        assert ops.launch_counts()["adaln"] == 11
+        monkeypatch.setattr(adaln, "adaln", _adaln_composition)
+        want, g_want = run()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["adaln"] == 11
+    bound = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    err = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert err < bound, err
+    if grad:
+        assert [a is None for a in g_got] == [b is None for b in g_want]
+        a, b = (torch.cat([g.float().flatten() for g in gs if g is not None])
+                for gs in (g_got, g_want))
+        err = ((a - b).norm() / b.norm()).item()
+        assert err < 5e-2, err
 
 
 # the last test: a failed capture leaves the default CUDA generator in a

@@ -18,6 +18,7 @@ from safe_denoiser_tpu.ops import conv3x3 as j_conv
 from safe_denoiser_tpu.ops import group_norm as j_gn
 from safe_denoiser_tpu.ops import repellency_kernels as j_rep
 from safe_denoiser_tpu_torch import ops
+from safe_denoiser_tpu_torch.ops import adaln as t_adaln
 from safe_denoiser_tpu_torch.ops import attention as t_attn
 from safe_denoiser_tpu_torch.ops import conv3x3 as t_conv
 from safe_denoiser_tpu_torch.ops import group_norm as t_gn
@@ -248,13 +249,17 @@ def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
     t_gn.gn_stats(torch.randn(1, 16384, 128))
     t_gn.group_norm_fused(torch.randn(1, 4096, 320).bfloat16(),
                           torch.randn(320), torch.randn(320), 32, act="silu")
+    row = torch.randn(2, 64).bfloat16()
+    t_adaln.adaln(torch.randn(2, 16, 64).bfloat16(), row, row, row,
+                  torch.randn(2, 16, 64).bfloat16())
     assert ops.launch_counts() == {"attention": 0, "attention_i8": 0,
                                    "attention_nt": 0, "attention_bshd": 0,
                                    "repack_to_heads": 0,
                                    "repack_from_heads": 0, "rbf": 0,
                                    "conv3x3_up": 0,
                                    "conv3x3_up_interleave": 0, "conv3x3": 0,
-                                   "gn_stats": 0, "gn_fused": 0}
+                                   "gn_stats": 0, "gn_fused": 0,
+                                   "adaln": 0}
 
 
 @pytest.mark.parametrize("call", [
