@@ -1528,6 +1528,101 @@ def phase_adaln() -> dict:
     return {"adaln": res}
 
 
+# qk_rope's shapes: FLUX.1-dev's double block ([text 512 ; image 4096], v
+# joined too) and single block (one stream of 4608), 24 heads of 128
+QK_ROPE_SHAPES = ((512, 4096), (4608,))
+
+
+def phase_qk_rope() -> dict:
+    """qk_rope (FLUX's per-head RMSNorm + rotary on q and k into the joint
+    attention buffers, one pass) at QK_ROPE_SHAPES against qk_rope_ref on
+    the same bf16 values, with the device times of the kernel and of the
+    PyTorch composition FLUX's attention runs without it (the "library"
+    column: diffusers' RMSNorm, f32 statistics rounded to bf16 before the
+    weight, then ``apply_rotary_emb`` in f32 rounded once, then the
+    streams' ``torch.cat`` of q, k and v), the byte bound (q, k and, for
+    two streams, v read and written, the f32 cos and sin tables) and the
+    wrapper-paced times of the kernel, the composition and qk_rope_ref."""
+    from safe_denoiser_tpu_torch.models.flux import position_ids, rope_tables
+    from safe_denoiser_tpu_torch.ops import qk_rope
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    cos, sin = (torch.from_numpy(t).to(dev) for t in rope_tables(
+        position_ids(512, 64, 64), (16, 56, 56)))
+
+    def library(segments):
+        def one(x, w, c, s):
+            xf = x.float()
+            y = (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True)
+                                  + qk_rope.EPS)).to(x.dtype) * w
+            return (y.float() * c[:, None] + qk_rope.rotate_pairs(
+                y).float() * s[:, None]).to(x.dtype)
+
+        qs, ks, start = [], [], 0
+        for q, k, _, wq, wk in segments:
+            n = q.shape[1]
+            c, s = cos[start:start + n], sin[start:start + n]
+            qs.append(one(q, wq, c, s))
+            ks.append(one(k, wk, c, s))
+            start += n
+        if len(segments) == 1:
+            return qs[0], ks[0], segments[0][2]
+        return (torch.cat(qs, 1), torch.cat(ks, 1),
+                torch.cat([seg[2] for seg in segments], 1))
+
+    res = None
+    for lengths in QK_ROPE_SHAPES:
+        segs = []
+        for n in lengths:
+            q, k, v = ((torch.randn(1, n, 24 * 128, device=dev, generator=g)
+                        * 2 + 0.3).bfloat16().view(1, n, 24, 128)
+                       for _ in range(3))
+            wq, wk = ((1 + 0.1 * torch.randn(128, device=dev, generator=g))
+                      .bfloat16() for _ in range(2))
+            segs.append((q, k, v, wq, wk))
+
+        def kernel():
+            return qk_rope.qk_rope(segs, cos, sin)
+
+        def plain_fn():
+            return qk_rope.qk_rope_ref(segs, cos, sin)
+
+        def lib_fn():
+            return library(segs)
+
+        got, want, lib = kernel(), plain_fn(), lib_fn()
+        torch.cuda.synchronize()
+        if len(lengths) == 2 and not torch.equal(got[2], want[2]):
+            fail(f"qk_rope {lengths}: the joined v differs from the cat's")
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got[:2], want[:2]))
+        rel = max(((a.float() - b.float()).abs()
+                   / b.float().abs().clamp_min(2.0 ** -14)).max().item()
+                  for a, b in zip(got[:2], want[:2]))
+        lib_err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(lib[:2], want[:2]))
+        # one bf16 ulp of max|out| (the sum of squares in another order)
+        tol = 2.0 ** (math.floor(math.log2(max(
+            w.float().abs().max().item() for w in want[:2]))) - 7)
+        row = 4608 * 24 * 128 * 2
+        tensors = 3 if len(lengths) == 2 else 2
+        bnd = bound_ms(2 * tensors * row + 2 * 4608 * 128 * 4, 0, PEAK_BF16)
+        dtm = (device_ms(kernel), device_ms(lib_fn))
+        ms, plain = cuda_ms(kernel), cuda_ms(plain_fn)
+        _report("qk_rope", [1, "+".join(map(str, lengths)), 24, 128], err,
+                tol, ms, plain, cuda_ms(lib_fn), bnd,
+                "library: RMSNorm + apply_rotary_emb + cat", dtm)
+        print(f"kernel qk_rope {list(lengths)}: max relative |d|={rel:.3e}; "
+              f"library max|d| against qk_rope_ref={lib_err:.3e}; kernel / "
+              f"library device time={dtm[0] / dtm[1]:.3f}")
+        if res is None:
+            res = dict(err=err, ms=ms, plain=plain, lib=None, bound=bnd,
+                       dev=(dtm[0], None))
+        res["err"] = max(res["err"], err)
+    return {"qk_rope": res}
+
+
 def phase_backward_kernels() -> dict:
     """Each backward kernel against its plain backward on the same inputs
     (the plain one in f32) at the training slice's shapes, with its device
@@ -2130,6 +2225,7 @@ KERNEL_META = {
                           "safe_denoiser_tpu/ops/conv3x3.py:282"),
     # the port's own: no TPU kernel (XLA fuses what it computes)
     "adaln": ("cuda", "safe_denoiser_tpu_torch/csrc/adaln.cu", None),
+    "qk_rope": ("cuda", "safe_denoiser_tpu_torch/csrc/qk_rope.cu", None),
 }
 
 
@@ -5787,6 +5883,7 @@ def main() -> None:
     results = phase_kernels()
     results.update(phase_backward_kernels())
     results.update(phase_adaln())
+    results.update(phase_qk_rope())
     if args.parent:
         phase_parent(args.parent)
     counts, pipe, kw = phase_main_path()

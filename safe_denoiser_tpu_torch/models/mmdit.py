@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import adaln
+from ..ops import adaln, qk_rope
 from .layers import QDense, dot_product_attention, timestep_embedding
 from .t5 import RMSNormFp32
 
@@ -130,7 +130,9 @@ class FeedForward(nn.Module):
 class JointAttention(nn.Module):
     """q/k/v of both streams and one attention over [image ; context];
     the output projections are applied by the block. Tensor-parallel
-    under ``_tp`` (``parallel.tp.joint_attention``)."""
+    under ``_tp`` (``parallel.tp.joint_attention``). With ``rope`` (FLUX's
+    double block, ``models/flux.py``) the joint sequence is [context ;
+    image] and q and k are RMS-normed and rotated on the way in."""
 
     _tp = None
 
@@ -170,7 +172,11 @@ class JointAttention(nn.Module):
                                  if rms else ()))
         return xq, xk, xv, cq, ck, cv
 
-    def forward(self, xh, ch):
+    def forward(self, xh, ch, rope=None):
+        """(image rows, context rows) of the attention's output [B, S, H*D]
+        before the output projections."""
+        if rope is not None:
+            return self._forward_rope(xh, ch, rope)
         xq, xk, xv, cq, ck, cv = self.qkv(xh, ch)
         out = dot_product_attention(torch.cat([xq, cq], 1),
                                     torch.cat([xk, ck], 1),
@@ -179,6 +185,29 @@ class JointAttention(nn.Module):
         out = out.reshape(b, s, -1)
         s_img = xh.shape[1]
         return out[:, :s_img], out[:, s_img:]
+
+    def _forward_rope(self, xh, ch, rope):
+        """FLUX's joint attention: over [context ; image], each stream's q
+        and k RMS-normed per head (its ``norm_*`` weights) and rotated by
+        ``rope`` = (cos, sin) [S, D] f32, in one ``ops.qk_rope`` launch
+        that writes the joint q, k and v."""
+        heads, dh = self.cfg.num_heads, self.cfg.head_dim
+
+        def segment(h, q, k, v, nq, nk):
+            shape = (h.shape[0], h.shape[1], heads, dh)
+            return (q(h).view(shape), k(h).view(shape), v(h).view(shape),
+                    nq.weight, nk.weight)
+
+        q, k, v = qk_rope.qk_rope(
+            [segment(ch, self.add_q_proj, self.add_k_proj, self.add_v_proj,
+                     self.norm_added_q, self.norm_added_k),
+             segment(xh, self.to_q, self.to_k, self.to_v, self.norm_q,
+                     self.norm_k)], *rope, eps=self.norm_q.eps)
+        out = dot_product_attention(q, k, v)
+        b, s, _, _ = out.shape
+        out = out.reshape(b, s, -1)
+        s_ctx = ch.shape[1]
+        return out[:, s_ctx:], out[:, :s_ctx]
 
 
 class JointBlock(nn.Module):
@@ -215,13 +244,20 @@ class JointBlock(nn.Module):
         return x, adaln.adaln(context, gate=c_gate_mlp,
                               delta=self.ff_context(ch))
 
-    def forward(self, x, context, emb):
+    def forward(self, x, context, emb, rope=None):
+        """(x, context) after the block; ``rope``: FLUX's rotary tables
+        (``JointAttention``)."""
+        if rope is not None and self.attn._tp is not None:
+            # parallel.tp.joint_attention joins [image ; context] and
+            # applies no rotary
+            raise NotImplementedError("the rotary joint attention has no "
+                                      "tensor-parallel form")
         xh, ch, x_mod, c_mod = self._modulate(x, context, emb)
         if self.attn._tp is not None:
             from ..parallel import tp
             x_att, c_att = tp.joint_attention(self.attn, xh, ch)
         else:
-            x_out, c_out = self.attn(xh, ch)
+            x_out, c_out = self.attn(xh, ch, rope)
             x_att = self.attn.to_out[0](x_out)
             c_att = (None if self.context_pre_only
                      else self.attn.to_add_out(c_out))

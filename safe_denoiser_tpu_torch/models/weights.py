@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .clip_text import CLIP_VIT_L_14
+from .flux import FLUX_DEV
 from .mmdit import SD3_MEDIUM
 from .t5 import T5_XXL
 from .unet import SD14_UNET
@@ -25,12 +26,12 @@ from .vae import SD14_VAE
 
 
 def load_component_config(model_dir: str, kind: str):
-    """Config dataclass of 'unet' | 'vae' | 'clip_text' | 'mmdit' | 't5'
-    from a diffusers/HF ``config.json``; the SD-v1.4 (SD3-medium, T5-XXL)
-    preset when there is none."""
+    """Config dataclass of 'unet' | 'vae' | 'clip_text' | 'mmdit' | 't5' |
+    'flux' from a diffusers/HF ``config.json``; the SD-v1.4 (SD3-medium,
+    T5-XXL, FLUX.1-dev) preset when there is none."""
     defaults = {"unet": SD14_UNET, "vae": SD14_VAE,
                 "clip_text": CLIP_VIT_L_14, "mmdit": SD3_MEDIUM,
-                "t5": T5_XXL}[kind]
+                "t5": T5_XXL, "flux": FLUX_DEV}[kind]
     path = os.path.join(model_dir, "config.json")
     if not os.path.exists(path):
         return defaults
@@ -84,6 +85,22 @@ def load_component_config(model_dir: str, kind: str):
             pooled_projection_dim=cfg.get("pooled_projection_dim", 2048),
             pos_embed_max_size=cfg.get("pos_embed_max_size", 192),
             qk_norm=cfg.get("qk_norm"))
+    if kind == "flux":
+        if cfg.get("patch_size", 1) != 1 or cfg.get("out_channels") not in (
+                None, cfg.get("in_channels", 64)):
+            raise ValueError("FLUX's transformer takes patch_size 1 and "
+                             "out_channels = in_channels")
+        return dataclasses.replace(
+            defaults,
+            in_channels=cfg.get("in_channels", 64),
+            num_layers=cfg.get("num_layers", 19),
+            num_single_layers=cfg.get("num_single_layers", 38),
+            num_heads=cfg.get("num_attention_heads", 24),
+            head_dim=cfg.get("attention_head_dim", 128),
+            joint_attention_dim=cfg.get("joint_attention_dim", 4096),
+            pooled_projection_dim=cfg.get("pooled_projection_dim", 768),
+            guidance_embeds=cfg.get("guidance_embeds", False),
+            axes_dims_rope=tuple(cfg.get("axes_dims_rope", (16, 56, 56))))
     if kind == "t5":
         return dataclasses.replace(
             defaults,

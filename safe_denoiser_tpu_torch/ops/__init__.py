@@ -22,6 +22,8 @@ package leaves what they compute to XLA's fusion):
 | --------------------- | ------------------ | ------ | -------------------------------------- |
 | adaln                 | ops/adaln.py       | CUDA   | the MMDiT's gated residual + LayerNorm |
 |                       |                    |        | + modulation, one pass over a row      |
+| qk_rope               | ops/qk_rope.py     | CUDA   | FLUX's per-head RMSNorm + rotary on q  |
+|                       |                    |        | and k into the joint attention buffers |
 
 The backward kernels, the port's own (the JAX package's kernels have no
 VJP; each computes the gradient of its forward's function):
@@ -45,7 +47,8 @@ capture recorded at every replay, so a batch counts what it launched.
 
 from __future__ import annotations
 
-from . import adaln, attention, conv3x3, group_norm, repellency_kernels
+from . import (adaln, attention, conv3x3, group_norm, qk_rope,
+               repellency_kernels)
 
 # kernel name -> (module, name of its launch counter there)
 COUNTERS = {
@@ -62,6 +65,7 @@ COUNTERS = {
     "gn_stats": (group_norm, "launches"),
     "gn_fused": (group_norm, "fused_launches"),
     "adaln": (adaln, "launches"),
+    "qk_rope": (qk_rope, "launches"),
 }
 # the backward kernels' counters, apart: sampling and serving never launch
 # them (``backward_launch_counts``)

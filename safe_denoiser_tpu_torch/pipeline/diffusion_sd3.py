@@ -22,29 +22,26 @@ the row's seed, before the loop; on ``cuda`` the loop and the decode
 replay from CUDA graphs (``graph.py``). ``load_lora`` merges an adapter;
 ``enable_data_mesh`` and ``enable_bank_sharding`` are the SD-v1
 pipeline's (``diffusion.MeshModes``), the MMDiT and the VAE replicated.
+What it shares with the FLUX pipeline is ``flow.FlowPipeline``'s.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import importlib
 import os
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..models import (AutoencoderKL, CLIPTextModel, MMDiT, T5Encoder)
 from ..schedulers.flow_match import (FlowMatchEulerScheduler,
                                      flow_match_config_from_checkpoint)
-from ..utils import profiling
-from .diffusion import (MeshModes, PendingGeneration, _StageTimer,
-                        _merge_lora_in_place)
+from .diffusion import _merge_lora_in_place
+from .flow import FlowPipeline, load_component, load_t5_tokenizer
 from .safree import (NUDITY_NEGATIVE_PROMPT_SPACE, projection_matrix,
                      safree_projection)
 from . import graph
-from .sampler import RepellencyWindow, sample_sd3
+from .sampler import sample_sd3
 
 SD3_NUDITY_NEGATIVE_PROMPT = ", ".join(NUDITY_NEGATIVE_PROMPT_SPACE)
 
@@ -61,25 +58,10 @@ def joint_text_embed(pen_l, proj_l, pen_g, proj_g, t5_states,
     return emb, torch.cat([proj_l, proj_g], dim=-1)
 
 
-def _load_t5_tokenizer(path: str):
-    """The T5 tokenizer of ``tokenizer_3/``: ``transformers``' when that
-    package is installed and reads the directory, else the port's BPE
-    tokenizer on it (as the JAX package). ``transformers`` is optional: the
-    GPU machine has none."""
-    from ..text import CLIPTokenizer
-    try:
-        transformers = importlib.import_module("transformers")
-        return transformers.AutoTokenizer.from_pretrained(path)
-    except Exception:
-        return CLIPTokenizer.from_pretrained(path)
+class SafeDiffusion3Pipeline(FlowPipeline):
+    _family = "sd3"
+    _sample = staticmethod(sample_sd3)
 
-
-class SafeDiffusion3Pipeline(MeshModes):
-    _MESH_MODULES = ("transformer", "vae")
-    _DATA_MESH_CONFLICT = (
-        "enable_data_mesh with enable_bank_sharding is not supported: "
-        "shard the bank's M axis or the served batch, not both (needs a "
-        "2-D mesh)")
     def __init__(self, transformer: MMDiT, vae: AutoencoderKL,
                  clip_l: CLIPTextModel, clip_g: CLIPTextModel,
                  t5: T5Encoder, tokenizer, tokenizer_2, tokenizer_3,
@@ -99,7 +81,6 @@ class SafeDiffusion3Pipeline(MeshModes):
         self.max_sequence_length = max_sequence_length
         self.vae_scale_factor = 2 ** (len(vae.config.block_out_channels) - 1)
         self.joint_dim = transformer.config.joint_attention_dim
-        self.int8_layers = 0
         self._graphs = graph.GraphSlot()
 
     @classmethod
@@ -108,8 +89,7 @@ class SafeDiffusion3Pipeline(MeshModes):
         """Load an HF-layout SD3 checkpoint dir (transformer/ vae/
         text_encoder/ text_encoder_2/ text_encoder_3/ tokenizer*/
         scheduler/), sharded safetensors included."""
-        from ..models.weights import (load_component_config,
-                                      load_sharded_state_dict, t5_state_dict)
+        from ..models.weights import load_component_config, t5_state_dict
         from ..text import CLIPTokenizer
 
         device = resolve_device(device)
@@ -118,10 +98,7 @@ class SafeDiffusion3Pipeline(MeshModes):
             return os.path.join(model_dir, name)
 
         def load(module, name, fix=None):
-            sd = load_sharded_state_dict(sub(name))
-            sd.pop("text_model.embeddings.position_ids", None)
-            module.load_state_dict(fix(sd) if fix else sd, strict=True)
-            return module
+            return load_component(module, sub(name), fix)
 
         tf = load(MMDiT(load_component_config(sub("transformer"), "mmdit")),
                   "transformer")
@@ -136,28 +113,21 @@ class SafeDiffusion3Pipeline(MeshModes):
                   "text_encoder_3", t5_state_dict)
         tok = CLIPTokenizer.from_pretrained(sub("tokenizer"))
         tok2 = CLIPTokenizer.from_pretrained(sub("tokenizer_2"))
-        tok3 = _load_t5_tokenizer(sub("tokenizer_3"))
+        tok3 = load_t5_tokenizer(sub("tokenizer_3"))
         sched = FlowMatchEulerScheduler(
             flow_match_config_from_checkpoint(sub("scheduler")))
         return cls(tf.to(dtype), vae.to(dtype), towers[0], towers[1],
                    t5.to(dtype), tok, tok2, tok3, sched, device=device,
                    logger=logger)
 
+    def _latent_channels(self) -> int:
+        return self.transformer.config.in_channels
+
+    @property
+    def t5_tokenizer(self):
+        return self.tokenizer_3
+
     # -- text ---------------------------------------------------------------
-    def _t5_ids(self, texts, padding="max_length", max_length=None):
-        out = self.tokenizer_3(list(texts), padding=padding,
-                               max_length=max_length
-                               or self.max_sequence_length,
-                               truncation=True)
-        return torch.tensor(np.asarray(out["input_ids"]), dtype=torch.long,
-                            device=self.device)
-
-    def _clip_ids(self, tok, text: str):
-        return torch.tensor(tok([text], padding="max_length",
-                                max_length=self.tokenizer.model_max_length
-                                )["input_ids"],
-                            dtype=torch.long, device=self.device)
-
     @torch.no_grad()
     def _encode_one(self, text: str):
         """(embeds [1, L_clip + S_t5, joint], pooled [1, P]) of one text."""
@@ -221,123 +191,6 @@ class SafeDiffusion3Pipeline(MeshModes):
             rows.append(rescaled.to(embeds.dtype))
         return torch.stack(rows, dim=1), pooled
 
-    # -- generation ---------------------------------------------------------
-    def _prepare_batch(self, prompts: Sequence[str], seeds: Sequence[int],
-                       guidance_scales: Sequence[float],
-                       num_inference_steps: int = 50,
-                       negative_prompt: Optional[str] = None,
-                       negative_prompt2: Optional[str] = None,
-                       height: int = 1024, width: int = 1024,
-                       safree: bool = False, sf_alpha: float = 0.01,
-                       repellency_processor=None,
-                       window: RepellencyWindow = RepellencyWindow(
-                           1000.0, 780.0), mark=lambda name: None):
-        """The text encode (then ``mark("encode")``) and the batch's
-        inputs: ``(graph.Program, buffers)`` (``_batch_inputs``)."""
-        b = len(prompts)
-        if len(seeds) != b or len(guidance_scales) != b:
-            raise ValueError("one seed and one guidance scale per prompt")
-        with torch.no_grad(), profiling.span("sdt.dispatch.text"):
-            embeds, pooled = self._prepare_batch_embeds(
-                prompts, negative_prompt, negative_prompt2, safree, sf_alpha)
-            mark("encode")
-        with profiling.span("sdt.dispatch.inputs"):
-            rep_cfg, refs = None, None
-            if repellency_processor is not None:
-                # the reference's fast SD3 module: channel-normalized x, no
-                # beta gate, and its default sigma 1.0 whatever the config
-                rep_cfg = dataclasses.replace(
-                    repellency_processor.config(), sigma=1.0,
-                    normalize_x=True, use_beta_gate=False)
-                refs = repellency_processor.get_proj_ref()
-            return self._batch_inputs(embeds, pooled, seeds, guidance_scales,
-                                      num_inference_steps, height, width,
-                                      rep_cfg, refs, window)
-
-    def _batch_inputs(self, embeds, pooled, seeds, guidance_scales,
-                      num_inference_steps: int, height: int, width: int,
-                      rep_cfg, refs, window: RepellencyWindow):
-        """The sampling program of these statics and the batch's buffers:
-        initial latents and the renoise draws inside the window (``graph.
-        noise_slots``) from per-row generators seeded with ``seeds``, the
-        embeddings, guidance scales, the bank."""
-        dev = self.device
-        gens = [torch.Generator(device=dev).manual_seed(int(s))
-                for s in seeds]
-        single = (self.transformer.config.in_channels,
-                  height // self.vae_scale_factor,
-                  width // self.vae_scale_factor)
-
-        def draw():
-            return torch.stack([torch.randn(single, generator=g, device=dev)
-                                for g in gens])
-
-        timesteps, _ = self.scheduler.timesteps_and_sigmas(
-            num_inference_steps)
-        in_window = [rep_cfg is not None and window.mask(i, float(t))
-                     for i, t in enumerate(timesteps)]
-        slots = graph.noise_slots(in_window, step_noise=False)
-        latents = draw()
-        bufs = {"latents": latents,
-                "noise": graph.draw_noise(draw, len(slots), latents),
-                "embeds": embeds.to(dev), "pooled": pooled.to(dev),
-                "gs": torch.tensor(list(guidance_scales), dtype=torch.float32,
-                                   device=dev)}
-        if rep_cfg is not None:
-            bufs.update(graph.bank_buffers(self._maybe_shard_refs(
-                refs.to(device=dev, dtype=torch.float32))))
-        tf, vae, sch = self.transformer, self.vae, self.scheduler
-        rep_bank = self._rep_bank
-
-        def loop(bufs, steps=None):
-            noise = bufs["noise"]
-            return sample_sd3(
-                self._modules_on(bufs["latents"].device)[0], sch,
-                bufs["embeds"], bufs["pooled"], bufs["latents"],
-                lambda i, salt: noise[slots[i, salt]], num_inference_steps,
-                guidance_scale=bufs["gs"], repellency=rep_cfg,
-                refs=graph.bank_from(bufs), window=window, steps=steps,
-                rep_bank=rep_bank)
-
-        def decode(latents):
-            vae = self._modules_on(latents.device)[1]
-            vcfg = vae.config
-            return vae.decode(latents / vcfg.scaling_factor
-                              + vcfg.shift_factor)
-
-        key = ("sd3", id(tf), id(vae), tf.context_embedder.weight.dtype,
-               self.int8_layers, sch.config, num_inference_steps, rep_cfg,
-               window, rep_bank, graph.weights_version(tf, vae))
-        return (graph.Program(key, loop, decode, graph.warm_step(in_window),
-                              timesteps, self._graphable()), bufs)
-
-    def dispatch_batch(self, prompts: Sequence[str], seeds: Sequence[int],
-                       guidance_scales: Sequence[float], **kwargs
-                       ) -> PendingGeneration:
-        """Enqueue the text encode, the flow-match loop and the VAE decode
-        for a batch (CUDA runs them asynchronously; the loop and the decode
-        from CUDA graphs, ``graph.py``); ``fetch()`` on the handle waits
-        and returns the images. Keywords: those of ``_prepare_batch``."""
-        with _StageTimer(self.device) as timer:
-            program, bufs = self._prepare_batch(
-                prompts, seeds, guidance_scales, mark=timer.mark, **kwargs)
-            return self._launch(program, bufs, timer)
-
-    def generate_batch(self, prompts: Sequence[str], seeds: Sequence[int],
-                       guidance_scales: Sequence[float], **kwargs):
-        """Batched generation; a list of uint8 [H, W, 3] images."""
-        return self.dispatch_batch(prompts, seeds, guidance_scales,
-                                   **kwargs).fetch()
-
-    def dispatch(self, prompt: str, seed: int = 42,
-                 guidance_scale: float = 7.0, **kwargs):
-        return self.dispatch_batch([prompt], [seed], [guidance_scale],
-                                   **kwargs)
-
-    def __call__(self, prompt: str, return_latents: bool = False, **kwargs):
-        return self.dispatch(prompt, **kwargs).fetch(
-            return_latents=return_latents)
-
     def enable_int8(self) -> int:
         """W8A8 int8 on the MMDiT's block linears (``ops.quant``): weights
         quantized once here, activations per token at each call.
@@ -350,8 +203,7 @@ class SafeDiffusion3Pipeline(MeshModes):
         return self.int8_layers
 
     def load_lora(self, path: str, scale: Optional[float] = None) -> None:
-        """Merge a LoRA adapter (``training/lora.py``) into the MMDiT's
-        weights in place: ``SafeDiffusionPipeline.load_lora``'s contract
-        (load before ``enable_int8``)."""
+        """Merge a LoRA adapter (``training/lora.py``) into the
+        transformer's weights in place: ``SafeDiffusionPipeline.load_lora``'s
+        contract (load before ``enable_int8``)."""
         _merge_lora_in_place(self.transformer, path, scale)
-

@@ -1,8 +1,10 @@
 """The sampling loops: SD-v1.x (CFG, latent re-attention or SLD guidance,
 SAFREE's per-step swap of the text embeddings, FreeU / SafeGuard through
 the UNet, the repellency hook on x0 inside a timestep or step window, the
-DDPM or DDIM step) and SD3 (CFG, the flow-match Euler step, the safe
-denoiser's renoising inside the window).
+DDPM or DDIM step), SD3 (CFG, the flow-match Euler step, the safe
+denoiser's renoising inside the window) and FLUX.1 (SD3's flow loop with
+the guidance embedding in place of CFG, on 2x2-packed latents; no JAX
+counterpart).
 
 Counterpart of ``safe_denoiser_tpu/pipeline/sampler.py::sample_sd`` and
 ``sample_sd3``. The ``lax.scan`` becomes a Python step loop; the
@@ -202,52 +204,32 @@ def sample_sd(unet_fn: Callable[..., torch.Tensor],
     return latents, applied
 
 
-def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
-               scheduler: Any,
-               text_embeds: torch.Tensor,
-               pooled_embeds: torch.Tensor,
-               latents: torch.Tensor,
-               noise_fn: Callable[[int, int], torch.Tensor],
-               num_inference_steps: int,
-               guidance_scale=7.0,
-               repellency: Optional[RepellencyConfig] = None,
-               refs: Optional[torch.Tensor] = None,
-               window: RepellencyWindow = RepellencyWindow(),
-               steps: Optional[Sequence[int]] = None,
-               rep_bank=None):
-    """The SD3 flow-matching loop with the safe denoiser's renoising.
-    Inside the window, with sigma_+ the next sigma:
+def flow_loop(velocity: Callable[[int, torch.Tensor], torch.Tensor],
+              timesteps, sigmas, latents: torch.Tensor,
+              noise_fn: Callable[[int, int], torch.Tensor],
+              repellency: Optional[RepellencyConfig] = None,
+              refs: Optional[torch.Tensor] = None,
+              window: RepellencyWindow = RepellencyWindow(),
+              steps: Optional[Sequence[int]] = None, rep_bank=None):
+    """The flow-matching loop with the safe denoiser's renoising, shared by
+    SD3 and FLUX. ``velocity(i, latents)`` is step i's (guided) velocity
+    v [B, C, H, W]. Inside the window, with sigma_+ the next sigma:
 
         x0 = x - sigma v,  x1 = x + (1 - sigma) v,  x0' = repellency(x0),
         n = sqrt(sigma_+) x1 + sqrt(1 - sigma_+) eps,
         x <- x0' + sigma_+ (n - x0')   where the sample is negated,
 
-    else the Euler step x <- x + (sigma_+ - sigma) v.
-
-    transformer_fn: ``(latents [2B, C, H, W], t [2B], context [2B, S, D],
-    pooled [2B, P]) -> v`` (f32). text_embeds [2, B, S, D] and pooled
-    [2, B, P] are (uncond, cond). ``guidance_scale`` is a scalar or a [B]
-    tensor. ``noise_fn(i, 1)`` gives step i's renoise eps [B, C, H, W].
-    Each step's t is a ``torch.full`` on the device (a fill, no host copy).
-    ``steps``: the step indices to run (default all of them).
-    ``rep_bank``: as ``sample_sd``'s.
+    else the Euler step x <- x + (sigma_+ - sigma) v. ``noise_fn(i, 1)``
+    gives step i's renoise eps [B, C, H, W]. ``steps``: the step indices to
+    run (default all of them). ``rep_bank``: as ``sample_sd``'s.
     Returns (final latents [B, C, H, W], rep_applied [steps, B] bool)."""
-    timesteps, sigmas = scheduler.timesteps_and_sigmas(num_inference_steps)
+    n = len(timesteps)
     b = latents.shape[0]
-    ctx = text_embeds.reshape(2 * b, *text_embeds.shape[2:])
-    pooled = pooled_embeds.reshape(2 * b, *pooled_embeds.shape[2:])
-    gs = guidance_scale
-    if torch.is_tensor(gs) and gs.dim() == 1:
-        gs = gs.reshape(-1, 1, 1, 1)
-    applied = torch.zeros((num_inference_steps, b), dtype=torch.bool,
-                          device=latents.device)
+    applied = torch.zeros((n, b), dtype=torch.bool, device=latents.device)
     f32 = np.float32
-    for i in range(num_inference_steps) if steps is None else steps:
+    for i in range(n) if steps is None else steps:
         t, sigma, sigma_next = timesteps[i], sigmas[i], sigmas[i + 1]
-        t_in = torch.full((2 * b,), float(t), dtype=torch.float32,
-                          device=latents.device)
-        v = transformer_fn(torch.cat([latents, latents]), t_in, ctx, pooled)
-        v = v[:b] + gs * (v[b:] - v[:b])
+        v = velocity(i, latents)
         # the scalars in f32, as the JAX package's f32 tables give them
         euler = latents + float(f32(sigma_next - sigma)) * v
         if repellency is None or not window.mask(i, float(t)):
@@ -264,3 +246,103 @@ def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
         latents = torch.where(is_neg[:, None, None, None], renoised, euler)
         applied[i] = is_neg
     return latents, applied
+
+
+def sample_sd3(transformer_fn: Callable[..., torch.Tensor],
+               scheduler: Any,
+               text_embeds: torch.Tensor,
+               pooled_embeds: torch.Tensor,
+               latents: torch.Tensor,
+               noise_fn: Callable[[int, int], torch.Tensor],
+               num_inference_steps: int,
+               guidance_scale=7.0,
+               repellency: Optional[RepellencyConfig] = None,
+               refs: Optional[torch.Tensor] = None,
+               window: RepellencyWindow = RepellencyWindow(),
+               steps: Optional[Sequence[int]] = None,
+               rep_bank=None):
+    """The SD3 flow-matching loop (``flow_loop``) with classifier-free
+    guidance.
+
+    transformer_fn: ``(latents [2B, C, H, W], t [2B], context [2B, S, D],
+    pooled [2B, P]) -> v`` (f32). text_embeds [2, B, S, D] and pooled
+    [2, B, P] are (uncond, cond). ``guidance_scale`` is a scalar or a [B]
+    tensor. Each step's t is a ``torch.full`` on the device (a fill, no
+    host copy). Returns (final latents [B, C, H, W], rep_applied [steps, B]
+    bool)."""
+    timesteps, sigmas = scheduler.timesteps_and_sigmas(num_inference_steps)
+    b = latents.shape[0]
+    ctx = text_embeds.reshape(2 * b, *text_embeds.shape[2:])
+    pooled = pooled_embeds.reshape(2 * b, *pooled_embeds.shape[2:])
+    gs = guidance_scale
+    if torch.is_tensor(gs) and gs.dim() == 1:
+        gs = gs.reshape(-1, 1, 1, 1)
+
+    def velocity(i, latents):
+        t_in = torch.full((2 * b,), float(timesteps[i]), dtype=torch.float32,
+                          device=latents.device)
+        v = transformer_fn(torch.cat([latents, latents]), t_in, ctx, pooled)
+        return v[:b] + gs * (v[b:] - v[:b])
+
+    return flow_loop(velocity, timesteps, sigmas, latents, noise_fn,
+                     repellency, refs, window, steps, rep_bank)
+
+
+def pack_latents(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] latents as FLUX's 2x2 patches [B, (H/2)(W/2), 4C], in
+    diffusers' ``_pack_latents`` order (channel, then the patch's row and
+    column)."""
+    b, c, h, w = x.shape
+    x = x.view(b, c, h // 2, 2, w // 2, 2).permute(0, 2, 4, 1, 3, 5)
+    return x.reshape(b, (h // 2) * (w // 2), 4 * c)
+
+
+def unpack_latents(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The inverse of ``pack_latents``: [B, (h/2)(w/2), 4C] -> [B, C, h,
+    w] (diffusers' ``_unpack_latents``)."""
+    b, _, c4 = x.shape
+    x = x.view(b, h // 2, w // 2, c4 // 4, 2, 2).permute(0, 3, 1, 4, 2, 5)
+    return x.reshape(b, c4 // 4, h, w)
+
+
+def sample_flux(transformer_fn: Callable[..., torch.Tensor],
+                scheduler: Any,
+                text_embeds: torch.Tensor,
+                pooled_embeds: torch.Tensor,
+                latents: torch.Tensor,
+                noise_fn: Callable[[int, int], torch.Tensor],
+                num_inference_steps: int,
+                guidance_scale=3.5,
+                repellency: Optional[RepellencyConfig] = None,
+                refs: Optional[torch.Tensor] = None,
+                window: RepellencyWindow = RepellencyWindow(),
+                steps: Optional[Sequence[int]] = None,
+                rep_bank=None):
+    """The FLUX.1 loop (``flow_loop``): one transformer call a step at the
+    batch (guidance-distilled: the scale enters as the guidance embedding,
+    no CFG batch), on the 2x2-packed latents; the Euler step, the
+    repellency and the renoising act on the unpacked latents [B, C, H, W].
+
+    transformer_fn: ``(packed [B, N, 4C], context [B, L, D], pooled [B, P],
+    sigma [B], guidance [B], grid=(H/2, W/2)) -> packed v`` (f32). The
+    schedule is the scheduler's dynamic shift at the image's token count
+    (H/2)(W/2). ``guidance_scale`` is a scalar or a [B] tensor. Returns
+    (final latents [B, C, H, W], rep_applied [steps, B] bool)."""
+    b, _, h, w = latents.shape
+    grid = (h // 2, w // 2)
+    timesteps, sigmas = scheduler.timesteps_and_sigmas(
+        num_inference_steps, image_seq_len=grid[0] * grid[1])
+    g = guidance_scale
+    g = (g.to(device=latents.device, dtype=torch.float32)
+         if torch.is_tensor(g) else torch.full((b,), float(g),
+                                               device=latents.device))
+
+    def velocity(i, latents):
+        s_in = torch.full((b,), float(sigmas[i]), dtype=torch.float32,
+                          device=latents.device)
+        v = transformer_fn(pack_latents(latents), text_embeds,
+                           pooled_embeds, s_in, g, grid=grid)
+        return unpack_latents(v, h, w)
+
+    return flow_loop(velocity, timesteps, sigmas, latents, noise_fn,
+                     repellency, refs, window, steps, rep_bank)

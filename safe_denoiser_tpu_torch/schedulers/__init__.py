@@ -1,6 +1,8 @@
 from .ddim import DDIMConfig, DDIMScheduler
 from .ddpm import DDPMConfig, DDPMScheduler
-from .flow_match import FlowMatchEulerConfig, FlowMatchEulerScheduler
+from .flow_match import (FlowMatchDynamicConfig, FlowMatchEulerConfig,
+                         FlowMatchEulerScheduler, flow_match_config)
 
 __all__ = ["DDPMScheduler", "DDPMConfig", "DDIMScheduler", "DDIMConfig",
-           "FlowMatchEulerConfig", "FlowMatchEulerScheduler"]
+           "FlowMatchDynamicConfig", "FlowMatchEulerConfig",
+           "FlowMatchEulerScheduler", "flow_match_config"]

@@ -30,7 +30,7 @@ import torch
 
 from safe_denoiser_tpu_torch import ops
 from safe_denoiser_tpu_torch.ops import (
-    adaln, attention, conv3x3, group_norm, repellency_kernels)
+    adaln, attention, conv3x3, group_norm, qk_rope, repellency_kernels)
 
 pytestmark = pytest.mark.cuda
 
@@ -1214,8 +1214,14 @@ def test_each_wrapper_call_counts_one_launch(dev):
         x.reshape(1, 512, 80), 2))
     row = torch.randn(2, 256, device=dev).bfloat16()
     adaln.adaln(torch.randn(2, 16, 256, device=dev).bfloat16(), row, row)
+    ones = torch.ones(64, device=dev).bfloat16()
+    seg = tuple(torch.randn(1, 8, 2, 64, device=dev).bfloat16()
+                for _ in range(3)) + (ones, ones)
+    qk_rope.qk_rope([seg, seg], torch.ones(16, 64, device=dev),
+                    torch.zeros(16, 64, device=dev))
     torch.cuda.synchronize()
-    assert set(ops.launch_counts().values()) == {1}
+    counts = ops.launch_counts()
+    assert set(counts.values()) == {1}, counts
 
 
 # ------------------------------------------- repellency methods and Q16

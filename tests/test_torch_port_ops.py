@@ -22,6 +22,7 @@ from safe_denoiser_tpu_torch.ops import adaln as t_adaln
 from safe_denoiser_tpu_torch.ops import attention as t_attn
 from safe_denoiser_tpu_torch.ops import conv3x3 as t_conv
 from safe_denoiser_tpu_torch.ops import group_norm as t_gn
+from safe_denoiser_tpu_torch.ops import qk_rope as t_qk_rope
 from safe_denoiser_tpu_torch.ops import repellency_kernels as t_rep
 
 
@@ -252,6 +253,9 @@ def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
     row = torch.randn(2, 64).bfloat16()
     t_adaln.adaln(torch.randn(2, 16, 64).bfloat16(), row, row, row,
                   torch.randn(2, 16, 64).bfloat16())
+    seg = tuple(torch.randn(1, 8, 2, 64).bfloat16() for _ in range(3)) + (
+        torch.ones(64).bfloat16(),) * 2
+    t_qk_rope.qk_rope([seg, seg], torch.ones(16, 64), torch.zeros(16, 64))
     assert ops.launch_counts() == {"attention": 0, "attention_i8": 0,
                                    "attention_nt": 0, "attention_bshd": 0,
                                    "repack_to_heads": 0,
@@ -259,7 +263,7 @@ def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
                                    "conv3x3_up": 0,
                                    "conv3x3_up_interleave": 0, "conv3x3": 0,
                                    "gn_stats": 0, "gn_fused": 0,
-                                   "adaln": 0}
+                                   "adaln": 0, "qk_rope": 0}
 
 
 @pytest.mark.parametrize("call", [
@@ -280,10 +284,14 @@ def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
     lambda x: t_conv.conv3x3_up(x((1, 16, 16, 128)), x((128, 128, 3, 3)),
                                 form="interleave"),
     lambda x: t_gn.group_norm_fused(x((1, 4096, 320)), x((320,)),
-                                    x((320,)), 32)],
+                                    x((320,)), 32),
+    lambda x: t_qk_rope.qk_rope(
+        [(x((1, 64, 2, 64)), x((1, 64, 2, 64)), x((1, 64, 2, 64)),
+          x((64,)), x((64,)))], x((64, 64)).float(), x((64, 64)).float())],
     ids=["attention", "attention_i8", "attention_nt", "attention_bshd",
          "repack_to_heads", "repack_from_heads", "rbf", "conv3x3_up",
-         "conv3x3", "gn_stats", "conv3x3_up_interleave", "gn_fused"])
+         "conv3x3", "gn_stats", "conv3x3_up_interleave", "gn_fused",
+         "qk_rope"])
 def test_non_cpu_tensors_never_take_the_plain_version(call):
     """No fallback: only a CPU tensor takes the plain version. A tensor on
     any other device goes to the kernel's wrapper, which raises here (no
